@@ -1,0 +1,96 @@
+"""Production inference CLI of the PyTorch port (reference predict.py:61-81
+parity).
+
+Usage: ``python -m neuralbarkcalculator_tpu_torch.cli.predict ROOT_DIR
+[--device {cuda,cpu}] [--exclude_nodes] [--only_preprocess]``
+
+Runs on the card by default (``--device cuda``) and raises when there is
+none; ``--device cpu`` runs the same path on the CPU. It creates the
+output folders, preprocesses ROOT/samples on the host (native resize +
+trim) and predicts, streaming (preprocess overlapped with prediction) or
+sequentially.
+"""
+from __future__ import annotations
+
+import argparse
+
+from ..models.segmentation import MODEL_FACTORIES
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="bark calculator inference (PyTorch / CUDA)")
+    parser.add_argument("root_path", type=str, help="root directory path.")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="run on the CUDA card (default; fails without "
+                             "one) or on the CPU")
+    parser.add_argument("--exclude_nodes", action="store_true",
+                        default=False)
+    parser.add_argument("--only_preprocess", action="store_true",
+                        default=False)
+    parser.add_argument("--model_path", type=str, default="./best_model.pt",
+                        help="reference best_model.pt (torchvision-named "
+                             "state dict; reference predict.py:57)")
+    parser.add_argument("--model", type=str, default="fcn_resnet50",
+                        choices=sorted(MODEL_FACTORIES),
+                        help="model zoo entry (fcn_resnet50 is the "
+                             "reference production model, models.py:221)")
+    parser.add_argument("--batch_size", type=int, default=None,
+                        help="images per device step (default from "
+                             "PredictConfig)")
+    parser.add_argument("--dpi", type=int, default=None,
+                        help="combined-figure dpi (reference hardcodes "
+                             "900, models.py:346)")
+    parser.add_argument("--float32", action="store_true", default=False,
+                        help="run the conv stack in float32 (TF32 off) "
+                             "instead of bfloat16")
+    parser.add_argument("--profile", action="store_true", default=False,
+                        help="print per-stage wall-time report at the end")
+    parser.add_argument("--pipeline", type=str, default="streaming",
+                        choices=("streaming", "sequential"),
+                        help="'streaming' (the default) feeds preprocessed "
+                             "images to the predict pump as they finish; "
+                             "'sequential' runs the two stages back to back")
+    return parser
+
+
+def main(args: argparse.Namespace) -> None:
+    from ..config import PredictConfig
+    from ..data.dataset import make_dataset
+    from ..pipeline.folders import generate_folders
+    from ..pipeline.predict import NeuralBarkCalculator
+    from ..pipeline.preprocess import Preprocessor
+
+    config = PredictConfig(model_path=args.model_path)
+    if args.batch_size is not None:
+        config.batch_size = args.batch_size
+    if args.dpi is not None:
+        config.figure_dpi = args.dpi
+    if args.float32:
+        config.use_bfloat16 = False
+
+    generate_folders(args.root_path, args.only_preprocess)
+    pre = Preprocessor()
+    if args.only_preprocess:
+        pre.preprocess_images(args.root_path)
+    else:
+        model = NeuralBarkCalculator(args.model_path, config=config,
+                                     model_name=args.model,
+                                     device=args.device)
+        if args.pipeline == "streaming":
+            model.predict_streaming(
+                args.root_path, pre.preprocess_stream(args.root_path),
+                exclude_nodes=args.exclude_nodes,
+                total=len(make_dataset(args.root_path)))
+        else:
+            images = pre.preprocess_images(args.root_path)
+            model.predict(args.root_path, args.exclude_nodes,
+                          images=images)
+    if args.profile:
+        from ..utils.profiling import print_report
+        print_report()
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

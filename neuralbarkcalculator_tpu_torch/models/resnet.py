@@ -1,0 +1,176 @@
+"""Dilated ResNet backbones with torchvision state-dict names, in PyTorch.
+
+The reference backbone is torchvision ``resnet50`` with
+``replace_stride_with_dilation=[False, True, True]`` wrapped in
+``IntermediateLayerGetter({'layer4': 'out'})`` (reference
+models.py:127-139). Module names follow torchvision's, so a reference
+``best_model.pt`` loads with ``load_state_dict``. Output stride is 8;
+layer3/layer4 run at dilation 2/4 and the 3x3 conv carries the stride
+(ResNet v1.5).
+
+Public tensors are NHWC, like the JAX package's; inside, the modules run
+NCHW (an NHWC tensor viewed as NCHW is already ``channels_last``).
+
+``folded``: every BatchNorm has been constant-folded into its producer
+conv (models/fold.py). The BN modules are ``nn.Identity`` and the convs
+carry biases.
+
+Ragged-height batching (``valid_h``): images of different trimmed heights
+are zero-padded to one static height. A row mask zeroes the input of
+every op whose kernel mixes rows (each block's 3x3 conv and the max pool;
+the head masks its 3x3 conv), which is what per-image conv zero padding
+gives at the true bottom edge. 1x1 convs, BN and ReLU are pointwise, so
+the rows they make past ``valid_h`` are cleaned at the next masked op.
+Per-stage valid heights follow ``conv_out_size``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-5  # torchvision BatchNorm2d default
+
+
+def conv_out_size(h, kernel: int, stride: int, padding: int):
+    """Conv output length along one dim (ints or integer tensors)."""
+    return (h + 2 * padding - kernel) // stride + 1
+
+
+def row_mask(valid_h: torch.Tensor, height: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """[B] valid heights -> [B, 1, height, 1] {0,1} mask (NCHW rows)."""
+    rows = torch.arange(height, device=valid_h.device)
+    return (rows[None, :] < valid_h[:, None]).to(dtype)[:, None, :, None]
+
+
+def apply_row_mask(x: torch.Tensor, valid_h: torch.Tensor | None
+                   ) -> torch.Tensor:
+    """Zero rows >= valid_h of an NCHW tensor; no-op when valid_h is None."""
+    if valid_h is None:
+        return x
+    return x * row_mask(valid_h, x.shape[2], x.dtype)
+
+
+def _norm(channels: int, folded: bool) -> nn.Module:
+    return nn.Identity() if folded else nn.BatchNorm2d(channels, eps=BN_EPS)
+
+
+class Bottleneck(nn.Module):
+    """torchvision Bottleneck (expansion 4, stride on the 3x3 conv)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, has_downsample: bool = False,
+                 folded: bool = False):
+        super().__init__()
+        bias = folded
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=bias)
+        self.bn1 = _norm(planes, folded)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
+                               padding=dilation, dilation=dilation,
+                               bias=bias)
+        self.bn2 = _norm(planes, folded)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=bias)
+        self.bn3 = _norm(planes * 4, folded)
+        self.downsample = None
+        if has_downsample:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=bias),
+                _norm(planes * 4, folded))
+
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        identity = x
+        out = F.relu(self.bn1(self.conv1(x)))
+        # conv2 is the only row-mixing op in the block
+        out = apply_row_mask(out, valid_h)
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return F.relu(out + identity)
+
+
+class DilatedResNet(nn.Module):
+    """ResNet backbone with stride->dilation replacement, returning the
+    layer4 feature map."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 replace_stride_with_dilation: Sequence[bool] = (
+                     False, True, True),
+                 folded: bool = False):
+        super().__init__()
+        self.stage_sizes = tuple(stage_sizes)
+        self.replace_stride_with_dilation = tuple(
+            replace_stride_with_dilation)
+        self.folded = folded
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=folded)
+        self.bn1 = _norm(64, folded)
+        self._strides = []  # each stage's stride after dilation replacement
+        inplanes, dilation = 64, 1
+        for stage, num_blocks in enumerate(self.stage_sizes):
+            planes = 64 * (2 ** stage)
+            stride = 1 if stage == 0 else 2
+            prev_dilation = dilation
+            if stage > 0 and self.replace_stride_with_dilation[stage - 1]:
+                dilation *= stride
+                stride = 1
+            blocks = []
+            for block in range(num_blocks):
+                first = block == 0
+                blocks.append(Bottleneck(
+                    inplanes, planes,
+                    stride=stride if first else 1,
+                    dilation=prev_dilation if first else dilation,
+                    has_downsample=first and (
+                        stride != 1 or inplanes != planes * 4),
+                    folded=folded))
+                inplanes = planes * 4
+            self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
+            self._strides.append(stride)
+        self.out_channels = inplanes
+
+    @property
+    def feature_stride(self) -> int:
+        """Output stride: stem (2) x pool (2) x each non-dilated stage."""
+        stride = 4
+        for s in self._strides:
+            stride *= s
+        return stride
+
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        """NCHW input (zero below valid_h) -> NCHW layer4 features."""
+        x = F.relu(self.bn1(self.conv1(x)))
+        h = None if valid_h is None else conv_out_size(valid_h, 7, 2, 3)
+        # masked zeros equal max_pool2d's -inf padding here because the
+        # pool's input is post-ReLU (>= 0)
+        x = apply_row_mask(x, h)
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        if h is not None:
+            h = conv_out_size(h, 3, 2, 1)
+        for stage, stride in enumerate(self._strides):
+            for i, block in enumerate(getattr(self, f"layer{stage + 1}")):
+                x = block(x, valid_h=h)
+                if i == 0 and h is not None and stride != 1:
+                    h = conv_out_size(h, 3, stride, 1)
+        return x
+
+    def valid_feature_height(self, valid_h):
+        """Valid rows of the feature map for input valid_h (the same conv
+        arithmetic the masked forward uses)."""
+        h = conv_out_size(valid_h, 7, 2, 3)   # stem conv
+        h = conv_out_size(h, 3, 2, 1)         # max pool
+        for stride in self._strides:
+            if stride != 1:
+                h = conv_out_size(h, 3, stride, 1)  # stage's strided conv2
+        return h
+
+
+def resnet50_dilated(folded: bool = False) -> DilatedResNet:
+    """Backbone of reference fcn_resnet50 (models.py:127-134)."""
+    return DilatedResNet(stage_sizes=(3, 4, 6, 3), folded=folded)

@@ -1,0 +1,133 @@
+"""Fused bicubic upsample + class argmax: the CUDA kernel and its plain
+version.
+
+``upsample_argmax(feat, row_ops, colt)`` maps stride-8 head logits
+``feat [B, F, Wf, 3]`` (float32), per-image embedded row operators
+``row_ops [B, OH, F]`` and the transposed width operator ``colt [Wf, OW]``
+to the uint8 class map ``[B, OH, OW]``, without writing the float
+upsampled logits anywhere. It replaces the Pallas TPU kernel
+``neuralbarkcalculator_tpu/ops/pallas_kernels.py::upsample_argmax``.
+
+- On CUDA tensors it launches the hand-written kernel
+  (``csrc/upsample_argmax.cu``, built at first use) or raises.
+- On CPU tensors it runs ``upsample_argmax_plain``, the same function as
+  torch ops. That is the only case the plain version serves.
+
+``launches`` counts kernel launches (``LAUNCHES.count``), so a run can
+show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ..utils.build import build_kernels
+
+
+class LaunchCounter:
+    """A thread-safe count of kernel launches."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.count = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+
+
+LAUNCHES = LaunchCounter()
+
+# the per-block shared-memory ceiling on Hopper (232,448 bytes)
+_MAX_SMEM = 227 * 1024
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _kernel_lib():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_kernels())
+            lib.upsample_argmax_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lib.upsample_argmax_launch.restype = ctypes.c_int
+            lib.upsample_argmax_smem_bytes.argtypes = [ctypes.c_int,
+                                                       ctypes.c_int]
+            lib.upsample_argmax_smem_bytes.restype = ctypes.c_size_t
+            _lib = lib
+        return _lib
+
+
+def upsample_argmax_plain(feat: torch.Tensor, row_ops: torch.Tensor,
+                          colt: torch.Tensor) -> torch.Tensor:
+    """The same function as plain torch ops: two float32 products per
+    class plane (run with TF32 off on a card), then argmax with
+    first-index ties (torch.argmax returns the first maximal index)."""
+    planes = feat.float().permute(0, 3, 1, 2)            # [B, 3, F, Wf]
+    rows = torch.einsum("bof,bcfw->bcow", row_ops.float(), planes)
+    logits = torch.einsum("bcow,wp->bcop", rows, colt.float())
+    return logits.argmax(dim=1).to(torch.uint8)
+
+
+def _check(feat, row_ops, colt) -> None:
+    for name, t in (("feat", feat), ("row_ops", row_ops), ("colt", colt)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"upsample_argmax: {name} must be float32, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"upsample_argmax: {name} must be contiguous")
+    if feat.dim() != 4 or feat.shape[3] != 3:
+        raise ValueError(f"upsample_argmax: feat must be [B, F, Wf, 3], "
+                         f"got {tuple(feat.shape)}")
+    b, f, wf, _ = feat.shape
+    if row_ops.dim() != 3 or row_ops.shape[0] != b or row_ops.shape[2] != f:
+        raise ValueError(f"upsample_argmax: row_ops must be [{b}, OH, {f}], "
+                         f"got {tuple(row_ops.shape)}")
+    if colt.dim() != 2 or colt.shape[0] != wf:
+        raise ValueError(f"upsample_argmax: colt must be [{wf}, OW], got "
+                         f"{tuple(colt.shape)}")
+
+
+def upsample_argmax(feat: torch.Tensor, row_ops: torch.Tensor,
+                    colt: torch.Tensor) -> torch.Tensor:
+    """[B, F, Wf, 3] f32, [B, OH, F] f32, [Wf, OW] f32 -> [B, OH, OW] u8."""
+    _check(feat, row_ops, colt)
+    devices = {feat.device, row_ops.device, colt.device}
+    if len(devices) != 1:
+        raise ValueError(f"upsample_argmax: inputs on several devices "
+                         f"{sorted(map(str, devices))}")
+    device = feat.device
+    if device.type == "cpu":
+        return upsample_argmax_plain(feat, row_ops, colt)
+    if device.type != "cuda":
+        raise ValueError(f"upsample_argmax: no kernel for device {device}")
+    b, f, wf, _ = feat.shape
+    oh, ow = row_ops.shape[1], colt.shape[1]
+    lib = _kernel_lib()
+    smem = lib.upsample_argmax_smem_bytes(f, wf)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"upsample_argmax: F={f}, Wf={wf} need {smem} B of "
+                         f"shared memory per block, above {_MAX_SMEM}")
+    out = torch.empty((b, oh, ow), dtype=torch.uint8, device=device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.upsample_argmax_launch(
+            feat.data_ptr(), row_ops.data_ptr(), colt.data_ptr(),
+            out.data_ptr(), b, oh, f, wf, ow, stream)
+    if rc != 0:
+        raise RuntimeError(f"upsample_argmax kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES.add()
+    return out

@@ -1,0 +1,500 @@
+"""The folder inference engine (reference NeuralBarkCalculator,
+models.py:206-364), in PyTorch for one CUDA card.
+
+The reference runs strictly batch_size=1. Here the whole folder is
+batched:
+
+- processed images (uint8, width 1024, ragged trimmed heights) are grouped
+  into static height buckets (multiples of PredictConfig.height_bucket) and
+  batched up a power-of-two ladder; per-image row masks and embedded
+  bicubic row operators make the padded batch exactly equivalent to
+  per-image execution (models/resnet.py, ops/resize.py);
+- one device step per batch: uint8 -> float, normalize, re-zero the rows
+  past each image's height, the dilated ResNet-50 + FCN head
+  (``head_logits``: cuDNN convolutions, bf16 and channels_last by
+  default) under ``torch.inference_mode()``, then the hand-written CUDA
+  kernel ``upsample_argmax`` (bicubic upsample + argmax in one pass), then
+  a 2-bit pack so the pull moves a quarter of the bytes;
+- ``PREFETCH`` chunks are in flight on a worker pool, each doing decode ->
+  pad -> upload -> device step -> pull; the caller's thread runs the
+  native union-find postprocess (remove_small_zones + exclude_nodes remap
+  + class counts, io/native.py) and hands the maps to the artifact writer
+  (pipeline/report.py).
+
+Checkpoints: a reference ``best_model.pt`` (torchvision-named state dict)
+or weights carried across from the JAX package with
+models/convert.variables_to_state_dict and saved as ``.pt``.
+"""
+from __future__ import annotations
+
+import os
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..config import PredictConfig
+from ..data.dataset import make_dataset
+from ..io.native import image_info, load_image_u8, remove_small_zones_host2
+from ..models.convert import load_state_dict_into, load_torch_checkpoint
+from ..models.fold import fold_model
+from ..models.resnet import row_mask
+from ..models.segmentation import MODEL_FACTORIES
+from ..ops.resize import column_operator_t, embedded_bicubic_rows
+from ..ops.upsample_argmax import upsample_argmax
+from ..utils.device import resolve_device, set_float32_exact
+from ..utils.profiling import stage_timer
+from .preprocess import ProcessedImage
+from .report import PredictReporter
+
+
+# chunks in flight in the predict pump
+PREFETCH = 2
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    """Smallest multiple of m that is >= n (and >= m)."""
+    return max(m, ((n + m - 1) // m) * m)
+
+
+class NeuralBarkCalculator:
+    """Folder predictor with the reference's public surface
+    (models.py:212-245): ``NeuralBarkCalculator(model_path).predict(root,
+    exclude_nodes)``.
+
+    ``device``: ``"cuda"`` (the default) runs on the card and raises when
+    there is none; ``"cpu"`` runs the same path on the CPU, where the
+    kernel's plain version stands in for it.
+    """
+
+    def __init__(self, model_path: str,
+                 config: PredictConfig | None = None,
+                 model_name: str = "fcn_resnet50",
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.config = config or PredictConfig(model_path=model_path)
+        if model_name not in MODEL_FACTORIES:
+            raise NotImplementedError(
+                f"model {model_name!r} is not ported yet (have "
+                f"{sorted(MODEL_FACTORIES)})")
+        self.dtype = (torch.bfloat16 if self.config.use_bfloat16
+                      else torch.float32)
+        if self.dtype == torch.float32:
+            set_float32_exact(self.device)
+        model = MODEL_FACTORIES[model_name]()
+        load_state_dict_into(model, _load_state_dict(model_path))
+        # constant-fold eval-mode BatchNorm into the conv weights and biases
+        model = fold_model(model)
+        # bf16 runs channels_last, cuDNN's fast layout; an NHWC batch
+        # viewed as NCHW already has that layout
+        fmt = (torch.channels_last if self.dtype == torch.bfloat16
+               else torch.contiguous_format)
+        self.model = model.to(device=self.device, dtype=self.dtype,
+                              memory_format=fmt).eval()
+        self.mean = torch.tensor(self.config.mean, dtype=torch.float32,
+                                 device=self.device)
+        self.std = torch.tensor(self.config.std, dtype=torch.float32,
+                                device=self.device)
+        self._cache_stats = {"launch_shapes": 0, "rowop_evictions": 0,
+                             "bytes_h2d": 0}
+        self._launch_shapes: set[tuple[int, int, int]] = set()
+        self._stats_lock = threading.Lock()
+        # device-resident per-height row operators, keyed (h, pad_h), and
+        # the shared width operators, keyed (Wf, W); the lock serializes
+        # misses from concurrent pump workers
+        self._rowop_cache: dict[tuple[int, int], torch.Tensor] = {}
+        self._colt_cache: dict[tuple[int, int], torch.Tensor] = {}
+        self._cache_lock = threading.Lock()
+
+    def _bucket_of(self, h: int) -> int:
+        return pad_to_multiple(h, self.config.height_bucket)
+
+    # ------------------------------------------------------------- public
+
+    def predict(self, root_path: str, exclude_nodes: bool = False,
+                images: Sequence[ProcessedImage] | None = None,
+                progress: bool = True, resume: bool = False,
+                shard: tuple[int, int] | None = None) -> str:
+        """Predict every image under root/processed, writing results/
+        artifacts (combined figures, dual PNGs, final_stats.csv). Returns
+        the csv path.
+
+        ``images`` short-circuits re-reading the PNGs when the caller just
+        preprocessed them in the same process. Without it, image sizes
+        come from file headers and each chunk is decoded just in time on
+        the pump's workers, so folder size never bounds host memory.
+
+        ``resume`` and ``shard`` are not ported yet and raise.
+        """
+        if resume:
+            raise NotImplementedError("resume is not ported yet")
+        if shard is not None:
+            raise NotImplementedError("sharded folder runs are not ported "
+                                      "yet")
+        processed_path = os.path.join(root_path, "processed")
+        reporter = self._reporter(root_path)
+        if images is None:
+            records = make_dataset(processed_path)
+            n = len(records)
+
+            def size_of(i: int) -> tuple[int, int]:
+                return _header_size(records[i].sample_path)
+
+            def decode_chunk(idxs):
+                return [ProcessedImage(
+                    load_image_u8(records[i].sample_path),
+                    records[i].fname, records[i].wood_type) for i in idxs]
+        else:
+            n = len(images)
+
+            def size_of(i: int) -> tuple[int, int]:
+                return images[i].image.shape[:2]
+
+            def decode_chunk(idxs):
+                return [images[i] for i in idxs]
+
+        chunks = self._plan_chunks([(i, *size_of(i)) for i in range(n)])
+        bar = _progress_bar(progress, sum(len(c[1]) for c in chunks))
+        for idx, item, cmap, counts3 in self._run_chunks(
+                chunks, decode_chunk, exclude_nodes):
+            reporter.add(item.image, cmap, item.fname, item.wood_type,
+                         order=idx, counts3=counts3)
+            if bar is not None:
+                bar.update(1)
+        if bar is not None:
+            bar.close()
+        return reporter.finalize()
+
+    def predict_images(self, images: Sequence[ProcessedImage],
+                       exclude_nodes: bool = False,
+                       with_counts: bool = False):
+        """Yield (ProcessedImage, class_map[h, w] uint8) for each image, in
+        batched bucket order. ``with_counts=True`` yields (item,
+        class_map, counts3) instead, counts3 being the int64 [3] per-class
+        pixel count the native postprocess already produced."""
+        chunks = self._plan_chunks(
+            [(i, *im.image.shape[:2]) for i, im in enumerate(images)])
+        for _, item, cmap, counts in self._run_chunks(
+                chunks, lambda idxs: [images[i] for i in idxs],
+                exclude_nodes):
+            yield (item, cmap, counts) if with_counts else (item, cmap)
+
+    def predict_streaming(self, root_path: str, stream,
+                          exclude_nodes: bool = False,
+                          total: int | None = None,
+                          progress: bool = True) -> str:
+        """Full-pipeline fusion: consume a live (manifest_idx,
+        ProcessedImage) stream (Preprocessor.preprocess_stream) and feed
+        the pump as images arrive, so preprocess and predict overlap, with
+        at most (open buckets x batch_size) images buffered in the planner
+        plus ``PREFETCH`` chunks in flight. CSV rows land in manifest
+        order through the stream's indices: the output equals the
+        sequential path's."""
+        import queue as _queue
+
+        reporter = self._reporter(root_path)
+        bs = self.config.batch_size
+        chunk_q: _queue.Queue = _queue.Queue(
+            maxsize=PREFETCH)
+        items_by_idx: dict[int, ProcessedImage] = {}
+        items_lock = threading.Lock()
+        planner_err: list[BaseException] = []
+
+        def planner() -> None:
+            pending: dict[tuple[int, int], list[int]] = {}
+            try:
+                for idx, item in stream:
+                    with items_lock:
+                        items_by_idx[idx] = item
+                    key = (self._bucket_of(item.image.shape[0]),
+                           item.image.shape[1])
+                    group = pending.setdefault(key, [])
+                    group.append(idx)
+                    if len(group) == bs:
+                        chunk_q.put((key[0], pending.pop(key)))
+                for (pad_h, _w), idxs in sorted(pending.items()):
+                    chunk_q.put((pad_h, idxs))
+            except BaseException as e:  # re-raised by the consumer
+                planner_err.append(e)
+            finally:
+                chunk_q.put(None)
+
+        def take_items(idxs):
+            with items_lock:
+                return [items_by_idx.pop(i) for i in idxs]
+
+        def chunk_iter():
+            while True:
+                c = chunk_q.get()
+                if c is None:
+                    if planner_err:
+                        raise planner_err[0]
+                    return
+                yield c
+
+        t = threading.Thread(target=planner, daemon=True)
+        t.start()
+        bar = _progress_bar(progress and bool(total), total)
+        for idx, item, cmap, counts3 in self._run_chunks(
+                chunk_iter(), take_items, exclude_nodes):
+            reporter.add(item.image, cmap, item.fname, item.wood_type,
+                         order=idx, counts3=counts3)
+            if bar is not None:
+                bar.update(1)
+        t.join()
+        if bar is not None:
+            bar.close()
+        return reporter.finalize()
+
+    def cache_stats(self) -> dict:
+        """Telemetry: ``launch_shapes`` counts distinct (pad_h, batch,
+        width) device-step shapes run; ``rowop_evictions`` counts row
+        operators dropped from the 128-entry device cache; ``bytes_h2d``
+        counts host->device pixel bytes, dummy rows of the pow2 ladder
+        included."""
+        with self._stats_lock:
+            return dict(self._cache_stats)
+
+    def launch_item_counts(self) -> list[int]:
+        """One representative item count per distinct launch-batch size:
+        feeding the engine each of these covers every batch shape a
+        micro-batch of 1..batch_size items can hit."""
+        reps: dict[int, int] = {}
+        for n in range(1, self.config.batch_size + 1):
+            reps.setdefault(self._padded_batch(n), n)
+        return sorted(reps.values())
+
+    # --------------------------------------------------- unified engine
+
+    def _reporter(self, root_path: str) -> PredictReporter:
+        return PredictReporter(os.path.join(root_path, "results"),
+                               dpi=self.config.figure_dpi,
+                               mm_per_pix=self.config.mm_per_pix)
+
+    def _plan_chunks(self, sizes: list[tuple[int, int, int]]
+                     ) -> list[tuple[int, list[int]]]:
+        """(index, trimmed height, width) triples -> [(pad_h, [index...])]:
+        group into (height bucket, width) shapes, split into batch-size
+        chunks. Same-height images of different widths never share a
+        chunk."""
+        buckets: dict[tuple[int, int], list[int]] = {}
+        for i, h, w in sizes:
+            buckets.setdefault((self._bucket_of(h), w), []).append(i)
+        bs = self.config.batch_size
+        return [(pad_h, idxs[s:s + bs])
+                for (pad_h, _w), idxs in sorted(buckets.items())
+                for s in range(0, len(idxs), bs)]
+
+    def _run_chunks(self, chunks, decode_chunk, exclude_nodes: bool):
+        """The pump: each chunk's round trip (decode -> pad -> upload ->
+        device step -> pull) runs as one worker task, ``PREFETCH`` chunks
+        in flight, consumed in submission order; the caller's thread
+        postprocesses and yields (index, ProcessedImage, class_map,
+        counts3). The workers share the current CUDA stream, so the
+        device runs the steps in submission order."""
+        def pump_one(pad_h, idxs):
+            items = decode_chunk(idxs)
+            valid_h, out = self._launch_batch(items, pad_h)
+            return items, valid_h, out
+
+        with ThreadPoolExecutor(max_workers=PREFETCH) as pool:
+            it = iter(chunks)
+            window: deque = deque()
+
+            def submit_next() -> bool:
+                try:
+                    pad_h, idxs = next(it)
+                except StopIteration:
+                    return False
+                window.append((idxs, pool.submit(pump_one, pad_h, idxs)))
+                return True
+
+            for _ in range(PREFETCH):
+                if not submit_next():
+                    break
+            while window:
+                idxs, fut = window.popleft()
+                items, valid_h, out = fut.result()
+                submit_next()
+                yield from self._finish_batch_raw(exclude_nodes, idxs,
+                                                  items, valid_h, out)
+
+    def _finish_batch_raw(self, exclude_nodes, chunk_idxs, items, valid_h,
+                          out):
+        if out.shape[0] > len(items):  # drop pow2-ladder dummy rows
+            out = out[:len(items)]
+            valid_h = valid_h[:len(items)]
+        pad_h = out.shape[1]
+        w = items[0].image.shape[1]
+        packed = out.shape[2] != w  # 2-bit packed device pull
+        with stage_timer(f"predict/postprocess_h{pad_h}"):
+            # one native pass: unpack + remove_small_zones + exclude_nodes
+            # remap + per-class counts
+            out, counts = remove_small_zones_host2(
+                out, w, valid_h, packed=packed, exclude_nodes=exclude_nodes)
+        for i, (idx, item) in enumerate(zip(chunk_idxs, items)):
+            yield idx, item, out[i, :item.image.shape[0]], counts[i]
+
+    # ------------------------------------------------------------ internal
+
+    def _pad_group(self, items: Sequence[ProcessedImage], pad_h: int,
+                   n_pad: int) -> np.ndarray:
+        """[n_pad, pad_h, w, 3] uint8 from trimmed images: pad rows and
+        the dummy rows past len(items) are zero (the zero-beyond-valid_h
+        invariant the masking relies on). Only the padding is filled."""
+        w = items[0].image.shape[1]
+        buf = np.empty((n_pad, pad_h, w, 3), np.uint8)
+        for i, item in enumerate(items):
+            h = item.image.shape[0]
+            buf[i, :h] = item.image
+            buf[i, h:] = 0
+        buf[len(items):] = 0
+        with self._stats_lock:
+            self._cache_stats["bytes_h2d"] += buf.nbytes
+        return buf
+
+    def _padded_batch(self, n: int) -> int:
+        """Launch-batch size for ``n`` items: rounded up the
+        {1,2,4,...,batch_size} ladder with dummy rows, so a folder tail or
+        a micro-batch of any size hits one of a few launch shapes; dummy
+        rows are dropped before postprocess."""
+        bs = self.config.batch_size
+        if 0 < n < bs:
+            p = 1
+            while p < n:
+                p *= 2
+            n = min(p, bs)
+        return n
+
+    def _launch_batch(self, items: list[ProcessedImage], pad_h: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        """Pad a bucket chunk, run the device step and pull the maps.
+        Returns (valid_h [n_pad] int32, class maps [n_pad, pad_h, w or
+        w/4] uint8) on the host; rows past len(items) are dummies."""
+        if pad_h % 8:
+            raise ValueError(
+                f"height bucket {pad_h} must be a multiple of 8 (the "
+                f"model's output stride); set PredictConfig.height_bucket "
+                f"accordingly")
+        n = len(items)
+        n_pad = self._padded_batch(n)
+        w = items[0].image.shape[1]
+        valid_h = np.array([it.image.shape[0] for it in items]
+                           + [items[0].image.shape[0]] * (n_pad - n),
+                           np.int32)
+        batch = self._pad_group(items, pad_h, n_pad)
+        # dummies reuse image 0's operator
+        ops = [self._row_op_dev(int(h), pad_h) for h in valid_h]
+        with self._stats_lock:
+            self._launch_shapes.add((pad_h, n_pad, w))
+            self._cache_stats["launch_shapes"] = len(self._launch_shapes)
+        with stage_timer(f"predict/dispatch_h{pad_h}"), \
+                torch.inference_mode():
+            x = torch.from_numpy(batch).to(self.device)
+            vh = torch.from_numpy(valid_h).to(self.device)
+            out = self._device_step(x, vh, torch.stack(ops),
+                                    pack=w % 4 == 0)
+        with stage_timer(f"predict/pull_h{pad_h}"):
+            out = out.cpu().numpy()  # waits for the device step
+        return valid_h, out
+
+    def _row_op_dev(self, h: int, pad_h: int) -> torch.Tensor:
+        """The embedded (feat_h -> h) bicubic row operator for one trimmed
+        height, uploaded once and cached on the device."""
+        key = (h, pad_h)
+        with self._cache_lock:
+            op = self._rowop_cache.get(key)
+            if op is None:
+                feat_h = self.model.backbone.valid_feature_height(h)
+                op = torch.from_numpy(embedded_bicubic_rows(
+                    feat_h, h, pad_h // 8, pad_h)).to(self.device)
+                if len(self._rowop_cache) >= 128:  # bound: 128 x 512 KB
+                    self._rowop_cache.pop(next(iter(self._rowop_cache)))
+                    with self._stats_lock:
+                        self._cache_stats["rowop_evictions"] += 1
+                self._rowop_cache[key] = op
+        return op
+
+    def _colt_dev(self, wf: int, w: int) -> torch.Tensor:
+        """The transposed (wf -> w) width operator, cached on the device."""
+        with self._cache_lock:
+            op = self._colt_cache.get((wf, w))
+            if op is None:
+                op = torch.from_numpy(column_operator_t(wf, w)).to(
+                    self.device)
+                self._colt_cache[(wf, w)] = op
+        return op
+
+    def _device_step(self, batch_u8: torch.Tensor, valid_h: torch.Tensor,
+                     row_ops: torch.Tensor, pack: bool) -> torch.Tensor:
+        """[B, pad_h, W, 3] uint8 -> class maps [B, pad_h, W] uint8, or
+        [B, pad_h, W/4] 2-bit packed, on the device."""
+        feat = self._logits(batch_u8, valid_h)
+        preds = upsample_argmax(
+            feat, row_ops, self._colt_dev(feat.shape[2], batch_u8.shape[2]))
+        return pack2bit(preds) if pack else preds
+
+    def _logits(self, batch_u8: torch.Tensor, valid_h: torch.Tensor
+                ) -> torch.Tensor:
+        """[B, pad_h, W, 3] uint8 -> float32 stride-8 head logits
+        [B, pad_h/8, W/8, 3], in the engine's dtype and layout."""
+        x = batch_u8.float() / 255.0
+        x = (x - self.mean) / self.std
+        # normalization turns the zero-padded rows into -mean/std; re-zero
+        # them: the ragged exactness needs the input zero beyond valid_h,
+        # matching the reference's per-image conv zero padding
+        x = x * row_mask(valid_h, x.shape[1], x.dtype).view(
+            x.shape[0], x.shape[1], 1, 1)
+        return self.model.head_logits(x.to(self.dtype), valid_h)
+
+
+def pack2bit(m: torch.Tensor) -> torch.Tensor:
+    """[B, H, W] uint8 {0,1,2} -> [B, H, W//4] uint8, 4 pixels per byte
+    (pixel k of each group in bits 2k..2k+1): a quarter of the bytes to
+    pull to the host."""
+    m4 = m.view(m.shape[0], m.shape[1], -1, 4)
+    return (m4[..., 0] | (m4[..., 1] << 2) | (m4[..., 2] << 4)
+            | (m4[..., 3] << 6))
+
+
+def _progress_bar(enabled: bool, total: int | None):
+    if not enabled:
+        return None
+    try:
+        from tqdm import tqdm
+    except ImportError:  # pragma: no cover
+        return None
+    return tqdm(total=total, ascii=True, desc="Predicted images")
+
+
+def _header_size(path: str) -> tuple[int, int]:
+    """Image (height, width) from the file header alone (no pixel
+    decode); PIL for formats the native runtime does not read."""
+    info = image_info(path)
+    if info is not None:
+        return info[0], info[1]
+    from PIL import Image
+    with open(path, "rb") as f:
+        w, h = Image.open(f).size  # lazy: header only
+    return h, w
+
+
+def _load_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A torchvision-named state dict from a ``.pt`` / ``.pth`` file."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"model checkpoint not found: {path!r} (expected a reference "
+            f"best_model.pt; the predict CLI looks for ./best_model.pt by "
+            f"default, reference predict.py:57)")
+    if path.endswith((".pt", ".pth")):
+        return load_torch_checkpoint(path)
+    raise NotImplementedError(
+        f"{path!r}: only .pt/.pth state dicts load in the port; export "
+        f"flax .msgpack or orbax checkpoints with "
+        f"tools/export_torch_checkpoint.py")
+
+
+__all__ = ["NeuralBarkCalculator", "pack2bit"]

@@ -1,0 +1,140 @@
+"""Host-side artifact rendering: combined figures, dual PNGs, stats CSV.
+
+Reproduces the reference's output artifacts byte-layout-compatibly
+(reference models.py:263-364):
+
+- ``results/combined_images/<wood_type>/<fname>``: matplotlib side-by-side
+  Input / Generated figure with a class legend and an estimated-composition
+  suptitle (models.py:280-347). The reference hardcodes dpi=900, which
+  dominates its wall-time; ours is configurable (PredictConfig.figure_dpi).
+- ``results/outputs/<wood_type>/<fname>``: L-mode PNG, bark=127, node=255
+  (models.py:349-356).
+- ``results/final_stats.csv``: tab-delimited; the header has 7 columns but
+  data rows carry 6 — the reference rebuilds ``running_csv_stats`` without
+  the Image Size column (models.py:321 vs 252-255) and we reproduce that
+  quirk exactly.
+
+Figure rendering is pure host work, so PredictReporter runs it on a thread
+pool that overlaps with device compute. Figures are drawn by the
+first-party raster compositor (pipeline/compositor.py): the reference's
+layout and content, without matplotlib.
+"""
+from __future__ import annotations
+
+import csv
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from ..config import DEFAULT_MM_PER_PIXEL
+from ..io.native import save_image_u8
+from .compositor import render_combined_fast
+
+CSV_HEADER = [
+    "Name", "Type", "Image Size", "Output Bark %", "Bark area (mm^2)",
+    "Output Node %", "Node area (mm^2)",
+]
+
+
+def class_stats_row(fname: str, wood_type: str, counts: np.ndarray,
+                    total_pixels: int,
+                    mm_per_pix: float = DEFAULT_MM_PER_PIXEL
+                    ) -> tuple[list[str], list[float]]:
+    """CSV row + percentage list for one image.
+
+    counts: [2] pixel counts for classes (bark, node) over the trimmed
+    image; total_pixels = trimmed H*W. Formatting parity with
+    models.py:323-332 ('%.5f', area = count * mm_per_pix).
+    """
+    row = [fname, wood_type]
+    percents = []
+    for class_idx in (0, 1):
+        percent = float(counts[class_idx]) / float(total_pixels) * 100.0
+        area = float(counts[class_idx]) * mm_per_pix
+        percents.append(percent)
+        row.append("{:.5f}".format(percent))
+        row.append("{:.5f}".format(area))
+    return row, percents
+
+
+def save_dual(class_map: np.ndarray, out_path: str) -> None:
+    """Raw mask PNG: bark=127, node=255 (models.py:349-356).
+
+    zlib level 2: masks are long runs of three values — higher levels cost
+    ~4x the host time for a few percent smaller files."""
+    dual = np.zeros(class_map.shape, dtype=np.uint8)
+    dual[class_map == 1] = 127
+    dual[class_map == 2] = 255
+    save_image_u8(out_path, dual, zlevel=2)
+
+
+def write_final_stats(rows: list[list[str]], out_path: str) -> None:
+    """Tab-delimited final_stats.csv (models.py:360-364)."""
+    with open(out_path, "w") as f:
+        writer = csv.writer(f, delimiter="\t")
+        writer.writerow(CSV_HEADER)
+        writer.writerows(rows)
+
+
+class PredictReporter:
+    """Collects per-image results and writes all three artifact kinds,
+    offloading figure/PNG encoding to a thread pool."""
+
+    def __init__(self, results_dir: str, dpi: int = 200,
+                 mm_per_pix: float = DEFAULT_MM_PER_PIXEL,
+                 workers: int = 8):
+        self.results_dir = results_dir
+        self.dpi = dpi
+        self.mm_per_pix = mm_per_pix
+        self._rows: list[tuple[int, list[str]]] = []
+        self._pool = ThreadPoolExecutor(max_workers=workers)
+        self._futures = []
+        self._order = 0
+
+    def add(self, input_img: np.ndarray, class_map: np.ndarray,
+            fname: str, wood_type: str, order: int | None = None,
+            counts3: np.ndarray | None = None) -> None:
+        """Render artifacts + record the CSV row. ``order`` fixes the row's
+        position in final_stats.csv (the reference writes rows in dataset
+        order, models.py:358; batched compute may finish out of order).
+        ``counts3``: per-class pixel counts of class_map if the caller
+        already has them (the native postprocess counts during its
+        write-back sweep — remove_small_zones_host2)."""
+        if counts3 is None:
+            counts3 = np.bincount(class_map.ravel(), minlength=3)
+        percents = self.add_row_only(class_map, fname, wood_type, order,
+                                     counts3=counts3)
+        combined = os.path.join(self.results_dir, "combined_images",
+                                wood_type, fname)
+        dual = os.path.join(self.results_dir, "outputs", wood_type, fname)
+        # reuse the class counts: the legend lists present classes only
+        # (models.py:298-311) and would otherwise re-count the map
+        values = [v for v in range(3) if counts3[v] > 0]
+        self._futures.append(self._pool.submit(
+            render_combined_fast, input_img, class_map, combined,
+            percents, self.dpi, values))
+        self._futures.append(self._pool.submit(save_dual, class_map, dual))
+
+    def add_row_only(self, class_map: np.ndarray, fname: str,
+                     wood_type: str, order: int | None = None,
+                     counts3: np.ndarray | None = None) -> list[float]:
+        """Record the CSV row alone; returns the class percentages."""
+        if counts3 is None:
+            counts3 = np.bincount(class_map.ravel(), minlength=3)
+        counts = np.array([int(counts3[1]), int(counts3[2])])
+        row, percents = class_stats_row(
+            fname, wood_type, counts, class_map.size, self.mm_per_pix)
+        self._rows.append((self._order if order is None else order, row))
+        self._order += 1
+        return percents
+
+    def finalize(self) -> str:
+        """Write the CSV (and surface any render-worker exception);
+        returns its path."""
+        for fut in self._futures:
+            fut.result()  # surface any worker exception
+        self._pool.shutdown()
+        out = os.path.join(self.results_dir, "final_stats.csv")
+        write_final_stats([r for _, r in sorted(self._rows)], out)
+        return out

@@ -1,0 +1,110 @@
+"""PyTorch port: import hygiene and device selection.
+
+The port imports nothing of JAX, flax or the JAX package. This runs in a
+subprocess because the test process has already imported jax
+(tests/conftest.py). Note that ``neuralbarkcalculator_tpu_torch`` starts
+with the string ``neuralbarkcalculator_tpu``, so the check looks for that
+exact key and its ``neuralbarkcalculator_tpu.`` submodules.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import neuralbarkcalculator_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "flax", "neuralbarkcalculator_tpu")
+             or k.startswith(("jax.", "flax.", "neuralbarkcalculator_tpu.")))
+print(json.dumps({"modules": names, "bad": bad,
+                  "pil": "PIL" in sys.modules}))
+"""
+
+
+def test_port_imports_no_jax():
+    import json
+
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert not out["pil"]  # PIL is imported only where images need it
+    for name in ("pipeline.predict", "ops.upsample_argmax", "cli.predict",
+                 "models.convert", "io.native"):
+        assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
+
+
+def test_constants_mirror_jax_config():
+    """The port keeps its own copy of the reference constants; they must
+    equal the JAX package's, and so must the shared PredictConfig
+    defaults."""
+    import dataclasses
+
+    from neuralbarkcalculator_tpu import config as jc
+    from neuralbarkcalculator_tpu_torch import config as tc
+
+    for name in ("WOOD_TYPES", "CLASS_NAMES", "NUM_CLASSES", "DEFAULT_MEAN",
+                 "DEFAULT_STD", "DEFAULT_MM_PER_PIXEL",
+                 "SMALL_ZONE_THRESHOLD", "SMALL_ZONE_CONNECTIVITY",
+                 "PREPROCESS_TARGET_SIZE", "TRIM_PIXEL_THRESHOLD",
+                 "TRIM_ROW_FRACTION", "IMG_EXTENSIONS"):
+        assert getattr(tc, name) == getattr(jc, name), name
+    port = {f.name: f.default for f in dataclasses.fields(tc.PredictConfig)}
+    jax_cfg = {f.name: f.default
+               for f in dataclasses.fields(jc.PredictConfig)}
+    assert set(port) <= set(jax_cfg)
+    for name, default in port.items():
+        assert default == jax_cfg[name], name
+
+
+def test_engine_without_device_needs_a_card(tmp_path):
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+    from neuralbarkcalculator_tpu_torch.utils.device import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NeuralBarkCalculator(str(tmp_path / "unused.pt"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_cli_defaults_to_cuda_and_drops_unported_flags():
+    from neuralbarkcalculator_tpu_torch.cli.predict import build_parser
+
+    parser = build_parser()
+    assert parser.parse_args(["root"]).device == "cuda"
+    assert parser.parse_args(["root", "--device", "cpu"]).device == "cpu"
+    for flag in (["--int8"], ["--shard", "0/2"], ["--resume"],
+                 ["--preprocess_backend", "device"], ["--watch", "1"]):
+        with pytest.raises(SystemExit):
+            parser.parse_args(["root", *flag])
+
+
+def test_missing_or_unported_checkpoint(tmp_path):
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    with pytest.raises(FileNotFoundError):
+        NeuralBarkCalculator(str(tmp_path / "none.pt"), device="cpu")
+    msgpack = tmp_path / "m.msgpack"
+    msgpack.write_bytes(b"\0")
+    with pytest.raises(NotImplementedError):
+        NeuralBarkCalculator(str(msgpack), device="cpu")
+    with pytest.raises(NotImplementedError):
+        NeuralBarkCalculator(str(msgpack), device="cpu",
+                             model_name="fcn_resnet101")

@@ -1,0 +1,250 @@
+"""PyTorch port: the folder prediction engine against the JAX package.
+
+Both engines run in float32 on the CPU with the same tiny model and
+weights over images of mixed heights: the JAX engine with the Pallas
+kernel in interpret mode, the port with the kernel's plain version (its
+wrapper takes the plain version for CPU tensors). Class maps must be
+equal; the only tolerated difference would be at pixels whose top-2 logit
+margin is under 1e-5, and the test asserts there are none on its inputs.
+The artifacts must match: final_stats.csv byte for byte, the dual PNGs
+decoded, and the same set of combined figures.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_common import tiny_jax_model, tiny_torch_model, tiny_variables
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WIDTH = 64
+HEIGHTS = (64, 40, 56, 64, 30, 32, 24)  # buckets 64 (4) and 32 (3)
+WOOD = ("sapin", "sapin", "epinette_gelee", "sapin", "epinette_gelee",
+        "sapin", "epinette_gelee")
+NEAR_TIE = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    """(JAX engine, port engine) loading the same best_model.pt, written
+    by the JAX package's own exporter."""
+    from neuralbarkcalculator_tpu.config import PredictConfig as JaxConfig
+    from neuralbarkcalculator_tpu.models import segmentation as jseg
+    from neuralbarkcalculator_tpu.models.convert import (
+        variables_to_torch_state_dict)
+    from neuralbarkcalculator_tpu.parallel.mesh import make_mesh
+    from neuralbarkcalculator_tpu.pipeline.predict import (
+        NeuralBarkCalculator as JaxEngine)
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.models import segmentation as tseg
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    pt = str(tmp_path_factory.mktemp("engines") / "best_model.pt")
+    torch.save({k: torch.tensor(v) for k, v in variables_to_torch_state_dict(
+        tiny_variables(seed=5)).items()}, pt)
+    common = dict(batch_size=4, use_bfloat16=False, height_bucket=32,
+                  figure_dpi=50)
+    jseg.MODEL_FACTORIES["_tiny_test"] = lambda dtype=None: tiny_jax_model(
+        dtype)
+    tseg.MODEL_FACTORIES["_tiny_test"] = tiny_torch_model
+    try:
+        jax_engine = JaxEngine(
+            pt, mesh=make_mesh(n_data=1), model_name="_tiny_test",
+            config=JaxConfig(model_path=pt, use_pallas=True,
+                             pallas_interpret=True, **common))
+        port_engine = NeuralBarkCalculator(
+            pt, model_name="_tiny_test", device="cpu",
+            config=PredictConfig(model_path=pt, **common))
+    finally:
+        jseg.MODEL_FACTORIES.pop("_tiny_test", None)
+        tseg.MODEL_FACTORIES.pop("_tiny_test", None)
+    return jax_engine, port_engine
+
+
+def _items(seed=7):
+    from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
+        ProcessedImage)
+
+    rng = np.random.default_rng(seed)
+    items = []
+    for i, (h, wood) in enumerate(zip(HEIGHTS, WOOD)):
+        # smooth blobs, so the maps have zones above the 150-px threshold
+        coarse = rng.random((h // 8 + 2, WIDTH // 8 + 2, 3))
+        img = np.kron(coarse, np.ones((8, 8, 1)))[:h, :WIDTH]
+        img = img + 0.15 * rng.random(img.shape)
+        items.append(ProcessedImage(
+            np.clip(img * 230, 0, 255).astype(np.uint8), f"img{i}.png",
+            wood))
+    return items
+
+
+def _near_ties(engine, items) -> int:
+    """Pixels whose top-2 logit margin in a float32 per-image forward of
+    the (folded) model is under NEAR_TIE."""
+    mean = engine.mean.numpy()
+    std = engine.std.numpy()
+    n = 0
+    with torch.inference_mode():
+        for it in items:
+            x = (it.image.astype(np.float32) / 255.0 - mean) / std
+            top2 = engine.model(torch.from_numpy(x[None]))[0].topk(2).values
+            n += int((top2[..., 0] - top2[..., 1] < NEAR_TIE).sum())
+    return n
+
+
+def test_predict_images_equal_jax(engines):
+    jax_engine, port_engine = engines
+    items = _items()
+    want = {it.fname: m for it, m in jax_engine.predict_images(items)}
+    got = {it.fname: (m, c) for it, m, c in
+           port_engine.predict_images(items, with_counts=True)}
+    assert _near_ties(port_engine, items) == 0
+    assert sorted(got) == sorted(want)
+    classes = set()
+    for it in items:
+        m, counts = got[it.fname]
+        assert m.shape == it.image.shape[:2] and m.dtype == np.uint8
+        np.testing.assert_array_equal(m, want[it.fname])
+        np.testing.assert_array_equal(counts, np.bincount(m.ravel(),
+                                                          minlength=3))
+        classes |= set(np.unique(m).tolist())
+    assert len(classes) >= 2  # the maps are not trivially one class
+    stats = port_engine.cache_stats()
+    # launch shapes (64, 4) and (32, 4): the 3-image bucket pads one dummy
+    # row up the pow2 ladder, and its bytes count too
+    assert stats["launch_shapes"] == 2
+    assert stats["bytes_h2d"] == WIDTH * 3 * (64 * 4 + 32 * 4)
+
+
+def test_exclude_nodes_remaps_class_2(engines):
+    _, port_engine = engines
+    items = _items()
+    for (_, plain), (_, excl) in zip(
+            port_engine.predict_images(items),
+            port_engine.predict_images(items, exclude_nodes=True)):
+        assert not np.any(excl == 2)
+        np.testing.assert_array_equal(excl, np.where(plain == 2, 1, plain))
+
+
+def _write_processed(root, items):
+    from neuralbarkcalculator_tpu_torch.io.native import save_image_u8
+
+    for it in items:
+        d = os.path.join(root, "processed", "samples", it.wood_type)
+        os.makedirs(d, exist_ok=True)
+        for sub in ("combined_images", "outputs"):
+            os.makedirs(os.path.join(root, "results", sub, it.wood_type),
+                        exist_ok=True)
+        save_image_u8(os.path.join(d, it.fname), it.image)
+
+
+def _files(root):
+    out = set()
+    for dirpath, _, fnames in os.walk(os.path.join(root, "results")):
+        out |= {os.path.relpath(os.path.join(dirpath, f), root)
+                for f in fnames}
+    return out
+
+
+def test_predict_folder_artifacts_equal_jax(engines, tmp_path):
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+
+    jax_engine, port_engine = engines
+    items = _items(seed=8)
+    roots = {}
+    for name, engine in (("jax", jax_engine), ("port", port_engine)):
+        root = str(tmp_path / name)
+        _write_processed(root, items)
+        csv = engine.predict(root, progress=False)
+        assert csv == os.path.join(root, "results", "final_stats.csv")
+        roots[name] = root
+    with open(os.path.join(roots["jax"], "results", "final_stats.csv"),
+              "rb") as f:
+        want_csv = f.read()
+    with open(os.path.join(roots["port"], "results", "final_stats.csv"),
+              "rb") as f:
+        got_csv = f.read()
+    assert got_csv == want_csv
+    lines = got_csv.decode().splitlines()
+    assert len(lines) == 1 + len(items)
+    assert len(lines[0].split("\t")) == 7 and len(lines[1].split("\t")) == 6
+    assert _files(roots["port"]) == _files(roots["jax"])
+    for it in items:
+        rel = os.path.join("results", "outputs", it.wood_type, it.fname)
+        np.testing.assert_array_equal(
+            load_image_u8(os.path.join(roots["port"], rel), grayscale=True),
+            load_image_u8(os.path.join(roots["jax"], rel), grayscale=True))
+
+
+def test_streaming_equals_sequential(engines, tmp_path):
+    _, port_engine = engines
+    items = _items(seed=9)
+    csvs = []
+    for name in ("seq", "stream"):
+        root = str(tmp_path / name)
+        _write_processed(root, items)
+        if name == "seq":
+            path = port_engine.predict(root, images=items, progress=False)
+        else:
+            path = port_engine.predict_streaming(
+                root, iter(enumerate(items)), progress=False)
+        with open(path, "rb") as f:
+            csvs.append(f.read())
+    assert csvs[0] == csvs[1]
+
+
+def test_launch_ladder_and_unported_options(engines):
+    _, port_engine = engines
+    assert [port_engine._padded_batch(n) for n in range(1, 5)] == \
+        [1, 2, 4, 4]
+    assert port_engine.launch_item_counts() == [1, 2, 3]
+    with pytest.raises(NotImplementedError):
+        port_engine.predict("unused", resume=True)
+    with pytest.raises(NotImplementedError):
+        port_engine.predict("unused", shard=(0, 2))
+
+
+def test_cli_runs_on_cpu(tmp_path):
+    """The port's CLI end to end on the CPU: BMP sources -> native
+    preprocess -> full-width fcn_resnet50 -> artifacts."""
+    from neuralbarkcalculator_tpu_torch.data.dataset import save_image_u8_pil
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        fcn_resnet50)
+
+    torch.manual_seed(0)
+    ckpt = str(tmp_path / "best_model.pt")
+    torch.save(fcn_resnet50().state_dict(), ckpt)
+    rng = np.random.default_rng(0)
+    root = tmp_path / "root"
+    names = []
+    for wood, shape in (("sapin", (40, 64)), ("epinette_gelee", (64, 64))):
+        d = root / "samples" / wood
+        d.mkdir(parents=True)
+        img = (rng.random((*shape, 3)) * 200 + 40).astype(np.uint8)
+        save_image_u8_pil(str(d / "a.bmp"), img)
+        names.append((wood, "a.png"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "neuralbarkcalculator_tpu_torch.cli.predict",
+         str(root), "--device", "cpu", "--model_path", ckpt, "--dpi", "40",
+         "--batch_size", "2"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "2"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for wood, fname in names:
+        for sub in ("combined_images", "outputs"):
+            assert (root / "results" / sub / wood / fname).is_file()
+        assert (root / "processed" / "samples" / wood / fname).is_file()
+    lines = (root / "results" / "final_stats.csv").read_text().splitlines()
+    assert len(lines) == 3
