@@ -3,25 +3,37 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phase 1 builds every native piece from this checkout (the CUDA kernel
-library from neuralbarkcalculator_tpu_torch/csrc/ with nvcc for sm_90a,
-and the host IO runtime from native/barkio.cc with g++), in parallel, and
-prints the card's name and power limit.
+Phase 1 builds every native piece from this checkout (one library per
+CUDA kernel source in neuralbarkcalculator_tpu_torch/csrc/ with nvcc for
+sm_90a, and the host IO runtime from native/barkio.cc with g++), one
+compiler each, all started together, and prints the card's name and
+power limit.
 
-Phase 2 holds each kernel against its plain PyTorch version at the main
-path's shapes and times the kernel, the plain version and the unfused
-PyTorch yardstick with CUDA events.
+Phase 2 holds each kernel against its plain PyTorch version at its path's
+shapes and times the kernel, the plain version and the PyTorch yardstick:
+upsample_argmax at 8x1024x1024, and fused_dropout_matmul forward and
+backward at the training head's [5, 512, 64, 64] -> 3, rate 0.8 (the
+dropout mask bit for bit).
 
-Phase 3 drives the main path, folder prediction, through the engine a user
-calls: a synthetic folder of 16 processed 1024-wide images at trimmed
+Phase 3 drives the predict path, folder prediction, through the engine a
+user calls: a synthetic folder of 16 processed 1024-wide images at trimmed
 heights 896/960/1024, a full-width fcn_resnet50 with random weights drawn
 from the seed (bf16, BN folded, batch 8). It checks the artifacts, that
 upsample_argmax was launched during the timed pass, profiles one more
 pass for the device's busy share, and holds the engine's maps against a
 per-image float32 reference on the card.
 
-The last lines are the kernels' JSON line, the card's name and power
-limit, and the result line. The script exits nonzero, with no result line,
+Phase 4 drives the training path through cli/train.main: a synthetic
+30-image 1024x1024 dataset with duals, the full-width, full-depth
+fcn_resnet50 at the recipe's batch 5 and crop 512, one epoch of 9 steps,
+validation, test and the report. It checks the checkpoint, best_model.pt,
+the report's 15 columns, finite losses and that the fused dropout kernels
+ran, and prints the warm step time and the peak memory. Then one training
+step on the card is held against the same step on the CPU.
+
+Every path runs with all launch counts set to 0 just before it and read
+just after. The last lines are the kernels' JSON line, the card's name and
+power limit, and the result line. The script exits nonzero, with no result line,
 when there is no CUDA device, when the port's package is not beside it, or
 when any phase fails.
 """
@@ -63,10 +75,53 @@ FLIP_MARGIN = 1e-5
 # give logits with a small spread beside a large common offset that the
 # head's bias cancels, and bf16 rounds relative to that offset.
 BF16_LOGIT_TOL = 0.4
+# The training head's fused dropout + 1x1 conv: h [5, 512, 64, 64] -> 3
+# classes (batch 5 at crop 512, output stride 8), the recipe's rate.
+FDM_SHAPE = (5, 512, 64, 3)  # (B, C, H = W, K)
+FDM_RATE = 0.8
+# CUDA events around back-to-back wrapper calls timed the forward at
+# 0.0385, 0.0613 and 0.0660 ms in three rounds of one run on an H100 at
+# constant clocks: they timed the host. The fused kernels are timed by
+# device time, in rounds, each beside the card's clocks.
+FDM_TIMING_ROUNDS = 3
+# The training phase's synthetic dataset: 10 images per wood type (so the
+# 80/10/10 split gives 24/3/3), 1024x1024; a samples factor of 2 gives
+# 24 * 2 // 5 = 9 train steps.
+TRAIN_PER_TYPE = 10
+TRAIN_SIZE = 1024
+TRAIN_SAMPLES_FACTOR = 2
+# The card-against-CPU check of one training step. The head's weight
+# gradient is a sum over 2048 feature pixels of products that largely
+# cancel, after 53 float32 layers that sum in other orders on the two
+# devices. Measured on an H100 (--seed 0): card vs CPU 3.08e-4 of its
+# largest entry; the CPU against itself on inputs moved by 1e-6, 3.45e-4;
+# the CPU with the next dropout seed, 1.13. So the bound is 1e-3, and the
+# check requires another mask to move it by more than 10x that.
+CHECK_BATCH = 2
+CHECK_CROP = 256
+STEP_GRAD_TOL = 1e-3
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_clocks() -> str:
+    """The card's SM and memory clocks and power draw, now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from neuralbarkcalculator_tpu_torch.ops import fused_dropout_matmul
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import LAUNCHES
+
+    return {"upsample_argmax": LAUNCHES,
+            "fused_dropout_matmul_fwd": fused_dropout_matmul.FWD_LAUNCHES,
+            "fused_dropout_matmul_bwd": fused_dropout_matmul.BWD_LAUNCHES}
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 20, runs: int = 5
@@ -89,21 +144,61 @@ def time_ms(torch, fn, warmup: int = 3, reps: int = 20, runs: int = 5
     return statistics.median(per_call)
 
 
-def phase_build() -> str:
-    """Build the kernel library and the native runtime side by side;
-    returns the card's `name, power.limit` line."""
-    from neuralbarkcalculator_tpu_torch.utils.build import (
-        build_kernels, build_log, build_native)
+def event_device_us(e) -> float:
+    """A profiler event's own device time, in microseconds."""
+    return float(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)))
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        kern = pool.submit(build_kernels)
+
+def device_ms(torch, fn, warmup: int = 3, reps: int = 20,
+              attempts: int = 3) -> float:
+    """The device time per call of `fn`: the device-side events of `reps`
+    calls under torch.profiler (kernels and copies), summed, over `reps`,
+    after `warmup` calls. A profiler session that records no device event
+    at all (seen once in a row of such sessions on an H100) is run again,
+    up to `attempts` sessions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(event_device_us(e) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total:
+            return total / reps / 1e3
+        log(f"device_ms: profiler session {attempt + 1} recorded no device "
+            f"time")
+    raise RuntimeError(f"the profiler recorded no device time in {attempts} "
+                       f"sessions")
+
+
+def phase_build() -> str:
+    """Build every kernel library and the native runtime, one compiler
+    each, all started together; returns the card's `name, power.limit`
+    line."""
+    from neuralbarkcalculator_tpu_torch.utils.build import (
+        build_kernel, build_log, build_native, kernel_names)
+
+    names = kernel_names()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names) + 1) as pool:
+        kerns = {n: pool.submit(build_kernel, n) for n in names}
         native = pool.submit(build_native)
-        kern_path, native_path = kern.result(), native.result()
-    log(f"built {os.path.relpath(kern_path, REPO)} and "
-        f"{os.path.relpath(native_path, REPO)}")
-    for line in build_log(kern_path).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+        paths = {n: f.result() for n, f in kerns.items()}
+        paths["barkio"] = native.result()
+    log(f"built {[os.path.relpath(p, REPO) for p in paths.values()]} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for name in names:
+        for line in build_log(paths[name]).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas ({name}): {line.strip()}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -188,6 +283,386 @@ def phase_kernel(torch, seed: int) -> dict:
     }
 
 
+def phase_fdm_kernel(torch, seed: int) -> list[dict]:
+    """fused_dropout_matmul's forward and backward kernels against their
+    plain versions on the card, at the training head's shapes
+    (h [5, 512, 64, 64], K = 3, rate 0.8), then timed."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from neuralbarkcalculator_tpu_torch.ops.fused_dropout_matmul import (
+        dropout_mask, fused_dropout_matmul_backward,
+        fused_dropout_matmul_backward_plain, fused_dropout_matmul_forward,
+        fused_dropout_matmul_plain)
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    b_, c_, hw, k_ = FDM_SHAPE
+    h = torch.from_numpy(rng.standard_normal((b_, c_, hw, hw),
+                                             dtype=np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((c_, k_),
+                                             dtype=np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(k_, dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((b_, k_, hw, hw),
+                                             dtype=np.float32)).to(dev)
+    dseed = int(rng.integers(0, 2 ** 63)) * 2 + 1  # a full 64-bit key
+    rate = FDM_RATE
+
+    # the mask, bit for bit: with g = w = 1, dh is 3/keep where kept, 0
+    # where dropped
+    ones_w = torch.ones_like(w)
+    dh1, _, _ = fused_dropout_matmul_backward(h, ones_w, torch.ones_like(g),
+                                              dseed, rate)
+    torch.cuda.synchronize()
+    mask = dropout_mask(h.shape, dseed, rate, dev)
+    kept = mask != 0
+    mask_diff = int(((dh1 != 0) != kept).sum())
+    keep_frac = float(kept.float().mean())
+    log(f"fused_dropout_matmul mask: {mask_diff} of {mask.numel()} keep "
+        f"decisions differ from the plain version (keep fraction "
+        f"{keep_frac:.5f}, rate {rate}); kept dh values "
+        f"{sorted(set(dh1[kept].unique().tolist()))}")
+    if mask_diff:
+        raise AssertionError("the kernel's dropout mask differs from the "
+                             "plain version's")
+    if not 0.18 <= keep_frac <= 0.22:
+        raise AssertionError(f"keep fraction {keep_frac} outside "
+                             f"[0.18, 0.22]")
+
+    y = fused_dropout_matmul_forward(h, w, bias, dseed, rate)
+    dh, dw, db = fused_dropout_matmul_backward(h, w, g, dseed, rate)
+    torch.cuda.synchronize()
+    y_p = fused_dropout_matmul_plain(h, w, bias, dseed, rate)
+    dh_p, dw_p, db_p = fused_dropout_matmul_backward_plain(h, w, g, dseed,
+                                                           rate)
+    # y: summation order differs (the kernel sums channel chunks); tolerance
+    # 1e-5 of max|y|
+    y_err = float((y - y_p).abs().max())
+    y_tol = 1e-5 * float(y_p.abs().max())
+    # dh: exactly 0 where dropped; elsewhere a 3-term sum in another order,
+    # held to 1e-6 of the sum of its terms' magnitudes
+    dh_err = float((dh - dh_p).abs().max())
+    terms = torch.einsum("bkhw,ck->bchw", g.abs(), w.abs()) * mask
+    dh_excess = float(((dh - dh_p).abs() - 1e-6 * terms).max())
+    dh_dropped = int((dh[~kept] != 0).sum())
+    # dw: a sum over 20480 pixels per entry in another order, 1e-4 of
+    # max|dw|; db: the same torch sum on both sides, exact
+    dw_err = float((dw - dw_p).abs().max())
+    dw_tol = 1e-4 * float(dw_p.abs().max())
+    db_err = float((db - db_p).abs().max())
+    log(f"fused_dropout_matmul vs plain: y max abs err {y_err:.4g} (allowed "
+        f"{y_tol:.4g}); dh max abs err {dh_err:.4g}, {dh_dropped} nonzero "
+        f"at dropped elements; dw max abs err {dw_err:.4g} (allowed "
+        f"{dw_tol:.4g}); db max abs err {db_err:.4g}")
+    if y_err > y_tol or dh_excess > 0 or dh_dropped or dw_err > dw_tol \
+            or db_err:
+        raise AssertionError("fused_dropout_matmul differs from its plain "
+                             "version beyond the stated tolerances")
+
+    # times: device time per call from the profiler (a ~0.03 ms kernel
+    # behind a Python wrapper leaves the card idle between back-to-back
+    # calls, so CUDA events around them time the host), for the kernels,
+    # the library yardstick (F.dropout + a 1x1 F.conv2d through autograd)
+    # and the plain versions, in FDM_TIMING_ROUNDS rounds beside the
+    # card's clocks; then the medians.
+    hl = h.clone().requires_grad_(True)
+    w4 = w.t().reshape(k_, c_, 1, 1).contiguous().requires_grad_(True)
+    bl = bias.clone().requires_grad_(True)
+
+    def lib_fwd():
+        return F.conv2d(F.dropout(hl, rate, training=True), w4, bl)
+
+    y_lib = lib_fwd()
+    fns = (lambda: fused_dropout_matmul_forward(h, w, bias, dseed, rate),
+           lambda: fused_dropout_matmul_backward(h, w, g, dseed, rate),
+           lambda: lib_fwd().detach(),
+           lambda: torch.autograd.grad(y_lib, (hl, w4, bl), g,
+                                       retain_graph=True),
+           lambda: fused_dropout_matmul_plain(h, w, bias, dseed, rate),
+           lambda: fused_dropout_matmul_backward_plain(h, w, g, dseed,
+                                                       rate))
+    rounds = []
+    for r in range(FDM_TIMING_ROUNDS):
+        rounds.append([device_ms(torch, fn) for fn in fns])
+        log(f"fused_dropout_matmul timing round {r + 1} (device ms per "
+            f"call): forward {rounds[-1][0]:.4f}, backward "
+            f"{rounds[-1][1]:.4f}, F.dropout + conv2d {rounds[-1][2]:.4f} / "
+            f"{rounds[-1][3]:.4f}, plain {rounds[-1][4]:.4f} / "
+            f"{rounds[-1][5]:.4f}; clocks.sm, clocks.mem, power.draw after "
+            f"it: {card_clocks()}")
+    del y_lib
+    fwd_ms, bwd_ms, fwd_lib_ms, bwd_lib_ms, fwd_plain_ms, bwd_plain_ms = (
+        statistics.median(col) for col in zip(*rounds))
+
+    n_h, n_y = h.numel(), y.numel()
+    ops = 2 * n_h * k_
+    fwd_bytes = 4 * (n_h + w.numel() + k_ + n_y)
+    bwd_bytes = 4 * (n_h + w.numel() + n_y + n_h + w.numel() + k_)
+    rows = []
+    for name, ms, plain_ms, lib_ms, nbytes, nops, err, line in (
+            ("fused_dropout_matmul_fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms,
+             fwd_bytes, ops, y_err, 139),
+            ("fused_dropout_matmul_bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms,
+             bwd_bytes, 2 * ops, dh_err, 148)):
+        op_ms = nops / H100_F32_FLOPS * 1e3
+        byte_ms = nbytes / H100_HBM_BYTES * 1e3
+        log(f"{name} [{b_}x{c_}x{hw}x{hw} -> {k_}, rate {rate}]: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.dropout + conv2d "
+            f"{lib_ms:.4f} ms, bound {max(op_ms, byte_ms):.4f} ms "
+            f"({nbytes / 1e6:.3f} MB, {nops / 1e6:.1f} MFLOP)")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "neuralbarkcalculator_tpu_torch/csrc/"
+                      "fused_dropout_matmul.cu",
+            "replaces": f"neuralbarkcalculator_tpu/ops/pallas_kernels.py:"
+                        f"{line}",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "library_ms": lib_ms,
+        })
+    return rows
+
+
+def make_train_root(data_dir: str, seed: int) -> None:
+    """TRAIN_PER_TYPE 1024x1024 samples per wood type with their duals, in
+    the reference layout (samples/<wood>/, duals/<wood>/), written with the
+    native PNG encoder. Samples: blobby colour fields plus fine noise;
+    duals: a smooth field cut into nothing / bark / node (~50/40/10 %)."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.config import WOOD_TYPES
+    from neuralbarkcalculator_tpu_torch.io.native import save_image_u8
+
+    rng = np.random.default_rng(seed)
+    size = TRAIN_SIZE
+    for wood in WOOD_TYPES:
+        sdir = os.path.join(data_dir, "samples", wood)
+        ddir = os.path.join(data_dir, "duals", wood)
+        os.makedirs(sdir)
+        os.makedirs(ddir)
+        for i in range(TRAIN_PER_TYPE):
+            coarse = rng.random((size // 64, size // 64, 4), dtype=np.float32)
+            field = np.kron(coarse, np.ones((64, 64, 1), np.float32))
+            img = field[..., :3] + 0.2 * rng.random((size, size, 3),
+                                                    dtype=np.float32)
+            save_image_u8(os.path.join(sdir, f"img{i:02d}.png"),
+                          np.clip(img * 210, 0, 255).astype(np.uint8))
+            dual = np.where(field[..., 3] < 0.5, 0,
+                            np.where(field[..., 3] < 0.9, 127, 255))
+            save_image_u8(os.path.join(ddir, f"img{i:02d}.png"),
+                          dual.astype(np.uint8))
+
+
+def phase_train(torch, seed: int, workdir: str) -> dict:
+    """Training through cli/train.main on the card: the full-width, full-
+    depth fcn_resnet50 at the recipe's batch 5, crop 512 and pad 1024, one
+    epoch of >= 6 steps, validation, test and report. Every launch count is
+    set to 0 just before and read just after."""
+    import csv
+    import math
+
+    from neuralbarkcalculator_tpu_torch.cli.train import (build_parser,
+                                                          main as train_main)
+    from neuralbarkcalculator_tpu_torch.models.convert import (
+        load_torch_checkpoint)
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        fcn_resnet50)
+
+    root = os.path.join(workdir, "train_root")
+    make_train_root(os.path.join(root, "Images", "1024_with_jedi"), seed)
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters.values():
+        counter.reset()
+    t0 = time.perf_counter()
+    exp = train_main(build_parser().parse_args(
+        [root, "--seed", str(seed), "--epochs", "1", "--samples_factor",
+         str(TRAIN_SAMPLES_FACTOR), "--report_dpi", str(DPI)]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = exp.step_count
+    if steps < 6:
+        raise AssertionError(f"the training run took {steps} steps, < 6")
+    if not all(math.isfinite(x) for x in exp.step_losses):
+        raise AssertionError(f"non-finite train losses {exp.step_losses}")
+    for name in ("fused_dropout_matmul_fwd", "fused_dropout_matmul_bwd"):
+        if launches[name] == 0:
+            raise AssertionError(f"the training path never launched {name}")
+    moar = os.path.join(root, "moar")
+    for path in (os.path.join(moar, "checkpoint_epoch_1.pt"),
+                 os.path.join(moar, "best_model.pt")):
+        if not os.path.isfile(path):
+            raise AssertionError(f"missing {path}")
+    fcn_resnet50().load_state_dict(load_torch_checkpoint(
+        os.path.join(moar, "best_model.pt")))
+    report = os.path.join(root, "Images", "results", "moar",
+                          "final_stats.csv")
+    with open(report) as f:
+        rows = list(csv.reader(f, delimiter="\t"))
+    n_images = 3 * TRAIN_PER_TYPE
+    if len(rows) != 1 + n_images or any(len(r) != 15 for r in rows):
+        raise AssertionError(f"report CSV: {len(rows) - 1} rows, column "
+                             f"counts {sorted({len(r) for r in rows})}")
+    warm = exp.step_seconds[1:]
+    log(f"train path: {steps} steps of batch {exp.config.batch_size} at "
+        f"crop {exp.config.crop_size} (fcn_resnet50, float32, TF32 off, "
+        f"dropout {exp.config.dropout}) in an epoch of "
+        f"{exp.history[0].time_s:.3f} s; whole CLI run {seconds:.3f} s; "
+        f"launches {launches}")
+    log(f"train path: step times (device clock) "
+        f"{[round(s * 1e3, 3) for s in exp.step_seconds]} ms; warm steps "
+        f"2..{steps}: median {statistics.median(warm) * 1e3:.3f} ms; peak "
+        f"memory allocated {peak / 2 ** 30:.3f} GiB")
+    log(f"train path: losses {[round(x, 6) for x in exp.step_losses]}; "
+        f"epoch log {exp.history[0].as_dict()}")
+    profile_train_step(torch, exp)
+    return {"launches": launches, "step_ms": statistics.median(warm) * 1e3}
+
+
+# device kernels of a train step, grouped by name (first match wins)
+STEP_GROUPS = (
+    ("fused_dropout_matmul", ("fdm_",)),
+    ("Lovász sort + cumsum", ("sort", "radix", "scan")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("convolution", ("conv", "gemm", "cudnn", "xmma", "winograd", "implicit",
+                     "wgrad", "dgrad", "fprop", "sm90", "cutlass")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("reduction", ("reduce",)),
+)
+
+
+def profile_train_step(torch, exp) -> None:
+    """One more train step of the experiment under torch.profiler: device
+    time by kernel group (convolutions, batch norm, elementwise, the
+    Lovász sort, the fused dropout kernels), against the step's wall
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuralbarkcalculator_tpu_torch.train.step import train_step
+
+    idx = torch.as_tensor(exp.train_split[:exp.config.batch_size],
+                          device=exp.device)
+
+    def step():
+        train_step(exp.model, exp.opt, exp.images, exp.labels, idx,
+                   exp.augment_gen, 12345, exp.config.crop_size, exp._mean,
+                   exp._std, exp.config.jitter_brightness,
+                   exp.config.jitter_saturation, exp.loss_fn)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+
+    def event_ms(e) -> float:
+        return event_device_us(e) / 1e3
+
+    busy = sum(event_ms(e) for e in events)
+    if busy == 0:
+        log("train profile: the profiler recorded no device time (not "
+            "measured)")
+        return
+    groups: dict[str, float] = {}
+    for e in events:
+        name = e.key.lower()
+        group = next((g for g, keys in STEP_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + event_ms(e)
+    log(f"train profile: one step, device busy {busy:.3f} ms in a profiled "
+        f"step of {wall_ms:.3f} ms wall (busy share {busy / wall_ms:.4f})")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"train profile: {group:22s} {ms:9.3f} ms ({ms / busy:.4f})")
+    for e in sorted(events, key=event_ms, reverse=True)[:10]:
+        log(f"train profile: {event_ms(e):9.3f} ms {e.count:5d}x "
+            f"{e.key[:90]}")
+
+
+def phase_train_vs_cpu(torch, seed: int) -> None:
+    """One training step of the full-width fcn_resnet50 on the card (TF32
+    off, the kernels) and on the CPU (the plain versions), from the same
+    weights, batch and dropout seed. The masks agree bit for bit, so the
+    loss must agree within 1e-4 relative and classifier.4's gradients
+    within STEP_GRAD_TOL of their largest magnitude. For scale, the CPU
+    step is run once more on inputs perturbed by 1e-6 relative: how far
+    float32 rounding alone moves those gradients."""
+    import copy
+
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.ops import fused_dropout_matmul
+    from neuralbarkcalculator_tpu_torch.train.loop import build_model
+    from neuralbarkcalculator_tpu_torch.train.optim import adam
+    from neuralbarkcalculator_tpu_torch.train.step import step_on_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    n, crop = CHECK_BATCH, CHECK_CROP
+    imgs = rng.standard_normal((n, crop, crop, 3), dtype=np.float32)
+    coarse = rng.integers(0, 3, (n, crop // 32, crop // 32))
+    labs = np.kron(coarse, np.ones((1, 32, 32), np.int64))
+    dseed = int(rng.integers(0, 2 ** 63))
+    noise = 1 + 1e-6 * rng.standard_normal(imgs.shape, dtype=np.float32)
+    model = build_model("fcn_resnet50", 0.8, seed)
+    out = {}
+    for name, dev, x, s in (("card", "cuda", imgs, dseed),
+                            ("cpu", "cpu", imgs, dseed),
+                            ("cpu_perturbed", "cpu", imgs * noise, dseed),
+                            ("cpu_other_mask", "cpu", imgs, dseed + 1)):
+        m = copy.deepcopy(model).to(dev)
+        fwd0 = fused_dropout_matmul.FWD_LAUNCHES.count
+        t0 = time.perf_counter()
+        metrics = step_on_batch(m, adam(m.parameters(), 5e-4, 2e-3),
+                                torch.from_numpy(x).to(dev),
+                                torch.from_numpy(labs).to(dev), s)
+        out[name] = (float(metrics["loss"]), m.classifier[4].weight.grad.cpu(),
+                     m.classifier[4].bias.grad.cpu(),
+                     time.perf_counter() - t0,
+                     fused_dropout_matmul.FWD_LAUNCHES.count - fwd0)
+        del m
+
+    def errors(a, b):
+        return (abs(a[0] - b[0]) / abs(b[0]),
+                float((a[1] - b[1]).abs().max() / b[1].abs().max()),
+                float((a[2] - b[2]).abs().max() / b[2].abs().max()))
+
+    loss_rel, w_err, b_err = errors(out["card"], out["cpu"])
+    p_loss, p_w, p_b = errors(out["cpu_perturbed"], out["cpu"])
+    o_loss, o_w, o_b = errors(out["cpu_other_mask"], out["cpu"])
+    log(f"train step card vs CPU (batch {n}, crop {crop}, full width): "
+        f"loss {out['card'][0]:.8f} vs {out['cpu'][0]:.8f} (relative "
+        f"{loss_rel:.3g}, allowed 1e-4); classifier.4 grad err / max|grad| "
+        f"weight {w_err:.3g}, bias {b_err:.3g} (allowed {STEP_GRAD_TOL}); "
+        f"the CPU step on inputs perturbed by 1e-6: loss {p_loss:.3g}, "
+        f"weight {p_w:.3g}, bias {p_b:.3g}; with the next dropout seed: "
+        f"loss {o_loss:.3g}, weight {o_w:.3g}, bias {o_b:.3g}; kernel "
+        f"launches {out['card'][4]} on the card, {out['cpu'][4]} on the CPU; "
+        f"step {out['card'][3]:.3f} s card (cold), {out['cpu'][3]:.3f} s CPU")
+    if out["card"][4] != 1 or out["cpu"][4] != 0:
+        raise AssertionError("the card step must run the kernel once, the "
+                             "CPU step the plain version")
+    if loss_rel > 1e-4 or max(w_err, b_err) > STEP_GRAD_TOL:
+        raise AssertionError("the card's training step disagrees with the "
+                             "CPU's")
+    if o_w < 10 * STEP_GRAD_TOL:
+        raise AssertionError("another dropout mask moves the gradients by "
+                             "less than 10x the tolerance: the check cannot "
+                             "tell masks apart")
+
+
 def make_folder(root: str, seed: int) -> None:
     """N_IMAGES processed 1024-wide PNGs at the trimmed heights, laid out
     as a predict root (processed/samples/<wood>/, results/<kind>/<wood>/),
@@ -255,7 +730,6 @@ def phase_main_path(torch, seed: int, workdir: str, device: str = "cuda"
     from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
     from neuralbarkcalculator_tpu_torch.models.segmentation import (
         fcn_resnet50)
-    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import LAUNCHES
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
     from neuralbarkcalculator_tpu_torch.utils import profiling
@@ -291,11 +765,14 @@ def phase_main_path(torch, seed: int, workdir: str, device: str = "cuda"
 
     engine.predict(root, progress=False)  # warm-up: cuDNN plans, caches
     profiling.report(reset=True)
-    LAUNCHES.reset()
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.reset()
     t0 = time.perf_counter()
     csv = engine.predict(root, progress=False)
     seconds = time.perf_counter() - t0
-    launches = LAUNCHES.count
+    counts = {name: c.count for name, c in counters.items()}
+    launches = counts["upsample_argmax"]
     stages = profiling.report(reset=True)
 
     with open(csv) as f:
@@ -320,10 +797,13 @@ def phase_main_path(torch, seed: int, workdir: str, device: str = "cuda"
         raise AssertionError(f"dual masks hold values {sorted(classes)}")
     if launches == 0:
         raise AssertionError("the main path never launched upsample_argmax")
+    if counts["fused_dropout_matmul_fwd"] or counts["fused_dropout_matmul_bwd"]:
+        raise AssertionError(f"the predict path launched a training kernel: "
+                             f"{counts}")
     log(f"main path: {N_IMAGES} images (heights {FOLDER_HEIGHTS}, width "
         f"{WIDTH}, batch {engine.config.batch_size}, bf16, BN folded) in "
         f"{seconds:.3f} s = {N_IMAGES / seconds:.3f} images/s (warm pass); "
-        f"upsample_argmax launches {launches}; dual values "
+        f"launches {counts}; dual values "
         f"{sorted(classes)}; cache {engine.cache_stats()}")
     for name, row in sorted(stages.items()):
         log(f"stage {name:28s} {row['calls']:3d} calls "
@@ -356,11 +836,7 @@ def phase_profile(torch, main: dict) -> None:
     # kernels it launched, which would count that time twice
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
-
-    def device_us(e) -> float:
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
-
+    device_us = event_device_us
     busy_s = sum(device_us(e) for e in events) / 1e6
     if busy_s == 0:
         log("profile: the profiler recorded no device time (busy share "
@@ -545,12 +1021,18 @@ def main() -> int:
 
     card = phase_build()
     kernel = phase_kernel(torch, args.seed)
+    fdm = phase_fdm_kernel(torch, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         main_path = phase_main_path(torch, args.seed, workdir)
         kernel["launches"] = main_path["launches"]
         phase_profile(torch, main_path)
         phase_reference(torch, main_path)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+        del main_path
+        train = phase_train(torch, args.seed, workdir)
+        for row in fdm:
+            row["launches"] = train["launches"][row["name"]]
+    phase_train_vs_cpu(torch, args.seed)
+    print(json.dumps({"kernels": [kernel, *fdm]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,8 @@ keeps its own copy so it imports nothing of that package.
 - preprocess target size: models.py:170
 - trim_black thresholds: models.py:157-166
 - wood types: dataset.py:50, predict.py:15
+- training recipe: __main__.py:234-269
+- splits: utils.py:76-115
 """
 from __future__ import annotations
 
@@ -41,6 +43,41 @@ TRIM_ROW_FRACTION = 0.85  # row kept if > this fraction of pixels non-black
 IMG_EXTENSIONS = (
     ".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif", ".tiff", "webp",
 )
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Training hyperparameters, defaults pinned to __main__.py:234-269.
+
+    The recipe trains in float32 (TF32 off on a card), with the dataset
+    resident on the device and a randomly initialized model."""
+
+    seed: int = 42
+    lr: float = 5e-4
+    weight_decay: float = 2e-3  # torch-Adam style L2 (added to grads)
+    crop_size: int = 512
+    batch_size: int = 5
+    epochs: int = 30
+    dropout: float = 0.8  # __main__.py:231
+    # Sampling: WeightedRandomSampler num_samples = len(train)*12
+    # (__main__.py:168-171), drop_last=True.
+    samples_per_epoch_factor: int = 12
+    # ReduceLROnPlateau (__main__.py:245-250)
+    plateau_factor: float = 0.2
+    plateau_patience: int = 3
+    plateau_threshold: float = 1e-1  # absolute threshold mode
+    # EarlyStopping (__main__.py:253-257)
+    early_stop_min_delta: float = 1e-1
+    early_stop_patience: int = 8
+    monitor: str = "val_miou"  # __main__.py:241
+    monitor_mode: str = "max"
+    # Augmentation (__main__.py:155-166)
+    jitter_saturation: float = 0.2
+    jitter_brightness: float = 0.1
+    pad_resize_size: int = 1024
+    # Splits (utils.py:77-79)
+    train_percent: float = 0.8
+    valid_percent: float = 0.1
 
 
 @dataclasses.dataclass

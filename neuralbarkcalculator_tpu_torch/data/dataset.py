@@ -1,10 +1,16 @@
-"""Folder manifest scan and the PIL image helpers.
+"""Folder manifest scan, the training dataset, and the PIL image helpers.
 
 ``make_dataset`` walks ``root/samples/<wood_type>/`` and pairs each sample
 with ``root/duals/<wood_type>/<name .bmp->.png>`` when present, as the
-reference ``make_dataset`` (dataset.py:41-74) does. BMP and PNG go through
-the native codecs (io/native.py); the PIL helpers below serve the other
-formats, and import PIL only when called.
+reference ``make_dataset`` (dataset.py:41-74) does. ``BarkDataset`` loads
+(sample, label) pairs for training (reference RegressionDatasetFolder,
+dataset.py:93-212). BMP and PNG go through the native codecs
+(io/native.py); the PIL helpers below serve the other formats, and import
+PIL only when called.
+
+Label decoding (dataset.py:188-198): dual PNGs store {0, 127, 255}; after
+/255 scaling, ``round(target * 2)`` gives the classes {0, 1, 2}. A missing
+target is an all-zero map (dataset.py:199-200).
 """
 from __future__ import annotations
 
@@ -61,6 +67,50 @@ def make_dataset(root: str,
                 records.append(Record(sample_path, target_path, out_name,
                                       wood_type))
     return records
+
+
+def load_image(path: str, grayscale: bool = False) -> np.ndarray | None:
+    """Decode to float32 [0, 1]: RGB -> [H, W, 3], L -> [H, W]; None for an
+    empty or missing path (reference pil_loader + ToTensor scaling)."""
+    from ..io.native import load_image_u8
+
+    if not path or not os.path.isfile(path):
+        return None
+    return load_image_u8(path, grayscale=grayscale).astype(np.float32) / 255.0
+
+
+def decode_label(target: np.ndarray | None,
+                 shape: tuple[int, int]) -> np.ndarray:
+    """Float [0, 1] dual image -> int32 class map {0, 1, 2}
+    (dataset.py:188-200)."""
+    if target is None:
+        return np.zeros(shape, dtype=np.int32)
+    t = target
+    if t.max() > 200:  # raw 0..255 input (never for /255-scaled floats)
+        t = t / 255.0
+    return np.rint(t * 2.0).astype(np.int32)
+
+
+class BarkDataset:
+    """Indexed dataset over a manifest: item i is (float32 sample
+    [H, W, 3], int32 labels [H, W], fname, wood_type)."""
+
+    def __init__(self, root: str):
+        self.records = make_dataset(root)
+        if not self.records:
+            raise RuntimeError(
+                "Found 0 files in subfolders of: " + root + "\n"
+                "Supported extensions are: " + ",".join(IMG_EXTENSIONS))
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def __getitem__(self, index: int):
+        rec = self.records[index]
+        sample = load_image(rec.sample_path)
+        target = decode_label(load_image(rec.target_path, grayscale=True),
+                              sample.shape[:2])
+        return sample, target, rec.fname, rec.wood_type
 
 
 def load_image_u8_pil(path: str, grayscale: bool = False) -> np.ndarray:

@@ -36,6 +36,8 @@ def get_lib() -> ctypes.CDLL:
                 "png_info": [ctypes.c_char_p, _PI32, _PI32, _PI32],
                 "png_decode": [ctypes.c_char_p, _P, ctypes.c_int64],
                 "png_encode": [ctypes.c_char_p, _P, _I32, _I32, _I32, _I32],
+                "remove_small_zones_batch": [
+                    _P, _I32, _I32, _I32, _P, _I32, _P, _I32],
                 "remove_small_zones_batch2": [
                     _P, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P, _P,
                     _I32],
@@ -147,6 +149,34 @@ def preprocess_image_native(img: np.ndarray, target: int, trim_thr: float,
     if rc != 0:
         raise RuntimeError(f"native preprocess failed (barkio rc={rc})")
     return out, int(first.value), int(last.value)
+
+
+def remove_small_zones_batch(class_maps: np.ndarray,
+                             valid_h: np.ndarray | None = None,
+                             min_size: int = 150, threads: int = 8
+                             ) -> np.ndarray:
+    """Union-find remove_small_zones (reference utils.py:135-148:
+    8-connectivity, strict < threshold, islands -> bark, holes -> 0) on a
+    uint8 class-map batch [B, H, W], each image on its own. ``valid_h``
+    restricts each image to its first rows; padded rows come back 0."""
+    class_maps = np.ascontiguousarray(class_maps, dtype=np.uint8)
+    if class_maps.ndim != 3:
+        raise ValueError(f"expected [B, H, W] class maps, got "
+                         f"{class_maps.shape}")
+    b, h, w = class_maps.shape
+    out = np.empty_like(class_maps)
+    vh_ptr = None
+    if valid_h is not None:
+        valid_h = np.ascontiguousarray(valid_h, dtype=np.int32)
+        vh_ptr = valid_h.ctypes.data_as(ctypes.c_void_p)
+    rc = get_lib().remove_small_zones_batch(
+        class_maps.ctypes.data_as(ctypes.c_void_p), b, h, w, vh_ptr,
+        min_size, out.ctypes.data_as(ctypes.c_void_p), threads)
+    if rc != 0:
+        raise RuntimeError(
+            f"native remove_small_zones_batch failed (barkio rc={rc}; "
+            f"out-of-memory or image beyond the int32 run-capacity guard)")
+    return out
 
 
 def remove_small_zones_host2(class_maps: np.ndarray, w: int,

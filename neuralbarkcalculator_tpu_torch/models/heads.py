@@ -5,12 +5,18 @@
 are the reference's ``classifier.0`` / ``.1`` / ``.4``. ``valid_h``
 (feature-resolution valid heights, [B]) masks the input of the 3x3 conv
 for exact ragged-height batching (see models/resnet.py).
+
+In train mode with ``dropout > 0``, ``classifier.3`` + ``classifier.4``
+(dropout, then the 1x1 conv) run as one op, ``ops/fused_dropout_matmul``,
+on the 1x1 conv's own weight and bias; the step's ``dropout_seed`` keys its
+mask. Eval mode, and dropout 0, run the modules one by one.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
+from ..ops.fused_dropout_matmul import fused_dropout_matmul
 from .resnet import BN_EPS, apply_row_mask
 
 
@@ -30,9 +36,19 @@ class FCNHead(nn.Sequential):
         self.dropout = dropout
         self.folded = folded
 
-    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
+                dropout_seed: int | None = None) -> torch.Tensor:
         x = apply_row_mask(x, valid_h)
-        for layer in self:
+        if not (self.training and self.dropout > 0):
+            for layer in self:
+                x = layer(x)
+            return x
+        if dropout_seed is None:
+            raise ValueError("FCNHead in train mode with dropout > 0 needs "
+                             "the step's dropout_seed")
+        for layer in list(self)[:3]:
             x = layer(x)
-        return x
+        conv = self[4]
+        w = conv.weight.view(conv.out_channels, conv.in_channels).t()
+        return fused_dropout_matmul(x, w, conv.bias, dropout_seed,
+                                    self.dropout)

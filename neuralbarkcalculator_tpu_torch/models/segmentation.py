@@ -34,13 +34,21 @@ class SegmentationModel(nn.Module):
         self.classifier = classifier
 
     def head_logits(self, x: torch.Tensor,
-                    valid_h: torch.Tensor | None = None) -> torch.Tensor:
+                    valid_h: torch.Tensor | None = None,
+                    dropout_seed: int | None = None) -> torch.Tensor:
         """NHWC images [B, H, W, 3] -> float32 head logits at the feature
-        stride, NHWC [B, F, Wf, classes], without the upsample."""
+        stride, NHWC [B, F, Wf, classes], without the upsample.
+        ``dropout_seed`` keys the head's dropout mask in train mode."""
         feat_h = (None if valid_h is None
                   else self.backbone.valid_feature_height(valid_h))
-        feat = self.backbone(x.permute(0, 3, 1, 2), valid_h=valid_h)
-        logits = self.classifier(feat, valid_h=feat_h).float()
+        x = x.permute(0, 3, 1, 2)
+        if self.training:
+            # training runs contiguous NCHW, the reference's layout, so the
+            # head's activations reach fused_dropout_matmul without a copy
+            x = x.contiguous()
+        feat = self.backbone(x, valid_h=valid_h)
+        logits = self.classifier(feat, valid_h=feat_h,
+                                 dropout_seed=dropout_seed).float()
         out = logits.permute(0, 2, 3, 1)
         if logits.is_contiguous(memory_format=torch.channels_last):
             # a channels_last [B, C, F, Wf] viewed as NHWC is contiguous
@@ -49,10 +57,11 @@ class SegmentationModel(nn.Module):
         return out.contiguous()
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
-                row_upsample: torch.Tensor | None = None) -> torch.Tensor:
+                row_upsample: torch.Tensor | None = None,
+                dropout_seed: int | None = None) -> torch.Tensor:
         """NHWC images -> NHWC float32 logits at the input resolution."""
         in_h, in_w = x.shape[1], x.shape[2]
-        logits = self.head_logits(x, valid_h)
+        logits = self.head_logits(x, valid_h, dropout_seed)
         if row_upsample is None:
             rows = torch.as_tensor(
                 bicubic_resize_matrix(logits.shape[1], in_h).astype(

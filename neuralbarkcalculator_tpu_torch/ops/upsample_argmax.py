@@ -18,54 +18,14 @@ show that its main path went through the kernel.
 """
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 
-from ..utils.build import build_kernels
-
-
-class LaunchCounter:
-    """A thread-safe count of kernel launches."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.count = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self.count += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.count = 0
-
+from .kernels import LaunchCounter, check_launch, kernel_lib
 
 LAUNCHES = LaunchCounter()
 
 # the per-block shared-memory ceiling on Hopper (232,448 bytes)
 _MAX_SMEM = 227 * 1024
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _kernel_lib():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_kernels())
-            lib.upsample_argmax_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            lib.upsample_argmax_launch.restype = ctypes.c_int
-            lib.upsample_argmax_smem_bytes.argtypes = [ctypes.c_int,
-                                                       ctypes.c_int]
-            lib.upsample_argmax_smem_bytes.restype = ctypes.c_size_t
-            _lib = lib
-        return _lib
 
 
 def upsample_argmax_plain(feat: torch.Tensor, row_ops: torch.Tensor,
@@ -113,7 +73,7 @@ def upsample_argmax(feat: torch.Tensor, row_ops: torch.Tensor,
         raise ValueError(f"upsample_argmax: no kernel for device {device}")
     b, f, wf, _ = feat.shape
     oh, ow = row_ops.shape[1], colt.shape[1]
-    lib = _kernel_lib()
+    lib = kernel_lib("upsample_argmax")
     smem = lib.upsample_argmax_smem_bytes(f, wf)
     if smem > _MAX_SMEM:
         raise ValueError(f"upsample_argmax: F={f}, Wf={wf} need {smem} B of "
@@ -126,8 +86,6 @@ def upsample_argmax(feat: torch.Tensor, row_ops: torch.Tensor,
         rc = lib.upsample_argmax_launch(
             feat.data_ptr(), row_ops.data_ptr(), colt.data_ptr(),
             out.data_ptr(), b, oh, f, wf, ow, stream)
-    if rc != 0:
-        raise RuntimeError(f"upsample_argmax kernel launch failed: CUDA "
-                           f"error {rc}")
+    check_launch("upsample_argmax", rc)
     LAUNCHES.add()
     return out

@@ -1,16 +1,17 @@
 """Build the port's native pieces at first use, into ``<repo>/build/``.
 
-Two shared libraries with plain C interfaces, loaded through ctypes:
+Shared libraries with plain C interfaces, loaded through ctypes:
 
-- the CUDA kernels under ``neuralbarkcalculator_tpu_torch/csrc/`` (nvcc,
-  ``sm_90a``), built only where a caller hands a kernel a CUDA tensor;
+- one per CUDA kernel source ``neuralbarkcalculator_tpu_torch/csrc/*.cu``
+  (nvcc, ``sm_90a``), built only where a caller hands that kernel a CUDA
+  tensor;
 - the host IO runtime ``native/barkio.cc`` (g++, zlib, pthreads).
 
 Each library is named by a digest of its sources and flags, so an edited
 source never loads a stale build. A build writes a private temporary file
-and renames it into place, so concurrent processes (test workers) never
-load a half-written library. A failed build raises with the compiler's
-own message.
+and renames it into place, so concurrent processes and threads never load
+a half-written library. A failed build raises with the compiler's own
+message.
 """
 from __future__ import annotations
 
@@ -33,8 +34,6 @@ HOST_CXXFLAGS = ["-O3", "-fPIC", "-Wall", "-shared", "-ffp-contract=off"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
-
 
 def _digest(sources: list[str], flags: list[str]) -> str:
     h = hashlib.sha256()
@@ -50,20 +49,20 @@ def _build(name: str, compiler: list[str], sources: list[str],
     """Compile ``sources`` into build/<name>-<digest>.so unless it exists;
     returns its path. The compiler's output is kept beside it as .log."""
     out = os.path.join(BUILD_DIR, f"{name}-{_digest(sources, flags)}.so")
-    with _lock:
-        if os.path.isfile(out):
-            return out
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-        cmd = [*compiler, *flags, "-o", tmp, *sources, *libs]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {name} failed ({' '.join(cmd)}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        with open(out[:-3] + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [*compiler, *flags, "-o", tmp, *sources, *libs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"building {name} failed ({' '.join(cmd)}):\n"
+            f"{proc.stdout}{proc.stderr}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(f"{tmp}.log", out[:-3] + ".log")
+    os.replace(tmp, out)
     return out
 
 
@@ -83,11 +82,15 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build_kernels() -> str:
-    """The CUDA kernel library (every ``csrc/*.cu``)."""
-    sources = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
-                     if f.endswith(".cu"))
-    return _build("libnbc_kernels", [find_nvcc()], sources, NVCC_FLAGS, [])
+def kernel_names() -> list[str]:
+    """The kernel sources, ``csrc/<name>.cu``, by name."""
+    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def build_kernel(name: str) -> str:
+    """The CUDA library of one kernel source, ``csrc/<name>.cu``."""
+    return _build(f"lib{name}", [find_nvcc()],
+                  [os.path.join(CSRC_DIR, f"{name}.cu")], NVCC_FLAGS, [])
 
 
 def build_native() -> str:

@@ -40,7 +40,11 @@ def test_port_imports_no_jax():
     assert out["bad"] == []
     assert not out["pil"]  # PIL is imported only where images need it
     for name in ("pipeline.predict", "ops.upsample_argmax", "cli.predict",
-                 "models.convert", "io.native"):
+                 "models.convert", "io.native", "ops.kernels",
+                 "ops.fused_dropout_matmul", "ops.losses", "ops.metrics",
+                 "data.augment", "data.sampling", "train.step",
+                 "train.optim", "train.checkpoint", "train.loop",
+                 "train.evaluate", "cli.train"):
         assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
 
 
@@ -59,12 +63,19 @@ def test_constants_mirror_jax_config():
                  "PREPROCESS_TARGET_SIZE", "TRIM_PIXEL_THRESHOLD",
                  "TRIM_ROW_FRACTION", "IMG_EXTENSIONS"):
         assert getattr(tc, name) == getattr(jc, name), name
-    port = {f.name: f.default for f in dataclasses.fields(tc.PredictConfig)}
-    jax_cfg = {f.name: f.default
-               for f in dataclasses.fields(jc.PredictConfig)}
-    assert set(port) <= set(jax_cfg)
-    for name, default in port.items():
-        assert default == jax_cfg[name], name
+    for cls in ("PredictConfig", "TrainConfig"):
+        port = {f.name: f.default
+                for f in dataclasses.fields(getattr(tc, cls))}
+        jax_cfg = {f.name: f.default
+                   for f in dataclasses.fields(getattr(jc, cls))}
+        assert set(port) <= set(jax_cfg)
+        for name, default in port.items():
+            assert default == jax_cfg[name], (cls, name)
+    # the training settings this slice does not read (ROADMAP Queue A10)
+    dropped = {f.name for f in dataclasses.fields(jc.TrainConfig)} - {
+        f.name for f in dataclasses.fields(tc.TrainConfig)}
+    assert dropped == {"use_bfloat16", "device_resident_data",
+                       "backbone_ckpt", "train_f1_postprocess"}
 
 
 def test_engine_without_device_needs_a_card(tmp_path):
@@ -72,10 +83,18 @@ def test_engine_without_device_needs_a_card(tmp_path):
         NeuralBarkCalculator)
     from neuralbarkcalculator_tpu_torch.utils.device import resolve_device
 
+    from neuralbarkcalculator_tpu_torch.cli.train import build_parser
+    from neuralbarkcalculator_tpu_torch.cli.train import main as train_main
+
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         NeuralBarkCalculator(str(tmp_path / "unused.pt"))
+    (tmp_path / "samples" / "sapin").mkdir(parents=True)
+    (tmp_path / "samples" / "sapin" / "a.png").write_bytes(b"")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(build_parser().parse_args(
+            [str(tmp_path), "--data_dir", str(tmp_path)]))
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
