@@ -10,8 +10,10 @@ compiler each, all started together, and prints the card's name and
 power limit.
 
 Phase 2 holds each kernel against its plain PyTorch version at its path's
-shapes and times the kernel, the plain version and the PyTorch yardstick:
-upsample_argmax at 8x1024x1024, and fused_dropout_matmul forward and
+shapes and times the kernel, the plain version and the PyTorch yardstick
+by profiler device time: upsample_argmax at the mixed 8x1024x1024 batch
+(and at small dense operators, and at a uniform batch against one
+F.interpolate + argmax call), and fused_dropout_matmul forward and
 backward at the training head's [5, 512, 64, 64] -> 3, rate 0.8 (the
 dropout mask bit for bit).
 
@@ -69,6 +71,9 @@ DPI = 100
 # A kernel map may differ from the plain version's only at pixels whose
 # top-2 logit margin there is below this (float32 summation order).
 FLIP_MARGIN = 1e-5
+# F.interpolate's bicubic computes its own float32 coefficients, so its map
+# may differ from the kernel's at pixels whose margin is below this.
+INTERP_MARGIN = 1e-4
 # The bf16 engine's stride-8 logits may differ from the float32 engine's by
 # at most this fraction of the float32 logits' standard deviation: about
 # twice the 0.206 measured on an H100 with --seed 0. The random weights
@@ -206,15 +211,57 @@ def phase_build() -> str:
     return card
 
 
+def check_map(torch, name: str, got, want, feat, rows, colt,
+              allowed: float) -> tuple[int, float]:
+    """Hold a class map against another: they may differ only at pixels
+    whose top-2 float32 logit margin (two einsums) is below `allowed`.
+    Returns the number of differing pixels and their largest margin."""
+    planes = torch.einsum("bof,bfwc->bcow", rows, feat)
+    logits = torch.einsum("bcow,wp->bcop", planes, colt)
+    top2 = logits.topk(2, dim=1).values
+    margin = top2[:, 0] - top2[:, 1]
+    differ = got != want
+    n = int(differ.sum())
+    worst = float(margin[differ].max()) if n else 0.0
+    log(f"upsample_argmax {name}: {n} of {got.numel()} pixels differ "
+        f"(largest margin among them {worst:.3g}, allowed < {allowed})")
+    if n and worst >= allowed:
+        raise AssertionError(f"upsample_argmax {name}: a pixel with margin "
+                             f"{worst} >= {allowed} differs")
+    return n, worst
+
+
+def band_ops(torch, rows, colt) -> int:
+    """The float32 operations the inputs need when each operator row and
+    column is summed over its nonzero window only: the row side, each
+    row's window x Wf x 3 planes; the column side, for each row that is not
+    all zero, every column's window x 3 planes; 2 operations per FMA."""
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        operator_windows)
+
+    lo, hi = operator_windows(rows)
+    row_taps = int((hi - lo).sum())
+    live_rows = int((hi > 0).sum())
+    clo, chi = operator_windows(colt.t())
+    col_taps = int((chi - clo).sum())
+    return 2 * 3 * (row_taps * colt.shape[0] + live_rows * col_taps)
+
+
 def phase_kernel(torch, seed: int) -> dict:
-    """upsample_argmax against upsample_argmax_plain on the card."""
+    """upsample_argmax on the card: against upsample_argmax_plain at the
+    main path's mixed batch and at small dense operators, against one
+    F.interpolate + argmax call at a uniform batch, then timed by device
+    time (the kernel, the plain version, two matmuls + argmax at the mixed
+    batch; the kernel and F.interpolate + argmax at the uniform batch) in
+    FDM_TIMING_ROUNDS rounds beside the card's clocks."""
     import numpy as np
+    import torch.nn.functional as F
 
     from neuralbarkcalculator_tpu_torch.models.resnet import resnet50_dilated
     from neuralbarkcalculator_tpu_torch.ops.resize import (
         column_operator_t, embedded_bicubic_rows)
     from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
-        upsample_argmax, upsample_argmax_plain)
+        column_windows, upsample_argmax, upsample_argmax_plain)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -229,57 +276,99 @@ def phase_kernel(torch, seed: int) -> dict:
         embedded_bicubic_rows(backbone.valid_feature_height(h), h, f, PAD_H)
         for h in HEIGHTS])).to(dev)
     colt = torch.from_numpy(column_operator_t(wf, WIDTH)).to(dev)
+    # computed once per width operator, as the engine caches it
+    col_win = column_windows(colt)
 
-    got = upsample_argmax(feat, rows, colt)
+    # the main path's mixed batch: equal to the plain version up to
+    # float32 near-ties, padded rows 0
+    got = upsample_argmax(feat, rows, colt, col_win)
     torch.cuda.synchronize()
     want = upsample_argmax_plain(feat, rows, colt)
-    planes = torch.einsum("bof,bfwc->bcow", rows, feat)
-    logits = torch.einsum("bcow,wp->bcop", planes, colt)
-    top2 = logits.topk(2, dim=1).values
-    margin = top2[:, 0] - top2[:, 1]
-    differ = got != want
-    flips = int(differ.sum())
-    worst = float(margin[differ].max()) if flips else 0.0
+    flips, _ = check_map(torch, "mixed batch vs plain", got, want, feat,
+                         rows, colt, FLIP_MARGIN)
     max_abs_err = int((got.int() - want.int()).abs().max())
-    log(f"upsample_argmax: {flips} flips against the plain version "
-        f"(largest flipped margin {worst:.3g}, allowed < {FLIP_MARGIN})")
-    if flips and worst >= FLIP_MARGIN:
-        raise AssertionError(
-            f"upsample_argmax differs from its plain version at a pixel "
-            f"with margin {worst} >= {FLIP_MARGIN}")
     for i, h in enumerate(HEIGHTS):
         if h < PAD_H and bool((got[i, h:] != 0).any()):
             raise AssertionError(f"padded rows of image {i} are not 0")
+
+    # dense operators at a small shape: the windows are found from the
+    # values (the whole axis here), not assumed; odd F and OW take the
+    # kernel's scalar copy and byte store paths; logits ~ N(0, 1)
+    db, doh, dfh, dwf, dow = 2, 70, 23, 20, 200
+    d_feat = torch.from_numpy(rng.standard_normal(
+        (db, dfh, dwf, 3), dtype=np.float32)).to(dev)
+    d_rows = torch.from_numpy(rng.standard_normal(
+        (db, doh, dfh), dtype=np.float32) / np.float32(np.sqrt(dfh))).to(dev)
+    d_colt = torch.from_numpy(rng.standard_normal(
+        (dwf, dow), dtype=np.float32) / np.float32(np.sqrt(dwf))).to(dev)
+    d_got = upsample_argmax(d_feat, d_rows, d_colt)
+    torch.cuda.synchronize()
+    check_map(torch, "dense operators vs plain", d_got,
+              upsample_argmax_plain(d_feat, d_rows, d_colt), d_feat, d_rows,
+              d_colt, FLIP_MARGIN)
+
+    # a uniform batch (every image 1024 rows): the same function as one
+    # F.interpolate(bicubic) + argmax call, up to that call's own float32
+    # coefficients at near-ties
+    u_rows = torch.from_numpy(np.stack([embedded_bicubic_rows(
+        backbone.valid_feature_height(PAD_H), PAD_H, f, PAD_H)] * BATCH)).to(
+            dev)
+    planes_nchw = feat.permute(0, 3, 1, 2)
+
+    def interpolate():
+        return F.interpolate(planes_nchw, size=(PAD_H, WIDTH), mode="bicubic",
+                             align_corners=False).argmax(1)
+
+    u_got = upsample_argmax(feat, u_rows, colt, col_win)
+    interp_differ, interp_margin = check_map(
+        torch, "uniform batch vs F.interpolate + argmax", u_got,
+        interpolate().to(torch.uint8), feat, u_rows, colt, INTERP_MARGIN)
 
     def library():
         y = torch.matmul(torch.matmul(rows[:, None], feat.permute(0, 3, 1, 2)),
                          colt)
         return y.argmax(dim=1).to(torch.uint8)
 
-    if bool((library() != want).any()) and flips == 0:
-        log("note: the unfused yardstick differs from the plain version "
-            "at near-tie pixels")
-    ms = time_ms(torch, lambda: upsample_argmax(feat, rows, colt))
-    plain_ms = time_ms(torch, lambda: upsample_argmax_plain(feat, rows, colt))
-    library_ms = time_ms(torch, library)
-    ops = 2 * BATCH * PAD_H * f * wf * 3 + 2 * BATCH * PAD_H * wf * WIDTH * 3
+    fns = (lambda: upsample_argmax(feat, rows, colt, col_win),
+           lambda: upsample_argmax_plain(feat, rows, colt),
+           library,
+           lambda: upsample_argmax(feat, u_rows, colt, col_win),
+           interpolate)
+    rounds = []
+    for r in range(FDM_TIMING_ROUNDS):
+        rounds.append([device_ms(torch, fn) for fn in fns])
+        log(f"upsample_argmax timing round {r + 1} (device ms per call): "
+            f"mixed batch kernel {rounds[-1][0]:.4f}, plain "
+            f"{rounds[-1][1]:.4f}, two matmuls + argmax {rounds[-1][2]:.4f}; "
+            f"uniform batch kernel {rounds[-1][3]:.4f}, F.interpolate + "
+            f"argmax {rounds[-1][4]:.4f}; clocks.sm, clocks.mem, power.draw "
+            f"after it: {card_clocks()}")
+    ms, plain_ms, library_ms, uniform_ms, interp_ms = (
+        statistics.median(col) for col in zip(*rounds))
+
+    ops = band_ops(torch, rows, colt)
     nbytes = (4 * (feat.numel() + rows.numel() + colt.numel())
               + BATCH * PAD_H * WIDTH)
     op_ms = ops / H100_F32_FLOPS * 1e3
     byte_ms = nbytes / H100_HBM_BYTES * 1e3
-    log(f"upsample_argmax [{BATCH}x{PAD_H}x{WIDTH}]: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, unfused torch {library_ms:.4f} ms, "
-        f"bound {max(op_ms, byte_ms):.4f} ms ({ops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.3f} MB)")
+    bound = max(op_ms, byte_ms)
+    log(f"upsample_argmax [{BATCH}x{PAD_H}x{WIDTH}, mixed]: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, two matmuls + argmax "
+        f"{library_ms:.4f} ms, bound {bound:.4f} ms ({ops / 1e9:.4f} GFLOP "
+        f"over the windows, {nbytes / 1e6:.3f} MB; {bound / ms:.3f} of it); "
+        f"uniform batch: kernel {uniform_ms:.4f} ms, F.interpolate + argmax "
+        f"{interp_ms:.4f} ms")
     return {
         "name": "upsample_argmax", "route": "cuda",
         "source": "neuralbarkcalculator_tpu_torch/csrc/upsample_argmax.cu",
         "replaces": "neuralbarkcalculator_tpu/ops/pallas_kernels.py:64",
         "launches": 0, "max_abs_err": max_abs_err, "flips": flips,
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(op_ms, byte_ms),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "operations" if op_ms >= byte_ms else "bytes",
         "library_ms": library_ms,
+        "uniform_ms": uniform_ms, "interpolate_ms": interp_ms,
+        "interpolate_differ": interp_differ,
+        "interpolate_worst_margin": interp_margin,
     }
 
 
@@ -909,11 +998,11 @@ def check_bf16_step(torch, bf16, f32, items) -> None:
     batch = torch.from_numpy(bf16._pad_group(items, PAD_H, n)).to(dev)
     valid_h = torch.tensor(heights, dtype=torch.int32, device=dev)
     rows = torch.stack([bf16._row_op_dev(h, PAD_H) for h in heights])
-    colt = bf16._colt_dev(WIDTH // 8, WIDTH)
+    colt, col_win = bf16._colt_dev(WIDTH // 8, WIDTH)
     with torch.inference_mode():
         lo16 = bf16._logits(batch, valid_h)
         lo32 = f32._logits(batch, valid_h)
-        map16 = upsample_argmax(lo16, rows, colt)
+        map16 = upsample_argmax(lo16, rows, colt, col_win)
         planes = torch.einsum("bof,bfwc->bcow", rows, lo32)
         up32 = torch.einsum("bcow,wp->bcop", planes, colt)
     top2 = up32.topk(2, dim=1).values

@@ -34,8 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "upsample_argmax": {
-        "upsample_argmax_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-                                   _I),
+        "upsample_argmax_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _P], _I),
         "upsample_argmax_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "fused_dropout_matmul": {

@@ -13,6 +13,14 @@ upsampled logits anywhere. It replaces the Pallas TPU kernel
 - On CPU tensors it runs ``upsample_argmax_plain``, the same function as
   torch ops. That is the only case the plain version serves.
 
+The kernel computes only over each operator row's and column's nonzero
+window (``operator_windows``): at most 4 entries for the bicubic
+operators, the whole axis for a dense one. It finds the row windows from
+the row tiles it loads; the column windows are ``column_windows(colt)``,
+which a caller that reuses one ``colt`` computes once and passes as
+``col_windows`` (the predict engine caches them beside ``colt``). Without
+it the wrapper computes them on each call.
+
 ``launches`` counts kernel launches (``LAUNCHES.count``), so a run can
 show that its main path went through the kernel.
 """
@@ -39,6 +47,24 @@ def upsample_argmax_plain(feat: torch.Tensor, row_ops: torch.Tensor,
     return logits.argmax(dim=1).to(torch.uint8)
 
 
+def operator_windows(op: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nonzero window of each row of ``op [..., N]``: (first nonzero
+    index, last nonzero index + 1), and (0, 0) for an all-zero row. For
+    colT's columns pass ``colt.t()``."""
+    nz = op != 0
+    n = op.shape[-1]
+    idx = torch.arange(n, device=op.device)
+    lo = torch.where(nz, idx, n).amin(dim=-1)
+    hi = torch.where(nz, idx + 1, 0).amax(dim=-1)
+    return torch.where(hi > 0, lo, 0), hi
+
+
+def column_windows(colt: torch.Tensor) -> torch.Tensor:
+    """Each column's nonzero window of ``colt [Wf, OW]`` as the kernel
+    takes it: int32 [2, OW], first nonzero row then last + 1."""
+    return torch.stack(operator_windows(colt.t())).to(torch.int32).contiguous()
+
+
 def _check(feat, row_ops, colt) -> None:
     for name, t in (("feat", feat), ("row_ops", row_ops), ("colt", colt)):
         if t.dtype != torch.float32:
@@ -59,10 +85,20 @@ def _check(feat, row_ops, colt) -> None:
 
 
 def upsample_argmax(feat: torch.Tensor, row_ops: torch.Tensor,
-                    colt: torch.Tensor) -> torch.Tensor:
-    """[B, F, Wf, 3] f32, [B, OH, F] f32, [Wf, OW] f32 -> [B, OH, OW] u8."""
+                    colt: torch.Tensor,
+                    col_windows: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, F, Wf, 3] f32, [B, OH, F] f32, [Wf, OW] f32 -> [B, OH, OW] u8.
+    ``col_windows`` must be ``column_windows(colt)`` when given."""
     _check(feat, row_ops, colt)
-    devices = {feat.device, row_ops.device, colt.device}
+    if col_windows is None:
+        col_windows = column_windows(colt)
+    if (col_windows.dtype != torch.int32
+            or tuple(col_windows.shape) != (2, colt.shape[1])
+            or not col_windows.is_contiguous()):
+        raise ValueError(f"upsample_argmax: col_windows must be contiguous "
+                         f"int32 [2, {colt.shape[1]}], got "
+                         f"{col_windows.dtype} {tuple(col_windows.shape)}")
+    devices = {feat.device, row_ops.device, colt.device, col_windows.device}
     if len(devices) != 1:
         raise ValueError(f"upsample_argmax: inputs on several devices "
                          f"{sorted(map(str, devices))}")
@@ -85,7 +121,7 @@ def upsample_argmax(feat: torch.Tensor, row_ops: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.upsample_argmax_launch(
             feat.data_ptr(), row_ops.data_ptr(), colt.data_ptr(),
-            out.data_ptr(), b, oh, f, wf, ow, stream)
+            col_windows.data_ptr(), out.data_ptr(), b, oh, f, wf, ow, stream)
     check_launch("upsample_argmax", rc)
     LAUNCHES.add()
     return out

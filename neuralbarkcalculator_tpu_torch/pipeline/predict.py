@@ -44,7 +44,7 @@ from ..models.fold import fold_model
 from ..models.resnet import row_mask
 from ..models.segmentation import MODEL_FACTORIES
 from ..ops.resize import column_operator_t, embedded_bicubic_rows
-from ..ops.upsample_argmax import upsample_argmax
+from ..ops.upsample_argmax import column_windows, upsample_argmax
 from ..utils.device import resolve_device, set_float32_exact
 from ..utils.profiling import stage_timer
 from .preprocess import ProcessedImage
@@ -106,7 +106,8 @@ class NeuralBarkCalculator:
         # the shared width operators, keyed (Wf, W); the lock serializes
         # misses from concurrent pump workers
         self._rowop_cache: dict[tuple[int, int], torch.Tensor] = {}
-        self._colt_cache: dict[tuple[int, int], torch.Tensor] = {}
+        self._colt_cache: dict[tuple[int, int],
+                               tuple[torch.Tensor, torch.Tensor]] = {}
         self._cache_lock = threading.Lock()
 
     def _bucket_of(self, h: int) -> int:
@@ -418,13 +419,16 @@ class NeuralBarkCalculator:
                 self._rowop_cache[key] = op
         return op
 
-    def _colt_dev(self, wf: int, w: int) -> torch.Tensor:
-        """The transposed (wf -> w) width operator, cached on the device."""
+    def _colt_dev(self, wf: int, w: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The transposed (wf -> w) width operator and its column windows
+        (``column_windows``), computed once and cached on the device."""
         with self._cache_lock:
             op = self._colt_cache.get((wf, w))
             if op is None:
-                op = torch.from_numpy(column_operator_t(wf, w)).to(
+                colt = torch.from_numpy(column_operator_t(wf, w)).to(
                     self.device)
+                op = (colt, column_windows(colt))
                 self._colt_cache[(wf, w)] = op
         return op
 
@@ -434,7 +438,7 @@ class NeuralBarkCalculator:
         [B, pad_h, W/4] 2-bit packed, on the device."""
         feat = self._logits(batch_u8, valid_h)
         preds = upsample_argmax(
-            feat, row_ops, self._colt_dev(feat.shape[2], batch_u8.shape[2]))
+            feat, row_ops, *self._colt_dev(feat.shape[2], batch_u8.shape[2]))
         return pack2bit(preds) if pack else preds
 
     def _logits(self, batch_u8: torch.Tensor, valid_h: torch.Tensor

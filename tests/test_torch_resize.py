@@ -64,6 +64,88 @@ def test_bicubic_upsample_ragged_matches_jax(rng):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def test_operator_windows():
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        operator_windows)
+
+    op = torch.tensor([[0.0, 1.0, 0.0, 2.0, 0.0],    # zero inside: 1..4
+                       [0.0, 0.0, 0.0, 0.0, 0.0],    # empty: (0, 0)
+                       [3.0, 1.0, 1.0, 1.0, -1.0],   # dense: 0..5
+                       [0.0, 0.0, 0.0, 0.0, -0.5]])
+    lo, hi = operator_windows(op)
+    assert lo.tolist() == [1, 0, 0, 4]
+    assert hi.tolist() == [4, 0, 5, 5]
+    lo, hi = operator_windows(op[None].expand(2, 4, 5))
+    assert lo.shape == (2, 4) and hi[1].tolist() == [4, 0, 5, 5]
+
+
+def test_column_windows_are_colt_column_windows():
+    from neuralbarkcalculator_tpu_torch.ops.resize import column_operator_t
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        column_windows, operator_windows)
+
+    colt = torch.from_numpy(column_operator_t(16, 128))
+    colt[:, 5] = 0.0  # an all-zero column: the empty window (0, 0)
+    win = column_windows(colt)
+    assert win.dtype == torch.int32 and win.shape == (2, 128)
+    assert win.is_contiguous()
+    lo, hi = operator_windows(colt.t().contiguous())
+    assert win[0].tolist() == lo.tolist() and win[1].tolist() == hi.tolist()
+    assert win[:, 5].tolist() == [0, 0]
+
+
+def test_upsample_argmax_takes_cached_column_windows(rng):
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        column_windows, upsample_argmax)
+
+    args = [torch.from_numpy(a) for a in _kernel_inputs(rng)]
+    want = upsample_argmax(*args)
+    got = upsample_argmax(*args, column_windows(args[2]))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    win = column_windows(args[2])
+    for bad in (win.long(), win[:, :-1].contiguous(), win.t().contiguous(),
+                win.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            upsample_argmax(*args, bad)
+
+
+def _assert_band(op: np.ndarray, valid: int) -> None:
+    """Rows < valid have their nonzeros inside one window of 1..4
+    contiguous entries; rows >= valid are all zero."""
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        operator_windows)
+
+    lo, hi = (w.numpy() for w in operator_windows(torch.from_numpy(op)))
+    width = hi[:valid] - lo[:valid]
+    assert width.min() >= 1 and width.max() <= 4, (width.min(), width.max())
+    assert not op[valid:].any() and not hi[valid:].any()
+
+
+@pytest.mark.parametrize("first_height", range(1, 1025, 128))
+def test_row_operators_have_the_bicubic_band(first_height):
+    """The kernel's speed rests on each row operator row having <= 4
+    contiguous nonzeros: every trimmed height of the 1024 bucket, as the
+    engine builds them (first_height .. first_height + 127)."""
+    from neuralbarkcalculator_tpu_torch.models.resnet import resnet50_dilated
+    from neuralbarkcalculator_tpu_torch.ops.resize import (
+        embedded_bicubic_rows)
+
+    with torch.device("meta"):
+        backbone = resnet50_dilated()
+    for h in range(first_height, first_height + 128):
+        op = embedded_bicubic_rows(backbone.valid_feature_height(h), h,
+                                   1024 // 8, 1024)
+        _assert_band(op, h)
+
+
+@pytest.mark.parametrize("width", [256, 512, 1024, 2048])
+def test_width_operator_has_the_bicubic_band(width):
+    from neuralbarkcalculator_tpu_torch.ops.resize import column_operator_t
+
+    colt = column_operator_t(width // 8, width)
+    _assert_band(np.ascontiguousarray(colt.T), width)
+
+
 def _kernel_inputs(rng, b=2, f=32, wf=16, ow=128, oh=256,
                    heights=(250, 256)):
     from neuralbarkcalculator_tpu_torch.ops.resize import (
@@ -147,3 +229,19 @@ def test_upsample_argmax_kernel_equals_plain_on_card():
     assert LAUNCHES.count == before + 1
     torch.testing.assert_close(got, upsample_argmax_plain(*args), rtol=0,
                                atol=0)
+
+    # dense operators: the kernel finds whole-axis windows (odd F and OW
+    # take its scalar copy and byte store paths); logits ~ N(0, 1), so a
+    # pixel may differ only at a float32 near-tie (margin < 1e-5)
+    b, oh, f, wf, ow = 2, 70, 23, 20, 200
+    feat = rng.standard_normal((b, f, wf, 3), dtype=np.float32)
+    rows = rng.standard_normal((b, oh, f), dtype=np.float32) / np.sqrt(f)
+    colt = rng.standard_normal((wf, ow), dtype=np.float32) / np.sqrt(wf)
+    args = [torch.from_numpy(a).cuda() for a in (feat, rows, colt)]
+    got = upsample_argmax(*args)
+    want = upsample_argmax_plain(*args)
+    logits = torch.einsum("bof,bfwc,wp->bcop", *args)
+    top2 = logits.topk(2, dim=1).values
+    differ = got != want
+    assert not differ.any() or float(
+        (top2[:, 0] - top2[:, 1])[differ].max()) < 1e-5
