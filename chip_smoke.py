@@ -6,8 +6,8 @@
 Phase 1 builds every native piece from this checkout (one library per
 CUDA kernel source in neuralbarkcalculator_tpu_torch/csrc/ with nvcc for
 sm_90a, and the host IO runtime from native/barkio.cc with g++), one
-compiler each, all started together, and prints the card's name and
-power limit.
+compiler each, all started together, prints each kernel's registers,
+spills and shared memory from ptxas, and the card's name and power limit.
 
 Phase 2 holds each kernel against its plain PyTorch version at its path's
 shapes and times the kernel, the plain version and the PyTorch yardstick
@@ -15,7 +15,12 @@ by profiler device time: upsample_argmax at the mixed 8x1024x1024 batch
 (and at small dense operators, and at a uniform batch against one
 F.interpolate + argmax call), and fused_dropout_matmul forward and
 backward at the training head's [5, 512, 64, 64] -> 3, rate 0.8 (the
-dropout mask bit for bit).
+dropout mask bit for bit; two calls bitwise equal; shapes that miss every
+tile at 1, 3 and 4 classes and rates 0 and 0.8; the integer instructions
+of a step of each kernel's loop, counted in its SASS, from which an
+estimate of the integer pipe's time is printed beside the byte bound).
+Each timing window's device events are counted against what the function
+launches.
 
 Phase 3 drives the predict path, folder prediction, through the engine a
 user calls: a synthetic folder of 16 processed 1024-wide images at trimmed
@@ -44,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -84,11 +90,21 @@ BF16_LOGIT_TOL = 0.4
 # classes (batch 5 at crop 512, output stride 8), the recipe's rate.
 FDM_SHAPE = (5, 512, 64, 3)  # (B, C, H = W, K)
 FDM_RATE = 0.8
+# Shapes that miss every tile of the kernels (72 channels: not a multiple
+# of 16; 60 x 60 = 3600 pixels: not a multiple of 32 or 1024), each class
+# count and rate 0 (the identity) and the recipe's.
+FDM_ODD_SHAPE = (1, 72, 60, 60)  # (B, C, H, W)
+FDM_ODD_CLASSES = (1, 3, 4)
+FDM_ODD_RATES = (0.0, 0.8)
 # CUDA events around back-to-back wrapper calls timed the forward at
 # 0.0385, 0.0613 and 0.0660 ms in three rounds of one run on an H100 at
 # constant clocks: they timed the host. The fused kernels are timed by
 # device time, in rounds, each beside the card's clocks.
 FDM_TIMING_ROUNDS = 3
+# Idle time at each end of a device_times window: one run's middle round
+# read the forward 11 % low and the backward 6 % high beside two steady
+# rounds, as events crossing windows would.
+DEVICE_TIMES_MARGIN_S = 0.005
 # The training phase's synthetic dataset: 10 images per wood type (so the
 # 80/10/10 split gives 24/3/3), 1024x1024; a samples factor of 2 gives
 # 24 * 2 // 5 = 9 train steps.
@@ -155,33 +171,161 @@ def event_device_us(e) -> float:
                          getattr(e, "self_cuda_time_total", 0.0)))
 
 
-def device_ms(torch, fn, warmup: int = 3, reps: int = 20,
-              attempts: int = 3) -> float:
-    """The device time per call of `fn`: the device-side events of `reps`
-    calls under torch.profiler (kernels and copies), summed, over `reps`,
-    after `warmup` calls. A profiler session that records no device event
-    at all (seen once in a row of such sessions on an H100) is run again,
-    up to `attempts` sessions."""
+def device_times(torch, fns, expect=None, warmup: int = 3, reps: int = 20,
+                 attempts: int = 3
+                 ) -> tuple[list[dict[str, float]], list[dict[str, int]]]:
+    """The device time per call of each of `fns`, by kernel label, from one
+    torch.profiler session: each fn's `reps` calls, after `warmup` calls of
+    it, run inside a record_function window, and the device events
+    (kernels and copies) that start inside it are its own. The window
+    holds DEVICE_TIMES_MARGIN_S of idle time at each end, and the warm-up
+    calls end that long before it, so a drift of the device clock against
+    the host's below that margin moves no event across a window's edge.
+    Each window's events are counted by label: where `expect` gives a fn's
+    events per call by label (the port's kernels), the window must hold
+    exactly `reps` times that; for the others (torch's own calls) each
+    label's count must be a multiple of `reps`. A window that lost or
+    gained events at an edge fails that.
+    One session for many fns, and few events in each: on an H100 a process
+    that had opened some twenty sessions saw every later one record no
+    device event, and a session that also held the plain versions' ~16,000
+    kernels twice recorded none for 2 of its 8 fns. A session that fails a
+    count is run again, up to `attempts` sessions. Returns each fn's device
+    ms per call and its event counts, by label."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+    expect = expect or [None] * len(fns)
     for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(event_device_us(e) for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-        if total:
-            return total / reps / 1e3
-        log(f"device_ms: profiler session {attempt + 1} recorded no device "
-            f"time")
-    raise RuntimeError(f"the profiler recorded no device time in {attempts} "
-                       f"sessions")
+            for i, fn in enumerate(fns):
+                for _ in range(warmup):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(DEVICE_TIMES_MARGIN_S)
+                with record_function(f"device_times_{i}"):
+                    time.sleep(DEVICE_TIMES_MARGIN_S)
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                    time.sleep(DEVICE_TIMES_MARGIN_S)
+        events = prof.events()
+        windows = [(e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CPU
+                   and e.name.startswith("device_times_")]
+        out: list[dict[str, float]] = [{} for _ in fns]
+        counts: list[dict[str, int]] = [{} for _ in fns]
+        for e in events:
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation \
+                    or e.name.startswith("device_times_"):
+                continue
+            for i, (lo, hi) in enumerate(windows):
+                if lo <= e.time_range.start <= hi:
+                    label = kernel_label(e.name)
+                    out[i][label] = (out[i].get(label, 0.0)
+                                     + e.time_range.elapsed_us() / reps / 1e3)
+                    counts[i][label] = counts[i].get(label, 0) + 1
+                    break
+        bad = [i for i, (n, want) in enumerate(zip(counts, expect))
+               if not n or (n != {k: reps * v for k, v in want.items()}
+                            if want else any(v % reps for v in n.values()))]
+        if len(windows) == len(fns) and not bad:
+            return out, counts
+        log(f"device_times: profiler session {attempt + 1}: functions {bad} "
+            f"of {len(fns)} recorded {[counts[i] for i in bad]} device "
+            f"events in {reps} calls (expected per call: "
+            f"{[expect[i] for i in bad]}, None: a multiple of {reps})")
+    raise RuntimeError(f"the profiler did not record every function's device "
+                       f"events in {attempts} sessions")
+
+
+def same_counts(name: str, counts_by_round: list[list[dict[str, int]]]
+                ) -> None:
+    """Raise unless every round of `device_times` counted the same device
+    events, by label, for each function."""
+    for i, per_round in enumerate(zip(*counts_by_round)):
+        if any(c != per_round[0] for c in per_round):
+            raise AssertionError(f"{name} timing: function {i} recorded "
+                                 f"other device events in other rounds: "
+                                 f"{per_round}")
+
+
+def kernel_label(mangled: str) -> str:
+    """`fdm_forward_kernel<3>` from a kernel's name, mangled or not (the
+    name itself where no port kernel is found in it)."""
+    m = re.search(r"((?:fdm|upsample)_[a-z_]*?kernel)(?:ILi(\d+)E|<(\d+)>)?",
+                  mangled)
+    if not m:
+        return mangled
+    k = m.group(2) or m.group(3)
+    return m.group(1) + (f"<{k}>" if k else "")
+
+
+def ptxas_report(text: str) -> dict[str, str]:
+    """Each kernel's registers, spills and shared memory from a `-Xptxas
+    -v` log, by kernel."""
+    out: dict[str, list[str]] = {}
+    kernel = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([^' ]+)", line)
+        if m:
+            kernel = kernel_label(m.group(1))
+        elif kernel and ("spill" in line or "registers" in line):
+            out.setdefault(kernel, []).append(line.split(":", 1)[-1]
+                                              .strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+# The opcodes of the SM's integer pipes, and the rate assumed for each of
+# them: 64 a clock per SM (4 x 16 INT32 lanes), IMAD.WIDE (a 64-bit
+# result) included, which is not checked on the card.
+INT_OPCODES = ("IMAD", "IADD3", "VIADD", "LOP3", "SHF", "LEA", "ISETP",
+               "SEL", "PRMT", "IMNMX", "IABS")
+H100_INT_OPS_PER_CLOCK_PER_SM = 64
+
+
+def step_loop_sass(lib_path: str, kernel: str) -> tuple[dict[str, float],
+                                                        int]:
+    """The opcodes one step of a kernel's main loop issues, from its SASS
+    (`cuobjdump -sass`): the loop is the backward branch whose body holds
+    the most `DEPBAR` waits (one cp.async wait a step), and its opcodes,
+    NOPs left out, are divided by the steps it is unrolled to. Returns
+    that histogram and the steps in the body."""
+    from neuralbarkcalculator_tpu_torch.utils.build import find_nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    code: list[tuple[int, str, str]] = []  # (address, opcode, operands)
+    inside = False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel_label(line.split("Function :")[1].strip()) == kernel
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][\w.]*)\s*([^;]*)", line)
+        if inside and m and m.group(2) != "NOP":
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    best: list[str] = []
+    steps = 0
+    for addr, op, operands in code:
+        target = re.match(r"0x([0-9a-f]+)", operands)
+        if op.split(".")[0] == "BRA" and target \
+                and int(target.group(1), 16) < addr:
+            body = [o for a, o, _ in code
+                    if int(target.group(1), 16) <= a <= addr]
+            waits = sum(o.startswith("DEPBAR") for o in body)
+            if waits > steps:
+                best, steps = body, waits
+    if not steps:
+        raise RuntimeError(f"no cp.async step loop in the SASS of {kernel} "
+                           f"in {lib_path}")
+    hist: dict[str, float] = {}
+    for op in best:
+        hist[op] = hist.get(op, 0.0) + 1.0 / steps
+    return hist, steps
 
 
 def phase_build() -> str:
@@ -201,9 +345,8 @@ def phase_build() -> str:
     log(f"built {[os.path.relpath(p, REPO) for p in paths.values()]} in "
         f"{time.perf_counter() - t0:.3f} s")
     for name in names:
-        for line in build_log(paths[name]).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas ({name}): {line.strip()}")
+        for kernel, props in ptxas_report(build_log(paths[name])).items():
+            log(f"ptxas ({name}) {kernel}: {props}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -334,15 +477,19 @@ def phase_kernel(torch, seed: int) -> dict:
            library,
            lambda: upsample_argmax(feat, u_rows, colt, col_win),
            interpolate)
-    rounds = []
+    one = {"upsample_argmax_kernel": 1}
+    rounds, counts = [], []
     for r in range(FDM_TIMING_ROUNDS):
-        rounds.append([device_ms(torch, fn) for fn in fns])
+        times, n = device_times(torch, fns, (one, None, None, one, None))
+        rounds.append([sum(t.values()) for t in times])
+        counts.append(n)
         log(f"upsample_argmax timing round {r + 1} (device ms per call): "
             f"mixed batch kernel {rounds[-1][0]:.4f}, plain "
             f"{rounds[-1][1]:.4f}, two matmuls + argmax {rounds[-1][2]:.4f}; "
             f"uniform batch kernel {rounds[-1][3]:.4f}, F.interpolate + "
             f"argmax {rounds[-1][4]:.4f}; clocks.sm, clocks.mem, power.draw "
             f"after it: {card_clocks()}")
+    same_counts("upsample_argmax", counts)
     ms, plain_ms, library_ms, uniform_ms, interp_ms = (
         statistics.median(col) for col in zip(*rounds))
 
@@ -372,53 +519,31 @@ def phase_kernel(torch, seed: int) -> dict:
     }
 
 
-def phase_fdm_kernel(torch, seed: int) -> list[dict]:
-    """fused_dropout_matmul's forward and backward kernels against their
-    plain versions on the card, at the training head's shapes
-    (h [5, 512, 64, 64], K = 3, rate 0.8), then timed."""
-    import numpy as np
-    import torch.nn.functional as F
-
+def check_fdm(torch, label: str, h, w, bias, g, dseed: int, rate: float,
+              keep_range: tuple[float, float] | None = None) -> dict:
+    """Both fused_dropout_matmul kernels against their plain versions on
+    one input: the mask bit for bit (with w = g = 1, dh is K/keep where
+    kept and 0 where dropped), dh exactly 0 where dropped, y, dh, dw and db
+    within the stated tolerances. Returns the outputs and the errors."""
     from neuralbarkcalculator_tpu_torch.ops.fused_dropout_matmul import (
         dropout_mask, fused_dropout_matmul_backward,
         fused_dropout_matmul_backward_plain, fused_dropout_matmul_forward,
         fused_dropout_matmul_plain)
 
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.default_rng(seed)
-    b_, c_, hw, k_ = FDM_SHAPE
-    h = torch.from_numpy(rng.standard_normal((b_, c_, hw, hw),
-                                             dtype=np.float32)).to(dev)
-    w = torch.from_numpy(rng.standard_normal((c_, k_),
-                                             dtype=np.float32)).to(dev)
-    bias = torch.from_numpy(rng.standard_normal(k_, dtype=np.float32)).to(dev)
-    g = torch.from_numpy(rng.standard_normal((b_, k_, hw, hw),
-                                             dtype=np.float32)).to(dev)
-    dseed = int(rng.integers(0, 2 ** 63)) * 2 + 1  # a full 64-bit key
-    rate = FDM_RATE
-
-    # the mask, bit for bit: with g = w = 1, dh is 3/keep where kept, 0
-    # where dropped
-    ones_w = torch.ones_like(w)
-    dh1, _, _ = fused_dropout_matmul_backward(h, ones_w, torch.ones_like(g),
-                                              dseed, rate)
+    dh1, _, _ = fused_dropout_matmul_backward(
+        h, torch.ones_like(w), torch.ones_like(g), dseed, rate)
     torch.cuda.synchronize()
-    mask = dropout_mask(h.shape, dseed, rate, dev)
+    mask = dropout_mask(h.shape, dseed, rate, h.device)
     kept = mask != 0
     mask_diff = int(((dh1 != 0) != kept).sum())
     keep_frac = float(kept.float().mean())
-    log(f"fused_dropout_matmul mask: {mask_diff} of {mask.numel()} keep "
-        f"decisions differ from the plain version (keep fraction "
-        f"{keep_frac:.5f}, rate {rate}); kept dh values "
-        f"{sorted(set(dh1[kept].unique().tolist()))}")
     if mask_diff:
-        raise AssertionError("the kernel's dropout mask differs from the "
-                             "plain version's")
-    if not 0.18 <= keep_frac <= 0.22:
-        raise AssertionError(f"keep fraction {keep_frac} outside "
-                             f"[0.18, 0.22]")
+        raise AssertionError(f"fused_dropout_matmul {label}: the kernel's "
+                             f"dropout mask differs from the plain "
+                             f"version's at {mask_diff} elements")
+    if keep_range and not keep_range[0] <= keep_frac <= keep_range[1]:
+        raise AssertionError(f"fused_dropout_matmul {label}: keep fraction "
+                             f"{keep_frac} outside {keep_range}")
 
     y = fused_dropout_matmul_forward(h, w, bias, dseed, rate)
     dh, dw, db = fused_dropout_matmul_backward(h, w, g, dseed, rate)
@@ -426,37 +551,135 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
     y_p = fused_dropout_matmul_plain(h, w, bias, dseed, rate)
     dh_p, dw_p, db_p = fused_dropout_matmul_backward_plain(h, w, g, dseed,
                                                            rate)
-    # y: summation order differs (the kernel sums channel chunks); tolerance
-    # 1e-5 of max|y|
+    # y: a sum over C channels in another order; 1e-5 of max|y|
     y_err = float((y - y_p).abs().max())
     y_tol = 1e-5 * float(y_p.abs().max())
-    # dh: exactly 0 where dropped; elsewhere a 3-term sum in another order,
+    # dh: exactly 0 where dropped; elsewhere a K-term sum in another order,
     # held to 1e-6 of the sum of its terms' magnitudes
     dh_err = float((dh - dh_p).abs().max())
     terms = torch.einsum("bkhw,ck->bchw", g.abs(), w.abs()) * mask
     dh_excess = float(((dh - dh_p).abs() - 1e-6 * terms).max())
     dh_dropped = int((dh[~kept] != 0).sum())
-    # dw: a sum over 20480 pixels per entry in another order, 1e-4 of
-    # max|dw|; db: the same torch sum on both sides, exact
+    # dw: a sum over B*H*W pixels per entry in another order, 1e-4 of
+    # max|dw|; db: the same sum of g, in the kernel's order (a lane's 32
+    # quads, 8 lanes, then the segments' rows: at most ~60 roundings deep,
+    # so within ~60 * 2^-24 = 3.6e-6 of the sum of its terms' magnitudes),
+    # against torch's own order: 1e-5 of that sum
     dw_err = float((dw - dw_p).abs().max())
     dw_tol = 1e-4 * float(dw_p.abs().max())
     db_err = float((db - db_p).abs().max())
-    log(f"fused_dropout_matmul vs plain: y max abs err {y_err:.4g} (allowed "
-        f"{y_tol:.4g}); dh max abs err {dh_err:.4g}, {dh_dropped} nonzero "
-        f"at dropped elements; dw max abs err {dw_err:.4g} (allowed "
-        f"{dw_tol:.4g}); db max abs err {db_err:.4g}")
+    db_tol = 1e-5 * float(g.abs().sum(dim=(0, 2, 3)).max())
+    log(f"fused_dropout_matmul {label} [{'x'.join(map(str, h.shape))} -> "
+        f"{w.shape[1]}, rate {rate}]: 0 of {mask.numel()} keep decisions "
+        f"differ (keep fraction {keep_frac:.5f}); y max abs err {y_err:.4g} "
+        f"(allowed {y_tol:.4g}); dh max abs err {dh_err:.4g}, {dh_dropped} "
+        f"nonzero at dropped elements; dw max abs err {dw_err:.4g} (allowed "
+        f"{dw_tol:.4g}); db max abs err {db_err:.4g} (allowed {db_tol:.4g})")
     if y_err > y_tol or dh_excess > 0 or dh_dropped or dw_err > dw_tol \
-            or db_err:
-        raise AssertionError("fused_dropout_matmul differs from its plain "
-                             "version beyond the stated tolerances")
+            or db_err > db_tol:
+        raise AssertionError(f"fused_dropout_matmul {label} differs from "
+                             f"its plain version beyond the stated "
+                             f"tolerances")
+    return {"y": y, "dh": dh, "dw": dw, "db": db, "y_err": y_err,
+            "dh_err": dh_err}
+
+
+def fdm_inputs(torch, rng, b_: int, c_: int, hh: int, ww: int, k_: int):
+    """h, w, bias, g drawn from `rng` on the card, and a full 64-bit seed."""
+    import numpy as np
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).cuda()
+
+    return (draw(b_, c_, hh, ww), draw(c_, k_), draw(k_),
+            draw(b_, k_, hh, ww), int(rng.integers(0, 2 ** 63)) * 2 + 1)
+
+
+def integer_pipe_ms(torch, k_: int, elements: int) -> dict[str, tuple]:
+    """An estimate, not a bound, of each fused_dropout_matmul kernel's
+    integer-pipe time at `elements` elements of h: a step of either kernel
+    (one lane: one Philox4x32-10 call, 4 elements) issues the integer
+    instructions its step loop's SASS holds (`step_loop_sass`), at the
+    assumed H100_INT_OPS_PER_CLOCK_PER_SM and the card's maximum SM clock;
+    and the same with every IMAD.WIDE counted twice, in case the 64-bit
+    multiply issues at half that rate. Returns, per direction, the two
+    times in ms and the step's histogram."""
+    from neuralbarkcalculator_tpu_torch.utils.build import build_kernel
+
+    lib_path = build_kernel("fused_dropout_matmul")
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_ms = sms * H100_INT_OPS_PER_CLOCK_PER_SM * max_mhz * 1e3
+    out = {}
+    for direction in ("forward", "backward"):
+        kernel = f"fdm_{direction}_kernel<{k_}>"
+        hist, steps = step_loop_sass(lib_path, kernel)
+        ints = sum(v for op, v in hist.items() if op.startswith(INT_OPCODES))
+        wide = sum(v for op, v in hist.items() if op.startswith("IMAD.WIDE"))
+        lo = elements // 4 * ints / per_ms
+        hi = elements // 4 * (ints + wide) / per_ms
+        log(f"{kernel}: a step of its loop ({steps} unrolled) issues "
+            f"{sum(hist.values()):.2f} instructions, {ints:.2f} integer "
+            f"({wide:.2f} IMAD.WIDE): "
+            f"{dict((op, round(v, 2)) for op, v in sorted(hist.items()))}")
+        log(f"{kernel}: integer pipe, estimated: {elements // 4} steps x "
+            f"{ints:.2f} / ({sms} SMs x {H100_INT_OPS_PER_CLOCK_PER_SM} a "
+            f"clock x {max_mhz:.0f} MHz) = {lo:.4f} ms; {hi:.4f} ms with "
+            f"IMAD.WIDE at half rate")
+        out[direction] = (lo, hi, hist)
+    return out
+
+
+def phase_fdm_kernel(torch, seed: int) -> list[dict]:
+    """fused_dropout_matmul's forward and backward kernels against their
+    plain versions on the card: at the training head's shapes (h [5, 512,
+    64, 64], K = 3, rate 0.8), twice, bitwise equal; at shapes that miss
+    every tile (FDM_ODD_SHAPE, each of FDM_ODD_CLASSES and FDM_ODD_RATES).
+    Then timed, with an estimate of the integer pipe's time from the
+    kernels' SASS beside the byte bound."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from neuralbarkcalculator_tpu_torch.ops.fused_dropout_matmul import (
+        fused_dropout_matmul_backward, fused_dropout_matmul_backward_plain,
+        fused_dropout_matmul_forward, fused_dropout_matmul_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    b_, c_, hw, k_ = FDM_SHAPE
+    rate = FDM_RATE
+    h, w, bias, g, dseed = fdm_inputs(torch, rng, b_, c_, hw, hw, k_)
+    main = check_fdm(torch, "main shape", h, w, bias, g, dseed, rate,
+                     (0.18, 0.22))
+    # determinism: a second call gives the same bits
+    again = check_fdm(torch, "main shape, again", h, w, bias, g, dseed, rate)
+    same = {n: torch.equal(main[n], again[n]) for n in ("y", "dh", "dw", "db")}
+    log(f"fused_dropout_matmul: two calls at the main shape bitwise equal: "
+        f"{same}")
+    if not all(same.values()):
+        raise AssertionError(f"fused_dropout_matmul is not deterministic: "
+                             f"{same}")
+    for odd_k in FDM_ODD_CLASSES:
+        for odd_rate in FDM_ODD_RATES:
+            check_fdm(torch, "odd shape",
+                      *fdm_inputs(torch, rng, *FDM_ODD_SHAPE, odd_k), odd_rate,
+                      (0.18, 0.22) if odd_rate else (1.0, 1.0))
 
     # times: device time per call from the profiler (a ~0.03 ms kernel
     # behind a Python wrapper leaves the card idle between back-to-back
     # calls, so CUDA events around them time the host), for the kernels,
-    # the library yardstick (F.dropout + a 1x1 F.conv2d through autograd)
-    # and the plain versions, in FDM_TIMING_ROUNDS rounds beside the
-    # card's clocks; then the medians.
+    # the library yardstick (F.dropout + a 1x1 F.conv2d through autograd),
+    # the plain versions, and what the card's memory gives torch's own
+    # kernels for the kernels' main traffic (h summed: h read once; h
+    # copied: h read and written once), in FDM_TIMING_ROUNDS rounds beside
+    # the card's clocks; then the medians.
     hl = h.clone().requires_grad_(True)
+    h_copy = torch.empty_like(h)
     w4 = w.t().reshape(k_, c_, 1, 1).contiguous().requires_grad_(True)
     bl = bias.clone().requires_grad_(True)
 
@@ -469,38 +692,65 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
            lambda: lib_fwd().detach(),
            lambda: torch.autograd.grad(y_lib, (hl, w4, bl), g,
                                        retain_graph=True),
-           lambda: fused_dropout_matmul_plain(h, w, bias, dseed, rate),
-           lambda: fused_dropout_matmul_backward_plain(h, w, g, dseed,
-                                                       rate))
-    rounds = []
+           h.sum,
+           lambda: h_copy.copy_(h))
+    # ~400 kernels a call each, ~6 ms: a few calls suffice
+    plain_fns = (lambda: fused_dropout_matmul_plain(h, w, bias, dseed, rate),
+                 lambda: fused_dropout_matmul_backward_plain(h, w, g, dseed,
+                                                             rate))
+    # the op's events per call: the forward one kernel, the backward the
+    # kernel and the sum of its partials
+    expect = ({f"fdm_forward_kernel<{k_}>": 1},
+              {f"fdm_backward_kernel<{k_}>": 1,
+               "fdm_backward_reduce_kernel": 1}, None, None, None, None)
+    rounds, parts, counts = [], [], []
     for r in range(FDM_TIMING_ROUNDS):
-        rounds.append([device_ms(torch, fn) for fn in fns])
+        times, n = device_times(torch, fns, expect)
+        plain, n_plain = device_times(torch, plain_fns, warmup=1, reps=3)
+        rounds.append([sum(t.values()) for t in times + plain])
+        parts.append(times[:2])
+        counts.append(n + n_plain)
         log(f"fused_dropout_matmul timing round {r + 1} (device ms per "
             f"call): forward {rounds[-1][0]:.4f}, backward "
             f"{rounds[-1][1]:.4f}, F.dropout + conv2d {rounds[-1][2]:.4f} / "
-            f"{rounds[-1][3]:.4f}, plain {rounds[-1][4]:.4f} / "
-            f"{rounds[-1][5]:.4f}; clocks.sm, clocks.mem, power.draw after "
+            f"{rounds[-1][3]:.4f}, h summed {rounds[-1][4]:.4f}, h copied "
+            f"{rounds[-1][5]:.4f}, plain {rounds[-1][6]:.4f} / "
+            f"{rounds[-1][7]:.4f}; clocks.sm, clocks.mem, power.draw after "
             f"it: {card_clocks()}")
-    del y_lib
-    fwd_ms, bwd_ms, fwd_lib_ms, bwd_lib_ms, fwd_plain_ms, bwd_plain_ms = (
-        statistics.median(col) for col in zip(*rounds))
+    del y_lib, h_copy
+    same_counts("fused_dropout_matmul", counts)
+    (fwd_ms, bwd_ms, fwd_lib_ms, bwd_lib_ms, sum_ms, copy_ms, fwd_plain_ms,
+     bwd_plain_ms) = (statistics.median(col) for col in zip(*rounds))
+    log(f"fused_dropout_matmul: the card's memory for the main traffic, "
+        f"through torch's kernels: h summed {sum_ms:.4f} ms "
+        f"({4 * h.numel() / sum_ms / 1e9:.3f} TB/s), h copied "
+        f"{copy_ms:.4f} ms ({8 * h.numel() / copy_ms / 1e9:.3f} TB/s)")
+    for i, label in enumerate(("forward", "backward")):
+        kernels = sorted({k for p in parts for k in p[i]})
+        log(f"fused_dropout_matmul {label} op by kernel (device ms per call, "
+            f"median of the rounds): " + ", ".join(
+                f"{k} {statistics.median(p[i].get(k, 0.0) for p in parts):.4f}"
+                for k in kernels))
 
-    n_h, n_y = h.numel(), y.numel()
+    n_h, n_y = h.numel(), main["y"].numel()
     ops = 2 * n_h * k_
     fwd_bytes = 4 * (n_h + w.numel() + k_ + n_y)
     bwd_bytes = 4 * (n_h + w.numel() + n_y + n_h + w.numel() + k_)
+    int_est = integer_pipe_ms(torch, k_, n_h)
     rows = []
-    for name, ms, plain_ms, lib_ms, nbytes, nops, err, line in (
+    for name, ms, plain_ms, lib_ms, nbytes, nops, err, line, est in (
             ("fused_dropout_matmul_fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms,
-             fwd_bytes, ops, y_err, 139),
+             fwd_bytes, ops, main["y_err"], 139, int_est["forward"]),
             ("fused_dropout_matmul_bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms,
-             bwd_bytes, 2 * ops, dh_err, 148)):
+             bwd_bytes, 2 * ops, main["dh_err"], 148, int_est["backward"])):
         op_ms = nops / H100_F32_FLOPS * 1e3
         byte_ms = nbytes / H100_HBM_BYTES * 1e3
+        bound = max(op_ms, byte_ms)
         log(f"{name} [{b_}x{c_}x{hw}x{hw} -> {k_}, rate {rate}]: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.dropout + conv2d "
-            f"{lib_ms:.4f} ms, bound {max(op_ms, byte_ms):.4f} ms "
-            f"({nbytes / 1e6:.3f} MB, {nops / 1e6:.1f} MFLOP)")
+            f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB, "
+            f"{nops / 1e6:.1f} MFLOP; {bound / ms:.3f} of it); integer "
+            f"pipe estimated at {est[0]:.4f}-{est[1]:.4f} ms")
         rows.append({
             "name": name, "route": "cuda",
             "source": "neuralbarkcalculator_tpu_torch/csrc/"
@@ -508,7 +758,7 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
             "replaces": f"neuralbarkcalculator_tpu/ops/pallas_kernels.py:"
                         f"{line}",
             "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
             "library_ms": lib_ms,
         })

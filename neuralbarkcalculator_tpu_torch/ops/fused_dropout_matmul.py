@@ -21,12 +21,17 @@ computes the same bits with int64 torch ops, so the kernel can be held
 against it bit for bit.
 
 - On CUDA tensors the wrapper launches the hand-written kernels
-  (``csrc/fused_dropout_matmul.cu``, built at first use) or raises.
+  (``csrc/fused_dropout_matmul.cu``, built at first use) or raises: the
+  forward is one kernel that writes ``y``; the backward one kernel that
+  writes ``dh`` and per-block ``dw`` / ``db`` partials and a small one
+  that sums them in order. The wrapper only allocates; it launches no
+  torch kernel.
 - On CPU tensors it runs the plain version. That is the only case the plain
   version serves.
 
-``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count the kernels' launches, so a
-run can show that its main path went through them.
+``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count the op's launches (one per
+call, whatever the library runs inside it), so a run can show that its
+main path went through them.
 """
 from __future__ import annotations
 
@@ -165,12 +170,15 @@ def _kernel_args(h: torch.Tensor, w: torch.Tensor, seed: int, rate: float):
     """Shape checks of the kernels, and their common arguments."""
     bsz, c, hh, ww = h.shape
     p, k = hh * ww, w.shape[1]
-    lib = kernel_lib("fused_dropout_matmul")
     if p % 4:
         raise ValueError(f"fused_dropout_matmul: the kernels take H*W % 4 == "
                          f"0, got {hh}x{ww}")
+    if k < 1:
+        raise ValueError("fused_dropout_matmul: the kernels take at least "
+                         "1 output channel, got 0")
+    lib = kernel_lib("fused_dropout_matmul")
     if k > lib.fdm_max_classes():
-        raise ValueError(f"fused_dropout_matmul: the kernels take at most "
+        raise ValueError(f"fused_dropout_matmul: the kernels take 1 to "
                          f"{lib.fdm_max_classes()} output channels, got {k}")
     return lib, (bsz, c, p, k, _check_seed(seed), keep_threshold(rate),
                  keep_scale(rate))
@@ -189,16 +197,14 @@ def fused_dropout_matmul_forward(h: torch.Tensor, w: torch.Tensor,
                          f"{h.device}")
     _check_aligned(h=h)
     lib, (bsz, c, p, k, seed, thresh, scale) = _kernel_args(h, w, seed, rate)
-    w, b = w.contiguous(), b.contiguous()
+    b = b.contiguous()
     y = torch.empty((bsz, k, h.shape[2], h.shape[3]), dtype=torch.float32,
                     device=h.device)
-    part = torch.empty((lib.fdm_channel_chunks(c), bsz, k, p),
-                       dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = lib.fdm_forward_launch(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), part.data_ptr(),
-            y.data_ptr(), bsz, c, p, k, seed, thresh, scale, stream)
+            h.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, c,
+            p, k, *w.stride(), seed, thresh, scale, stream)
     check_launch("fused_dropout_matmul forward", rc)
     FWD_LAUNCHES.add()
     return y
@@ -207,9 +213,9 @@ def fused_dropout_matmul_forward(h: torch.Tensor, w: torch.Tensor,
 def fused_dropout_matmul_backward(
         h: torch.Tensor, w: torch.Tensor, g: torch.Tensor, seed: int,
         rate: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dh, dw, db) for g [B, K, H, W]: the kernel on CUDA tensors (dw
-    summed here from its per-block partials, db = g summed, as the JAX VJP
-    does), the plain version on CPU tensors."""
+    """(dh, dw, db) for g [B, K, H, W]: the kernels on CUDA tensors (the
+    library sums the per-block dw and db partials itself, in order), the
+    plain version on CPU tensors."""
     bsz, _, hh, ww = h.shape
     g = g.contiguous()
     _check(h, w, g, (bsz, w.shape[1], hh, ww), "g")
@@ -220,18 +226,22 @@ def fused_dropout_matmul_backward(
                          f"{h.device}")
     _check_aligned(h=h, g=g)
     lib, (bsz, c, p, k, seed, thresh, scale) = _kernel_args(h, w, seed, rate)
-    w = w.contiguous()
     dh = torch.empty_like(h)
-    dw_part = torch.empty((bsz * lib.fdm_pixel_tiles(p), c, k),
-                          dtype=torch.float32, device=h.device)
+    dw = torch.empty((c, k), dtype=torch.float32, device=h.device)
+    db = torch.empty(k, dtype=torch.float32, device=h.device)
+    rows = lib.fdm_partial_rows(bsz, p)
+    dw_part = torch.empty((rows, c, k), dtype=torch.float32, device=h.device)
+    db_part = torch.empty((rows, k), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = lib.fdm_backward_launch(
             h.data_ptr(), w.data_ptr(), g.data_ptr(), dh.data_ptr(),
-            dw_part.data_ptr(), bsz, c, p, k, seed, thresh, scale, stream)
+            dw_part.data_ptr(), db_part.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), bsz, c, p, k, *w.stride(), seed, thresh, scale,
+            stream)
     check_launch("fused_dropout_matmul backward", rc)
     BWD_LAUNCHES.add()
-    return dh, dw_part.sum(dim=0), g.sum(dim=(0, 2, 3))
+    return dh, dw, db
 
 
 class _FusedDropoutMatmul(torch.autograd.Function):

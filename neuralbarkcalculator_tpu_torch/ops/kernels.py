@@ -39,14 +39,13 @@ _SIGNATURES = {
         "upsample_argmax_smem_bytes": ([_I, _I], ctypes.c_size_t),
     },
     "fused_dropout_matmul": {
-        "fdm_forward_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
+        "fdm_forward_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 ctypes.c_uint64, ctypes.c_uint64,
                                 ctypes.c_float, _P], _I),
-        "fdm_backward_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 ctypes.c_uint64, ctypes.c_uint64,
+        "fdm_backward_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, ctypes.c_uint64, ctypes.c_uint64,
                                  ctypes.c_float, _P], _I),
-        "fdm_channel_chunks": ([_I], _I),
-        "fdm_pixel_tiles": ([_I], _I),
+        "fdm_partial_rows": ([_I, _I], _I),
         "fdm_max_classes": ([], _I),
     },
 }

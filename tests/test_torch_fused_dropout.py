@@ -162,6 +162,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="no kernel"):
         fdm.fused_dropout_matmul_forward(h.to("meta"), w.to("meta"),
                                          b.to("meta"), SEED, 0.5)
+    # the kernels' shape limits, refused before the library is loaded
+    with pytest.raises(ValueError, match="H\\*W % 4"):
+        fdm._kernel_args(torch.zeros(1, 8, 3, 5), w, SEED, 0.5)
+    with pytest.raises(ValueError, match="at least 1 output channel"):
+        fdm._kernel_args(h, torch.zeros(8, 0), SEED, 0.5)
     # the kernels read h and g as float4: a view one float into its storage
     # is refused before a launch
     fdm._check_aligned(h=h, g=torch.zeros(1, 3, 4, 4))
@@ -204,30 +209,47 @@ def test_head_runs_the_op_only_in_train_mode(monkeypatch):
 
 
 @pytest.mark.cuda
-def test_kernels_equal_plain_on_card():
+@pytest.mark.parametrize("shape,k,rate", [
+    ((2, 8, 16, 64), 3, 0.8),
+    # [B, H, W, C] that miss every tile of the kernels: 72 channels, 3600
+    # pixels; each class count the kernels are built for but 2, rate 0
+    # (the identity) and the recipe's
+    *[((1, 60, 60, 72), k, rate) for k in (1, 3, 4) for rate in (0.0, 0.8)],
+])
+def test_kernels_equal_plain_on_card(shape, k, rate):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode "
                     "(chip_smoke.py runs them at the training path's "
                     "shapes)")
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(5)
-    h, w, b = (torch.from_numpy(a).cuda() for a in _inputs(rng, (2, 8, 16,
-                                                                  64)))
+    h, w, b = (torch.from_numpy(a).cuda() for a in _inputs(rng, shape, k))
     h = h.permute(0, 3, 1, 2).contiguous()
-    g = torch.randn(2, 3, 8, 16, device="cuda")
+    g = torch.from_numpy(rng.standard_normal(
+        (shape[0], k, shape[1], shape[2])).astype(np.float32)).cuda()
     before = (fdm.FWD_LAUNCHES.count, fdm.BWD_LAUNCHES.count)
-    y = fdm.fused_dropout_matmul_forward(h, w, b, SEED, 0.8)
-    dh, dw, db = fdm.fused_dropout_matmul_backward(h, w, g, SEED, 0.8)
+    y = fdm.fused_dropout_matmul_forward(h, w, b, SEED, rate)
+    dh, dw, db = fdm.fused_dropout_matmul_backward(h, w, g, SEED, rate)
     assert (fdm.FWD_LAUNCHES.count, fdm.BWD_LAUNCHES.count) == (
         before[0] + 1, before[1] + 1)
     torch.testing.assert_close(y, fdm.fused_dropout_matmul_plain(
-        h, w, b, SEED, 0.8), rtol=1e-5, atol=1e-5)
+        h, w, b, SEED, rate), rtol=1e-5, atol=1e-5)
     dh_p, dw_p, db_p = fdm.fused_dropout_matmul_backward_plain(h, w, g, SEED,
-                                                               0.8)
+                                                               rate)
     assert torch.equal(dh == 0, dh_p == 0)
     torch.testing.assert_close(dh, dh_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(dw, dw_p, rtol=1e-4, atol=1e-4)
-    assert torch.equal(db, db_p)
+    # db is summed inside the backward kernel from the g quads it already
+    # holds (per lane, across lanes, then per-block rows in order), so the
+    # wrapper launches no torch sum; torch sums g in its own order. They
+    # differ by float32 rounding only, hence a tolerance and not equality;
+    # 1e-5 still fails on a single missing pixel quad.
+    torch.testing.assert_close(db, db_p, rtol=1e-5, atol=1e-5)
+    # a second call gives the same bits
+    assert torch.equal(y, fdm.fused_dropout_matmul_forward(h, w, b, SEED,
+                                                           rate))
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        (dh, dw, db), fdm.fused_dropout_matmul_backward(h, w, g, SEED, rate)))
     with pytest.raises(ValueError, match="g must be 16-byte aligned"):
         fdm.fused_dropout_matmul_backward(
             h, w, torch.zeros(g.numel() + 1, device="cuda")[1:].view(g.shape),

@@ -235,12 +235,16 @@ def test_upsample_argmax_kernel_equals_plain_on_card():
     # pixel may differ only at a float32 near-tie (margin < 1e-5)
     b, oh, f, wf, ow = 2, 70, 23, 20, 200
     feat = rng.standard_normal((b, f, wf, 3), dtype=np.float32)
-    rows = rng.standard_normal((b, oh, f), dtype=np.float32) / np.sqrt(f)
-    colt = rng.standard_normal((wf, ow), dtype=np.float32) / np.sqrt(wf)
+    # np.float32 divisors: a float64 scalar would promote the arrays to
+    # float64 under numpy 2, which the kernel refuses
+    rows = rng.standard_normal((b, oh, f), dtype=np.float32) / np.float32(
+        np.sqrt(f))
+    colt = rng.standard_normal((wf, ow), dtype=np.float32) / np.float32(
+        np.sqrt(wf))
     args = [torch.from_numpy(a).cuda() for a in (feat, rows, colt)]
     got = upsample_argmax(*args)
     want = upsample_argmax_plain(*args)
-    logits = torch.einsum("bof,bfwc,wp->bcop", *args)
+    logits = torch.einsum("bof,bfwc,wp->bcop", args[1], args[0], args[2])
     top2 = logits.topk(2, dim=1).values
     differ = got != want
     assert not differ.any() or float(
