@@ -38,6 +38,24 @@ the report's 15 columns, finite losses and that the fused dropout kernels
 ran, and prints the warm step time and the peak memory. Then one training
 step on the card is held against the same step on the CPU.
 
+Phases 5-7 run between phases 3 and 4. Phase 5, the device preprocess:
+10 synthetic BMP scans from the seed (8 at 4096 x 4096 over two wood
+types with dark bands of their own heights, one 3072 x 4096 resized and
+trimmed, one 1000 x 1024 neither) through Preprocessor(backend="device")
+on the card and backend="host", held to the same names and shapes, max
+|diff| <= 1 on under 1e-3 of the values; a warm pass of each, the resize
+products' device time for 4 scans against their float32 FLOP bound, the
+bytes uploaded and what 'auto' picks. Phase 6, cli/predict.main over the
+scans with the device preprocess, then --resume (no launch, the CSV byte
+for byte), then --resume with 3 images' artifacts deleted (exactly those
+written again, the CSV byte for byte). Phase 7, serving through
+cli/serve.make_server with the predict path's checkpoint (bf16, batch 8,
+25 ms, fixed height 1024): warm-up, 16 sequential and 8 x 4 concurrent
+JSON requests of the phase 3 images, a raw scan, mask / combined /
+exclude_nodes answers, /healthz and /v1/stats, every answer's numbers and
+the launch shapes checked; then a --float32 server's masks against a
+direct predict_images call (>= 99.9 % of pixels).
+
 Every path runs with all launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON line, the card's name and
 power limit, and the result line. The script exits nonzero, with no result line,
@@ -121,6 +139,27 @@ TRAIN_SAMPLES_FACTOR = 2
 CHECK_BATCH = 2
 CHECK_CROP = 256
 STEP_GRAD_TOL = 1e-3
+# The device-preprocess phase: SCAN_PER_TYPE square SCAN_SIZE scans per
+# wood type, each with dark bands at top and bottom, plus a 3072 x 4096
+# scan (resized to 1024^2, then trimmed) and a 1000 x 1024 source
+# (neither resized nor trimmed), both as (name, height, width).
+SCAN_SIZE = 4096
+SCAN_PER_TYPE = 4
+SCAN_WOODS = ("epinette_gelee", "sapin")
+SCAN_EXTRA = (("wide.bmp", 3072, 4096), ("small.bmp", 1000, 1024))
+PRE_TARGET = 1024
+PRE_BATCH = 4
+# The JAX package's bound between its device and host backends
+# (tests/test_pipeline.py): max |diff| <= 1 on under this share of values.
+PRE_DIFF_SHARE = 1e-3
+# Images whose dual and figure PNGs the second resumed CLI run finds gone.
+RESUME_DELETE = 3
+# The serving phase: batch, the first request's wait, and the concurrent
+# traffic (tools/serving_bench.py's shape: clients x requests each).
+SERVE_BATCH = 8
+SERVE_WAIT_MS = 25
+SERVE_CLIENTS = 8
+SERVE_PER_CLIENT = 4
 
 
 def log(msg: str) -> None:
@@ -143,6 +182,14 @@ def launch_counters() -> dict:
     return {"upsample_argmax": LAUNCHES,
             "fused_dropout_matmul_fwd": fused_dropout_matmul.FWD_LAUNCHES,
             "fused_dropout_matmul_bwd": fused_dropout_matmul.BWD_LAUNCHES}
+
+
+def reset_counters() -> dict:
+    """Every launch counter set to 0; returns them by kernel name."""
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.reset()
+    return counters
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 20, runs: int = 5
@@ -812,10 +859,8 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
 
     root = os.path.join(workdir, "train_root")
     make_train_root(os.path.join(root, "Images", "1024_with_jedi"), seed)
-    counters = launch_counters()
     torch.cuda.reset_peak_memory_stats()
-    for counter in counters.values():
-        counter.reset()
+    counters = reset_counters()
     t0 = time.perf_counter()
     exp = train_main(build_parser().parse_args(
         [root, "--seed", str(seed), "--epochs", "1", "--samples_factor",
@@ -1104,9 +1149,7 @@ def phase_main_path(torch, seed: int, workdir: str, device: str = "cuda"
 
     engine.predict(root, progress=False)  # warm-up: cuDNN plans, caches
     profiling.report(reset=True)
-    counters = launch_counters()
-    for counter in counters.values():
-        counter.reset()
+    counters = reset_counters()
     t0 = time.perf_counter()
     csv = engine.predict(root, progress=False)
     seconds = time.perf_counter() - t0
@@ -1343,6 +1386,476 @@ def phase_reference(torch, main: dict) -> None:
     check_bf16_step(torch, main["engine"], f32, items)
 
 
+def make_scan_root(root: str, seed: int) -> list[str]:
+    """The device-preprocess sources as a predict root (samples/<wood>/),
+    BMPs written with PIL: SCAN_PER_TYPE square SCAN_SIZE scans per wood
+    type in SCAN_WOODS, each with dark bands of its own heights at top and
+    bottom, and the SCAN_EXTRA sources. Content: blobby colour fields plus
+    fine noise, drawn from `seed`. Returns the paths written."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.data.dataset import save_image_u8_pil
+
+    rng = np.random.default_rng(seed)
+    specs = [(wood, f"scan{i:02d}.bmp", SCAN_SIZE, SCAN_SIZE)
+             for wood in SCAN_WOODS for i in range(SCAN_PER_TYPE)]
+    specs += [(SCAN_WOODS[0], name, h, w) for name, h, w in SCAN_EXTRA]
+    paths = []
+    for k, (wood, name, h, w) in enumerate(specs):
+        coarse = rng.integers(60, 200, (h // 64 + 1, w // 64 + 1, 3),
+                              dtype=np.uint8)
+        img = np.repeat(np.repeat(coarse, 64, 0), 64, 1)[:h, :w]
+        img = img + rng.integers(0, 40, (h, w, 3), dtype=np.uint8)
+        if (h, w) != SCAN_EXTRA[-1][1:]:  # the small source stays unbanded
+            img[:h * (3 + 2 * k) // 128] = 0
+            img[h - h * (2 + 3 * k) // 128:] = 0
+        os.makedirs(os.path.join(root, "samples", wood), exist_ok=True)
+        paths.append(os.path.join(root, "samples", wood, name))
+        save_image_u8_pil(paths[-1], img)
+    return paths
+
+
+def phase_preprocess(torch, seed: int, workdir: str, card: str) -> dict:
+    """The device preprocess backend on the card against the host backend
+    over make_scan_root's sources: the same names and shapes (trim
+    decisions), max |diff| <= 1 and under PRE_DIFF_SHARE of the pixels
+    differing. Then a warm pass of each backend, the resize products'
+    device time per batch of 4 square scans against their float32 FLOP
+    bound, the bytes uploaded and what 'auto' picks on this machine."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+    from neuralbarkcalculator_tpu_torch.ops.resize import (
+        bspline_resize_matrix, spline_resize)
+    from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
+        Preprocessor)
+
+    root = os.path.join(workdir, "scans")
+    t0 = time.perf_counter()
+    paths = make_scan_root(root, seed)
+    log(f"preprocess: wrote {len(paths)} BMP sources in "
+        f"{time.perf_counter() - t0:.3f} s")
+    dev_pre = Preprocessor(PRE_TARGET, batch_size=PRE_BATCH,
+                           backend="device")
+    host_pre = Preprocessor(PRE_TARGET, backend="host")
+    counters = reset_counters()
+    passes = {}
+    for label, pre in (("device", dev_pre), ("host", host_pre)):
+        for _ in range(2):  # the first pass is cold: operators, cuBLAS
+            pre.bytes_h2d = 0
+            t0 = time.perf_counter()
+            out = pre.preprocess_images(root, save=False, progress=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        passes[label] = (out, seconds)
+    launches = {name: c.count for name, c in counters.items()}
+    dev, host = passes["device"][0], passes["host"][0]
+    if [d.fname for d in dev] != [h.fname for h in host] \
+            or len(dev) != len(paths):
+        raise AssertionError("preprocess: the backends returned other images")
+    differ = total = 0
+    worst = 0
+    for d, h in zip(dev, host):
+        if d.image.shape != h.image.shape:
+            raise AssertionError(f"preprocess {d.fname}: device shape "
+                                 f"{d.image.shape}, host {h.image.shape}")
+        diff = np.abs(d.image.astype(np.int16) - h.image.astype(np.int16))
+        worst = max(worst, int(diff.max()))
+        share = float((diff > 0).mean())
+        differ += int((diff > 0).sum())
+        total += diff.size
+        if share >= PRE_DIFF_SHARE:
+            raise AssertionError(f"preprocess {d.fname}: {share:.3g} of "
+                                 f"the values differ, >= {PRE_DIFF_SHARE}")
+    if worst > 1:
+        raise AssertionError(f"preprocess: device and host differ by {worst}")
+    shapes = sorted({d.image.shape[:2] for d in dev})
+    log(f"preprocess device vs host backend ({card}): {len(dev)} images, "
+        f"trimmed shapes {shapes}; {differ} of {total} values differ "
+        f"({differ / total:.3g}, each image < {PRE_DIFF_SHARE}), max |diff| "
+        f"{worst} (allowed 1); launches {launches}")
+    for label, (out, seconds) in passes.items():
+        log(f"preprocess {label} backend, warm pass ({card}): {len(out)} "
+            f"images in {seconds:.3f} s = {len(out) / seconds:.3f} images/s")
+    log(f"preprocess device backend: {dev_pre.bytes_h2d} bytes uploaded in "
+        f"the warm pass (uint8 sources)")
+
+    # the products alone, on a device-resident batch of 4 square scans
+    scans = [p for p in paths if os.path.basename(p).startswith("scan")]
+    x = torch.from_numpy(np.stack([load_image_u8(p) for p in
+                                   scans[:PRE_BATCH]])).cuda().float() / 255
+    times, counts = device_times(
+        torch, [lambda: spline_resize(x, PRE_TARGET, PRE_TARGET)], reps=5,
+        warmup=2)
+    products = {k: v for k, v in times[0].items() if "gemm" in k.lower()}
+    total_ms = sum(times[0].values())
+    gemm_ms = sum(products.values())
+    flops = PRE_BATCH * 2 * 3 * (PRE_TARGET * SCAN_SIZE * SCAN_SIZE
+                                 + PRE_TARGET * PRE_TARGET * SCAN_SIZE)
+    bound_ms = flops / H100_F32_FLOPS * 1e3
+    log(f"preprocess resize, batch of {PRE_BATCH} {SCAN_SIZE}^2 -> "
+        f"{PRE_TARGET}^2 ({card}): spline_resize {total_ms:.4f} ms of device "
+        f"time, its matrix products {gemm_ms:.4f} ms "
+        f"({'not identified by name' if not products else len(products)} "
+        f"kernels); bound {bound_ms:.4f} ms ({flops / 1e9:.3f} GFLOP at "
+        f"{H100_F32_FLOPS / 1e12:g} TFLOP/s, the float32 peak without "
+        f"tensor cores), products at {bound_ms / max(gemm_ms, 1e-9):.3f} of "
+        f"it; by kernel {dict((k[:60], round(v, 4)) for k, v in times[0].items())}")
+    del x
+    op = bspline_resize_matrix(SCAN_SIZE, PRE_TARGET).astype(np.float32)
+    nz = (op != 0).sum(axis=1)
+    log(f"preprocess resize: the float32 {SCAN_SIZE} -> {PRE_TARGET} "
+        f"operator holds {nz.min()}-{nz.max()} nonzeros a row (mean "
+        f"{nz.mean():.1f}), so its dense products do "
+        f"{SCAN_SIZE / nz.max():.1f}-{SCAN_SIZE / nz.min():.1f}x the "
+        f"operations of its band")
+
+    auto = Preprocessor(backend="auto")
+    cal = auto._calibrate_backend()
+    c = auto.calibration
+    log(f"preprocess auto ({card}): picks {cal!r}; upload "
+        f"{c['bandwidth_bytes_per_s'] / 1e9:.3f} GB/s, predicted "
+        f"{c['device_s_per_image']:.4f} s/image device, "
+        f"{c['host_s_per_image']:.4f} s/image host ({os.cpu_count()} cores)")
+    return {"root": root, "paths": paths}
+
+
+def artifact_stats(root: str) -> dict:
+    """(mtime_ns, size) of every results/ artifact, by relative path."""
+    out = {}
+    for sub in ("combined_images", "outputs"):
+        for dirpath, _, fnames in os.walk(os.path.join(root, "results", sub)):
+            for f in fnames:
+                st = os.stat(os.path.join(dirpath, f))
+                out[os.path.relpath(os.path.join(dirpath, f), root)] = (
+                    st.st_mtime_ns, st.st_size)
+    return out
+
+
+def phase_cli_resume(torch, root: str, ckpt: str, n_sources: int) -> None:
+    """cli/predict.main over the scans with the device preprocess
+    (streaming), then with --resume: no launch and a byte-identical
+    final_stats.csv; then with RESUME_DELETE images' dual and figure PNGs
+    deleted, --resume again: those images' artifacts written anew, every
+    other artifact untouched, the CSV byte-identical again. Every launch
+    count is set to 0 before each run and read after it."""
+    from neuralbarkcalculator_tpu_torch.cli.predict import build_parser, main
+
+    argv = [root, "--model_path", ckpt, "--preprocess_backend", "device",
+            "--dpi", str(DPI)]
+    csv_path = os.path.join(root, "results", "final_stats.csv")
+
+    def run(label: str, extra: list[str]) -> tuple[bytes, dict]:
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        main(build_parser().parse_args(argv + extra))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: c.count for name, c in counters.items()}
+        with open(csv_path, "rb") as f:
+            data = f.read()
+        log(f"cli {label}: {seconds:.3f} s, launches {launches}, "
+            f"final_stats.csv {len(data)} bytes")
+        if launches["fused_dropout_matmul_fwd"] \
+                or launches["fused_dropout_matmul_bwd"]:
+            raise AssertionError(f"cli {label} launched a training kernel")
+        return data, launches
+
+    full, launches = run("full run (device preprocess, streaming)", [])
+    if launches["upsample_argmax"] == 0:
+        raise AssertionError("the CLI path never launched upsample_argmax")
+    rows = full.decode().splitlines()
+    if len(rows) != 1 + n_sources:
+        raise AssertionError(f"final_stats.csv has {len(rows) - 1} rows")
+    names = [r.split("\t")[:2] for r in rows[1:]]
+    before = artifact_stats(root)
+    if len(before) != 2 * n_sources:
+        raise AssertionError(f"{len(before)} artifacts for {n_sources} "
+                             f"images")
+    again, launches = run("--resume, nothing new", ["--resume"])
+    if launches["upsample_argmax"] or again != full:
+        raise AssertionError(f"resume: {launches['upsample_argmax']} "
+                             f"launches, CSV equal {again == full}")
+    gone = names[:RESUME_DELETE]
+    for fname, wood in gone:
+        for sub in ("combined_images", "outputs"):
+            os.remove(os.path.join(root, "results", sub, wood, fname))
+    resumed, launches = run(f"--resume, {RESUME_DELETE} images' artifacts "
+                            f"deleted", ["--resume"])
+    after = artifact_stats(root)
+    redone = {k for k in after if before[k] != after[k]}
+    want = {os.path.join("results", sub, wood, fname)
+            for fname, wood in gone for sub in ("combined_images", "outputs")}
+    log(f"cli resume: CSV byte-identical {resumed == full}; artifacts "
+        f"written anew {sorted(redone)}")
+    if resumed != full or redone != want or set(after) != set(before) \
+            or launches["upsample_argmax"] == 0:
+        raise AssertionError("resume did not predict exactly the deleted "
+                             "images, or the CSV changed")
+
+
+def http_call(port: int, method: str, path: str, body: bytes | None = None
+              ) -> tuple[int, str, bytes, float]:
+    """One request to the local server: (status, content type, body,
+    seconds)."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        c.request(method, path, body=body)
+        r = c.getresponse()
+        data = r.read()
+        return (r.status, r.getheader("Content-Type"), data,
+                time.perf_counter() - t0)
+    finally:
+        c.close()
+
+
+def check_answer(label: str, status: int, data: bytes) -> dict:
+    """A JSON answer: HTTP 200, class pixels summing to height x width,
+    the percentages and areas that count's math."""
+    from neuralbarkcalculator_tpu_torch.config import DEFAULT_MM_PER_PIXEL
+
+    if status != 200:
+        raise AssertionError(f"serving {label}: HTTP {status} {data[:200]!r}")
+    p = json.loads(data)
+    n = p["height"] * p["width"]
+    px = p["class_pixels"]
+    want = {"bark_percent": round(px[1] / n * 100.0, 5),
+            "node_percent": round(px[2] / n * 100.0, 5),
+            "bark_area_mm2": round(px[1] * DEFAULT_MM_PER_PIXEL, 5),
+            "node_area_mm2": round(px[2] * DEFAULT_MM_PER_PIXEL, 5)}
+    if sum(px) != n or any(p[k] != v for k, v in want.items()):
+        raise AssertionError(f"serving {label}: numbers {p} disagree with "
+                             f"their class pixels")
+    return p
+
+
+def latency_line(seconds: list[float]) -> str:
+    import numpy as np
+
+    ms = np.asarray(seconds) * 1e3
+    return (f"p50 {np.percentile(ms, 50):.3f} ms, p95 "
+            f"{np.percentile(ms, 95):.3f} ms, max {ms.max():.3f} ms")
+
+
+def server_line(answers: list[dict]) -> str:
+    """The server's own split of the answers' latency: the mean wait in
+    the batcher's queue and the mean time of the engine's batch."""
+    import numpy as np
+
+    return (f"server mean queue {np.mean([a['queue_ms'] for a in answers]):.3f}"
+            f" ms, engine batch "
+            f"{np.mean([a['compute_ms'] for a in answers]):.3f} ms")
+
+
+def start_server(torch, ckpt: str, *extra: str):
+    """make_server on an ephemeral port (batch SERVE_BATCH, max wait
+    SERVE_WAIT_MS, fixed height 1024), warmed up, serving on a thread.
+    Returns (server, thread, warmup seconds)."""
+    from neuralbarkcalculator_tpu_torch.cli.serve import (build_parser,
+                                                          make_server,
+                                                          serve_in_thread)
+
+    srv = make_server(build_parser().parse_args(
+        [ckpt, "--port", "0", "--batch_size", str(SERVE_BATCH),
+         "--max_wait_ms", str(SERVE_WAIT_MS), "--fixed_height",
+         str(PAD_H), *extra]))
+    t0 = time.perf_counter()
+    srv.state.predictor.warmup(PAD_H, WIDTH)
+    torch.cuda.synchronize()
+    return srv, serve_in_thread(srv), time.perf_counter() - t0
+
+
+def stop_server(srv, thread) -> None:
+    srv.shutdown()
+    srv.server_close()
+    srv.state.predictor.close()
+    thread.join(timeout=30)
+
+
+def phase_serving(torch, main_root: str, ckpt: str, scan: str,
+                  card: str) -> None:
+    """cli/serve.make_server on the card with the predict cell's
+    checkpoint (bf16): warm-up, then 16 sequential JSON requests of the
+    cell's processed PNGs, SERVE_CLIENTS client threads x SERVE_PER_CLIENT
+    requests, one raw scan BMP, one request each of format=mask,
+    format=combined and exclude_nodes=1, /healthz and /v1/stats. Every
+    answer 200 with consistent numbers, no launch shape after warm-up,
+    upsample_argmax launched and no training kernel, every request served.
+    Then a --float32 server's mask answers against a direct float32
+    predict_images call on the same preprocessed images."""
+    import io
+    import numpy as np
+    from PIL import Image
+
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+    from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
+        ProcessedImage, Preprocessor)
+    from neuralbarkcalculator_tpu_torch.utils import profiling
+
+    samples = os.path.join(main_root, "processed", "samples", "sapin")
+    pngs = []
+    for i in range(N_IMAGES):
+        with open(os.path.join(samples, f"img{i:02d}.png"), "rb") as f:
+            pngs.append(f.read())
+    srv, thread, warm_s = start_server(torch, ckpt)
+    predictor = srv.state.predictor
+    calc = predictor.calc
+    port = srv.server_address[1]
+    shapes = set(calc._launch_shapes)
+    log(f"serving ({card}): warm-up {warm_s:.3f} s, launch shapes "
+        f"(pad_h, batch, width) {sorted(shapes)}")
+    try:
+        counters = reset_counters()
+        profiling.report(reset=True)
+        sent = 0
+        seq, seq_server = [], []
+        t0 = time.perf_counter()
+        for i, body in enumerate(pngs):
+            status, _, data, dt = http_call(port, "POST", "/v1/predict", body)
+            seq_server.append(check_answer(f"sequential {i}", status, data))
+            seq.append(dt)
+        seq_s = time.perf_counter() - t0
+        sent += len(pngs)
+        after_seq = predictor.snapshot_stats()
+        seq_stages = profiling.report(reset=True)
+
+        def client(c: int) -> list[tuple[float, dict]]:
+            out = []
+            for k in range(SERVE_PER_CLIENT):
+                status, _, data, dt = http_call(
+                    port, "POST", "/v1/predict",
+                    pngs[(c * SERVE_PER_CLIENT + k) % len(pngs)])
+                out.append((dt, check_answer(f"client {c} request {k}",
+                                             status, data)))
+            return out
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
+            answered = [a for f in [pool.submit(client, c)
+                                    for c in range(SERVE_CLIENTS)]
+                        for a in f.result()]
+        conc = [dt for dt, _ in answered]
+        conc_s = time.perf_counter() - t0
+        sent += SERVE_CLIENTS * SERVE_PER_CLIENT
+        after_conc = predictor.snapshot_stats()
+        conc_stages = profiling.report(reset=True)
+
+        with open(scan, "rb") as f:
+            status, _, data, dt = http_call(port, "POST", "/v1/predict",
+                                            f.read())
+        sent += 1
+        raw = check_answer("raw scan", status, data)
+        want_h = Preprocessor(backend="host").preprocess_one(
+            load_image_u8(scan)).shape[0]
+        if (raw["height"], raw["width"]) != (want_h, WIDTH) or \
+                (raw["source_height"], raw["source_width"]) != (SCAN_SIZE,
+                                                                SCAN_SIZE):
+            raise AssertionError(f"raw scan answer {raw}, host preprocess "
+                                 f"height {want_h}")
+        for label, path, ctype in (
+                ("mask", "/v1/predict?format=mask", "image/png"),
+                ("combined", "/v1/predict?format=combined", "image/png"),
+                ("exclude_nodes", "/v1/predict?exclude_nodes=1",
+                 "application/json")):
+            status, got_type, data, _ = http_call(port, "POST", path, pngs[0])
+            sent += 1
+            if status != 200 or got_type != ctype:
+                raise AssertionError(f"serving {label}: HTTP {status} "
+                                     f"{got_type}")
+            if label == "exclude_nodes":
+                excl = check_answer(label, status, data)
+                if excl["class_pixels"][2] or excl["node_percent"]:
+                    raise AssertionError(f"exclude_nodes answer {excl}")
+            else:
+                img = np.asarray(Image.open(io.BytesIO(data)))
+                log(f"serving {label}: {len(data)} bytes, image "
+                    f"{img.shape}")
+        status, _, data, _ = http_call(port, "GET", "/healthz")
+        health = json.loads(data)
+        status2, _, data, _ = http_call(port, "GET", "/v1/stats")
+        stats = json.loads(data)
+        launches = {name: c.count for name, c in counters.items()}
+    finally:
+        stop_server(srv, thread)
+    log(f"serving health {health}; stats {stats}")
+    log(f"serving sequential ({card}): {len(seq)} requests in {seq_s:.3f} s "
+        f"= {len(seq) / seq_s:.3f} requests/s; client {latency_line(seq)}; "
+        f"mean batch {after_seq['mean_batch']:.3f}; {server_line(seq_server)}")
+    n_conc = after_conc["served"] - after_seq["served"]
+    conc_batches = after_conc["batches"] - after_seq["batches"]
+    log(f"serving {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} ({card}): "
+        f"{len(conc)} requests in {conc_s:.3f} s = {len(conc) / conc_s:.3f} "
+        f"requests/s; client {latency_line(conc)}; mean batch "
+        f"{n_conc / conc_batches:.3f} over {conc_batches} batches; "
+        f"{server_line([p for _, p in answered])}")
+    for label, stages in (("sequential", seq_stages),
+                          ("concurrent", conc_stages)):
+        log(f"serving {label}, the engine's stages (calls, ms per call): "
+            + ", ".join(f"{name} {row['calls']} x "
+                        f"{row['total_s'] * 1e3 / row['calls']:.3f}"
+                        for name, row in sorted(stages.items())))
+    log(f"serving launches {launches}; launch shapes after the traffic "
+        f"{sorted(calc._launch_shapes)}")
+    if status != 200 or status2 != 200 or not health["ok"] \
+            or health["backend"] != calc.device.type \
+            or health["n_devices"] != torch.cuda.device_count():
+        raise AssertionError(f"serving health {health}")
+    if set(calc._launch_shapes) != shapes:
+        raise AssertionError("the traffic ran a launch shape the warm-up "
+                             "did not")
+    if launches["upsample_argmax"] == 0 or launches[
+            "fused_dropout_matmul_fwd"] or launches["fused_dropout_matmul_bwd"]:
+        raise AssertionError(f"serving launches {launches}")
+    if stats["served"] != sent or stats["requests"] != sent \
+            or stats["errors"] or stats["rejected"]:
+        raise AssertionError(f"serving: sent {sent}, stats {stats}")
+    del srv, predictor, calc
+
+    # exactness: a float32 server's maps against the direct engine
+    srv, thread, warm_s = start_server(torch, ckpt, "--float32")
+    port = srv.server_address[1]
+    host_pre = Preprocessor(backend="host")
+    bodies = pngs[:SERVE_BATCH]
+    try:
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            answers = list(pool.map(lambda b: http_call(
+                port, "POST", "/v1/predict?format=mask", b), bodies))
+        batches = srv.state.predictor.snapshot_stats()["batches"]
+    finally:
+        stop_server(srv, thread)
+    del srv
+    direct = NeuralBarkCalculator(ckpt, config=PredictConfig(
+        model_path=ckpt, use_bfloat16=False, batch_size=SERVE_BATCH,
+        fixed_pad_height=PAD_H))
+    items = [ProcessedImage(host_pre.preprocess_one(np.asarray(
+        Image.open(io.BytesIO(b)).convert("RGB"))), f"d{i}", "serving")
+        for i, b in enumerate(bodies)]
+    want = {it.fname: m for it, m in direct.predict_images(items)}
+    differ = total = 0
+    for i, (status, _, data, _) in enumerate(answers):
+        if status != 200:
+            raise AssertionError(f"float32 serving: HTTP {status}")
+        dual = np.asarray(Image.open(io.BytesIO(data)))
+        got = np.select([dual == 127, dual == 255], [1, 2], 0)
+        if got.shape != want[f"d{i}"].shape:
+            raise AssertionError(f"float32 serving: shape {got.shape}")
+        differ += int((got != want[f"d{i}"]).sum())
+        total += got.size
+    log(f"serving float32 (TF32 off) vs a direct predict_images call "
+        f"({card}): {differ} of {total} pixels differ, agreement "
+        f"{1 - differ / total:.6f} (floor 0.999); served in {batches} "
+        f"batches, the direct call in one batch of {len(items)}; warm-up "
+        f"{warm_s:.3f} s")
+    if 1 - differ / total < 0.999:
+        raise AssertionError("the float32 server disagrees with the engine")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1366,7 +1879,17 @@ def main() -> int:
         kernel["launches"] = main_path["launches"]
         phase_profile(torch, main_path)
         phase_reference(torch, main_path)
+        ckpt, main_root = main_path["ckpt"], main_path["root"]
         del main_path
+        t0 = time.perf_counter()
+        scans = phase_preprocess(torch, args.seed, workdir, card)
+        log(f"phase preprocess: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        phase_cli_resume(torch, scans["root"], ckpt, len(scans["paths"]))
+        log(f"phase cli resume: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        phase_serving(torch, main_root, ckpt, scans["paths"][0], card)
+        log(f"phase serving: {time.perf_counter() - t0:.3f} s")
         train = phase_train(torch, args.seed, workdir)
         for row in fdm:
             row["launches"] = train["launches"][row["name"]]

@@ -2,13 +2,16 @@
 parity).
 
 Usage: ``python -m neuralbarkcalculator_tpu_torch.cli.predict ROOT_DIR
-[--device {cuda,cpu}] [--exclude_nodes] [--only_preprocess]``
+[--device {cuda,cpu}] [--exclude_nodes] [--only_preprocess] [--resume]
+[--preprocess_backend {auto,device,host}] [--watch SECS]``
 
 Runs on the card by default (``--device cuda``) and raises when there is
 none; ``--device cpu`` runs the same path on the CPU. It creates the
-output folders, preprocesses ROOT/samples on the host (native resize +
-trim) and predicts, streaming (preprocess overlapped with prediction) or
-sequentially.
+output folders, preprocesses ROOT/samples (on the device or the host) and
+predicts, streaming (preprocess overlapped with prediction) or
+sequentially. ``--resume`` skips images already processed and predicted;
+``--watch SECS`` rescans ROOT every SECS seconds and handles only new
+images, until interrupted.
 """
 from __future__ import annotations
 
@@ -52,10 +55,26 @@ def build_parser() -> argparse.ArgumentParser:
                         help="'streaming' (the default) feeds preprocessed "
                              "images to the predict pump as they finish; "
                              "'sequential' runs the two stages back to back")
+    parser.add_argument("--resume", action="store_true", default=False,
+                        help="skip images whose processed PNG and results/ "
+                             "artifacts already exist (resumable folder "
+                             "runs)")
+    parser.add_argument("--preprocess_backend", type=str, default="auto",
+                        choices=["auto", "device", "host"],
+                        help="resize and trim on the device (matrix "
+                             "products) or on the host (native pass, same "
+                             "math); auto measures the upload rate once "
+                             "and picks")
+    parser.add_argument("--watch", type=float, default=None, metavar="SECS",
+                        help="rescan ROOT every SECS seconds, preprocessing "
+                             "and predicting only new images (incremental "
+                             "resume); Ctrl-C to stop")
     return parser
 
 
 def main(args: argparse.Namespace) -> None:
+    import time
+
     from ..config import PredictConfig
     from ..data.dataset import make_dataset
     from ..pipeline.folders import generate_folders
@@ -70,23 +89,49 @@ def main(args: argparse.Namespace) -> None:
     if args.float32:
         config.use_bfloat16 = False
 
-    generate_folders(args.root_path, args.only_preprocess)
-    pre = Preprocessor()
-    if args.only_preprocess:
-        pre.preprocess_images(args.root_path)
-    else:
-        model = NeuralBarkCalculator(args.model_path, config=config,
-                                     model_name=args.model,
-                                     device=args.device)
-        if args.pipeline == "streaming":
-            model.predict_streaming(
+    model = None
+
+    def engine() -> NeuralBarkCalculator:
+        nonlocal model  # built once, reused by every watch scan
+        if model is None:
+            model = NeuralBarkCalculator(args.model_path, config=config,
+                                         model_name=args.model,
+                                         device=args.device)
+        return model
+
+    def run_once(resume: bool) -> None:
+        generate_folders(args.root_path, args.only_preprocess)
+        pre = Preprocessor(backend=args.preprocess_backend,
+                           device=args.device)
+        if args.only_preprocess:
+            pre.preprocess_images(args.root_path, resume=resume)
+        elif resume:
+            # the incremental preprocess writes only new images; predict
+            # then reads processed/ from disk and skips the done ones
+            pre.preprocess_images(args.root_path, resume=True)
+            engine().predict(args.root_path, args.exclude_nodes,
+                             resume=True)
+        elif args.pipeline == "streaming":
+            engine().predict_streaming(
                 args.root_path, pre.preprocess_stream(args.root_path),
                 exclude_nodes=args.exclude_nodes,
                 total=len(make_dataset(args.root_path)))
         else:
             images = pre.preprocess_images(args.root_path)
-            model.predict(args.root_path, args.exclude_nodes,
-                          images=images)
+            engine().predict(args.root_path, args.exclude_nodes,
+                             images=images)
+
+    if args.watch is None:
+        run_once(args.resume)
+    else:
+        print(f"watching {args.root_path} every {args.watch:g}s "
+              f"(Ctrl-C to stop)", flush=True)
+        while True:
+            try:
+                run_once(resume=True)
+                time.sleep(args.watch)
+            except KeyboardInterrupt:
+                break
     if args.profile:
         from ..utils.profiling import print_report
         print_report()

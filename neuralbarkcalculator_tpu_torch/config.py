@@ -91,6 +91,11 @@ class PredictConfig:
     # Additions that do not change reference-visible semantics:
     batch_size: int = 8  # images per device step (reference is 1)
     height_bucket: int = 128  # pad trimmed heights up to a multiple of this
+    fixed_pad_height: int | None = None  # pin every launch of an image at
+    # most this tall to this pad height (a multiple of 8); serving sets
+    # 1024, so a content-dependent trimmed height never selects a launch
+    # shape the warmup did not run. Exact: rows past each image's height
+    # are masked
     figure_dpi: int = 200  # reference hardcodes 900 (models.py:346)
     use_bfloat16: bool = True  # run the conv stack in bf16, channels_last;
     # False runs it in float32 with TF32 off

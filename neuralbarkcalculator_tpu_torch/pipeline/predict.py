@@ -111,6 +111,11 @@ class NeuralBarkCalculator:
         self._cache_lock = threading.Lock()
 
     def _bucket_of(self, h: int) -> int:
+        fixed = self.config.fixed_pad_height
+        if fixed and h <= fixed:
+            # one pinned launch height (exact through the row masks)
+            # instead of a content-dependent bucket nobody warmed
+            return fixed
         return pad_to_multiple(h, self.config.height_bucket)
 
     # ------------------------------------------------------------- public
@@ -128,10 +133,11 @@ class NeuralBarkCalculator:
         come from file headers and each chunk is decoded just in time on
         the pump's workers, so folder size never bounds host memory.
 
-        ``resume`` and ``shard`` are not ported yet and raise.
+        ``resume``: images whose dual PNG and combined figure already
+        exist are not predicted again; their CSV row is rebuilt from the
+        dual mask on disk, so an interrupted run finishes with a complete
+        final_stats.csv. ``shard`` is not ported yet and raises.
         """
-        if resume:
-            raise NotImplementedError("resume is not ported yet")
         if shard is not None:
             raise NotImplementedError("sharded folder runs are not ported "
                                       "yet")
@@ -139,7 +145,7 @@ class NeuralBarkCalculator:
         reporter = self._reporter(root_path)
         if images is None:
             records = make_dataset(processed_path)
-            n = len(records)
+            names = [(r.fname, r.wood_type) for r in records]
 
             def size_of(i: int) -> tuple[int, int]:
                 return _header_size(records[i].sample_path)
@@ -149,7 +155,7 @@ class NeuralBarkCalculator:
                     load_image_u8(records[i].sample_path),
                     records[i].fname, records[i].wood_type) for i in idxs]
         else:
-            n = len(images)
+            names = [(im.fname, im.wood_type) for im in images]
 
             def size_of(i: int) -> tuple[int, int]:
                 return images[i].image.shape[:2]
@@ -157,7 +163,10 @@ class NeuralBarkCalculator:
             def decode_chunk(idxs):
                 return [images[i] for i in idxs]
 
-        chunks = self._plan_chunks([(i, *size_of(i)) for i in range(n)])
+        done = self._scan_resume(names, reporter) if resume else set()
+        chunks = self._plan_chunks([(i, *size_of(i))
+                                    for i in range(len(names))
+                                    if i not in done])
         bar = _progress_bar(progress, sum(len(c[1]) for c in chunks))
         for idx, item, cmap, counts3 in self._run_chunks(
                 chunks, decode_chunk, exclude_nodes):
@@ -274,6 +283,24 @@ class NeuralBarkCalculator:
         return PredictReporter(os.path.join(root_path, "results"),
                                dpi=self.config.figure_dpi,
                                mm_per_pix=self.config.mm_per_pix)
+
+    def _scan_resume(self, names: list[tuple[str, str]],
+                     reporter: PredictReporter) -> set[int]:
+        """Rebuild the CSV rows of images whose dual PNG and combined
+        figure already exist; returns their indices (to skip)."""
+        done: set[int] = set()
+        for i, (fname, wood_type) in enumerate(names):
+            dual_path = os.path.join(reporter.results_dir, "outputs",
+                                     wood_type, fname)
+            fig_path = os.path.join(reporter.results_dir, "combined_images",
+                                    wood_type, fname)
+            if os.path.isfile(dual_path) and os.path.isfile(fig_path):
+                dual = load_image_u8(dual_path, grayscale=True)
+                reporter.add_row_only(
+                    ((dual == 127) * 1 + (dual == 255) * 2).astype(
+                        np.uint8), fname, wood_type, order=i)
+                done.add(i)
+        return done
 
     def _plan_chunks(self, sizes: list[tuple[int, int, int]]
                      ) -> list[tuple[int, list[int]]]:

@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
                  "ops.fused_dropout_matmul", "ops.losses", "ops.metrics",
                  "data.augment", "data.sampling", "train.step",
                  "train.optim", "train.checkpoint", "train.loop",
-                 "train.evaluate", "cli.train"):
+                 "train.evaluate", "cli.train", "ops.resize", "ops.trim",
+                 "pipeline.preprocess", "pipeline.serving", "cli.serve"):
         assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
 
 
@@ -108,10 +109,38 @@ def test_cli_defaults_to_cuda_and_drops_unported_flags():
     parser = build_parser()
     assert parser.parse_args(["root"]).device == "cuda"
     assert parser.parse_args(["root", "--device", "cpu"]).device == "cpu"
-    for flag in (["--int8"], ["--shard", "0/2"], ["--resume"],
-                 ["--preprocess_backend", "device"], ["--watch", "1"]):
+    for flag in (["--int8"], ["--shard", "0/2"], ["--mpl"],
+                 ["--preprocess_backend", "tpu"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["root", *flag])
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], {"resume": False, "preprocess_backend": "auto", "watch": None}),
+    (["--resume"], {"resume": True}),
+    (["--preprocess_backend", "device"], {"preprocess_backend": "device"}),
+    (["--preprocess_backend", "host"], {"preprocess_backend": "host"}),
+    (["--watch", "2.5"], {"watch": 2.5}),
+])
+def test_cli_parses_ported_flags(argv, want):
+    from neuralbarkcalculator_tpu_torch.cli.predict import build_parser
+
+    args = build_parser().parse_args(["root", *argv])
+    assert {k: getattr(args, k) for k in want} == want
+
+
+def test_serve_cli_defaults_to_cuda_and_drops_int8():
+    from neuralbarkcalculator_tpu_torch.cli.serve import build_parser
+
+    parser = build_parser()
+    args = parser.parse_args(["m.pt"])
+    assert (args.device, args.model, args.fixed_height, args.port) == (
+        "cuda", "fcn_resnet50", 1024, 8642)
+    assert parser.parse_args(["m.pt", "--device", "cpu"]).device == "cpu"
+    for flag in (["--int8"], ["--model", "fcn_resnet101"],
+                 ["--device", "tpu"]):
+        with pytest.raises(SystemExit):
+            parser.parse_args(["m.pt", *flag])
 
 
 def test_missing_or_unported_checkpoint(tmp_path):

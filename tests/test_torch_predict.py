@@ -17,14 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import tiny_jax_model, tiny_torch_model, tiny_variables
+from torch_port_common import (near_ties, tiny_checkpoint, tiny_engines,
+                               write_processed)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTH = 64
 HEIGHTS = (64, 40, 56, 64, 30, 32, 24)  # buckets 64 (4) and 32 (3)
 WOOD = ("sapin", "sapin", "epinette_gelee", "sapin", "epinette_gelee",
         "sapin", "epinette_gelee")
-NEAR_TIE = 1e-5
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -39,38 +39,9 @@ def _few_threads():
 def engines(tmp_path_factory):
     """(JAX engine, port engine) loading the same best_model.pt, written
     by the JAX package's own exporter."""
-    from neuralbarkcalculator_tpu.config import PredictConfig as JaxConfig
-    from neuralbarkcalculator_tpu.models import segmentation as jseg
-    from neuralbarkcalculator_tpu.models.convert import (
-        variables_to_torch_state_dict)
-    from neuralbarkcalculator_tpu.parallel.mesh import make_mesh
-    from neuralbarkcalculator_tpu.pipeline.predict import (
-        NeuralBarkCalculator as JaxEngine)
-    from neuralbarkcalculator_tpu_torch.config import PredictConfig
-    from neuralbarkcalculator_tpu_torch.models import segmentation as tseg
-    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
-        NeuralBarkCalculator)
-
-    pt = str(tmp_path_factory.mktemp("engines") / "best_model.pt")
-    torch.save({k: torch.tensor(v) for k, v in variables_to_torch_state_dict(
-        tiny_variables(seed=5)).items()}, pt)
-    common = dict(batch_size=4, use_bfloat16=False, height_bucket=32,
-                  figure_dpi=50)
-    jseg.MODEL_FACTORIES["_tiny_test"] = lambda dtype=None: tiny_jax_model(
-        dtype)
-    tseg.MODEL_FACTORIES["_tiny_test"] = tiny_torch_model
-    try:
-        jax_engine = JaxEngine(
-            pt, mesh=make_mesh(n_data=1), model_name="_tiny_test",
-            config=JaxConfig(model_path=pt, use_pallas=True,
-                             pallas_interpret=True, **common))
-        port_engine = NeuralBarkCalculator(
-            pt, model_name="_tiny_test", device="cpu",
-            config=PredictConfig(model_path=pt, **common))
-    finally:
-        jseg.MODEL_FACTORIES.pop("_tiny_test", None)
-        tseg.MODEL_FACTORIES.pop("_tiny_test", None)
-    return jax_engine, port_engine
+    pt = tiny_checkpoint(
+        str(tmp_path_factory.mktemp("engines") / "best_model.pt"), seed=5)
+    return tiny_engines(pt, batch_size=4, height_bucket=32, figure_dpi=50)
 
 
 def _items(seed=7):
@@ -90,27 +61,13 @@ def _items(seed=7):
     return items
 
 
-def _near_ties(engine, items) -> int:
-    """Pixels whose top-2 logit margin in a float32 per-image forward of
-    the (folded) model is under NEAR_TIE."""
-    mean = engine.mean.numpy()
-    std = engine.std.numpy()
-    n = 0
-    with torch.inference_mode():
-        for it in items:
-            x = (it.image.astype(np.float32) / 255.0 - mean) / std
-            top2 = engine.model(torch.from_numpy(x[None]))[0].topk(2).values
-            n += int((top2[..., 0] - top2[..., 1] < NEAR_TIE).sum())
-    return n
-
-
 def test_predict_images_equal_jax(engines):
     jax_engine, port_engine = engines
     items = _items()
     want = {it.fname: m for it, m in jax_engine.predict_images(items)}
     got = {it.fname: (m, c) for it, m, c in
            port_engine.predict_images(items, with_counts=True)}
-    assert _near_ties(port_engine, items) == 0
+    assert near_ties(port_engine, [it.image for it in items]) == 0
     assert sorted(got) == sorted(want)
     classes = set()
     for it in items:
@@ -138,18 +95,6 @@ def test_exclude_nodes_remaps_class_2(engines):
         np.testing.assert_array_equal(excl, np.where(plain == 2, 1, plain))
 
 
-def _write_processed(root, items):
-    from neuralbarkcalculator_tpu_torch.io.native import save_image_u8
-
-    for it in items:
-        d = os.path.join(root, "processed", "samples", it.wood_type)
-        os.makedirs(d, exist_ok=True)
-        for sub in ("combined_images", "outputs"):
-            os.makedirs(os.path.join(root, "results", sub, it.wood_type),
-                        exist_ok=True)
-        save_image_u8(os.path.join(d, it.fname), it.image)
-
-
 def _files(root):
     out = set()
     for dirpath, _, fnames in os.walk(os.path.join(root, "results")):
@@ -166,7 +111,7 @@ def test_predict_folder_artifacts_equal_jax(engines, tmp_path):
     roots = {}
     for name, engine in (("jax", jax_engine), ("port", port_engine)):
         root = str(tmp_path / name)
-        _write_processed(root, items)
+        write_processed(root, items)
         csv = engine.predict(root, progress=False)
         assert csv == os.path.join(root, "results", "final_stats.csv")
         roots[name] = root
@@ -194,7 +139,7 @@ def test_streaming_equals_sequential(engines, tmp_path):
     csvs = []
     for name in ("seq", "stream"):
         root = str(tmp_path / name)
-        _write_processed(root, items)
+        write_processed(root, items)
         if name == "seq":
             path = port_engine.predict(root, images=items, progress=False)
         else:
@@ -205,13 +150,17 @@ def test_streaming_equals_sequential(engines, tmp_path):
     assert csvs[0] == csvs[1]
 
 
-def test_launch_ladder_and_unported_options(engines):
+def test_launch_ladder_and_unported_options(engines, tmp_path):
     _, port_engine = engines
     assert [port_engine._padded_batch(n) for n in range(1, 5)] == \
         [1, 2, 4, 4]
     assert port_engine.launch_item_counts() == [1, 2, 3]
-    with pytest.raises(NotImplementedError):
-        port_engine.predict("unused", resume=True)
+    # resume is ported: a folder without artifacts is predicted whole
+    root = str(tmp_path / "resume")
+    items = _items(seed=10)[:2]
+    write_processed(root, items)
+    with open(port_engine.predict(root, progress=False, resume=True)) as f:
+        assert len(f.read().splitlines()) == 1 + len(items)
     with pytest.raises(NotImplementedError):
         port_engine.predict("unused", shard=(0, 2))
 

@@ -117,6 +117,89 @@ def jax_train_loss_and_grads(variables: dict, x: np.ndarray,
             jax.tree.map(np.asarray, grads))
 
 
+# A port map may differ from the JAX engine's only at pixels whose top-2
+# float32 logit margin is below this; the tests assert there are none.
+NEAR_TIE = 1e-5
+
+
+def tiny_checkpoint(path: str, seed: int) -> str:
+    """The tiny model's weights as a ``best_model.pt``, written by the JAX
+    package's own exporter."""
+    import torch
+    from neuralbarkcalculator_tpu.models.convert import (
+        variables_to_torch_state_dict)
+
+    torch.save({k: torch.tensor(v) for k, v in variables_to_torch_state_dict(
+        tiny_variables(seed=seed)).items()}, path)
+    return path
+
+
+def tiny_engines(pt: str, jax_engine: bool = True, **config):
+    """(JAX engine or None, port engine on the CPU) loading ``pt`` under
+    the model name ``_tiny_test``, both in float32 with ``config``; the
+    JAX engine runs its Pallas kernel in interpret mode."""
+    from neuralbarkcalculator_tpu.config import PredictConfig as JaxConfig
+    from neuralbarkcalculator_tpu.models import segmentation as jseg
+    from neuralbarkcalculator_tpu.parallel.mesh import make_mesh
+    from neuralbarkcalculator_tpu.pipeline.predict import (
+        NeuralBarkCalculator as JaxEngine)
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.models import segmentation as tseg
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    config = dict(use_bfloat16=False, **config)
+    jseg.MODEL_FACTORIES["_tiny_test"] = lambda dtype=None: tiny_jax_model(
+        dtype)
+    tseg.MODEL_FACTORIES["_tiny_test"] = tiny_torch_model
+    try:
+        jax_eng = JaxEngine(
+            pt, mesh=make_mesh(n_data=1), model_name="_tiny_test",
+            config=JaxConfig(model_path=pt, use_pallas=True,
+                             pallas_interpret=True, **config)
+        ) if jax_engine else None
+        port_engine = NeuralBarkCalculator(
+            pt, model_name="_tiny_test", device="cpu",
+            config=PredictConfig(model_path=pt, **config))
+    finally:
+        jseg.MODEL_FACTORIES.pop("_tiny_test", None)
+        tseg.MODEL_FACTORIES.pop("_tiny_test", None)
+    return jax_eng, port_engine
+
+
+def near_ties(engine, images) -> int:
+    """Pixels whose top-2 logit margin in a float32 per-image forward of
+    the port engine's (folded) model is under NEAR_TIE; ``images`` are
+    uint8 [h, w, 3] arrays."""
+    import torch
+
+    mean = engine.mean.numpy()
+    std = engine.std.numpy()
+    n = 0
+    with torch.inference_mode():
+        for img in images:
+            x = (img.astype(np.float32) / 255.0 - mean) / std
+            top2 = engine.model(torch.from_numpy(x[None]))[0].topk(2).values
+            n += int((top2[..., 0] - top2[..., 1] < NEAR_TIE).sum())
+    return n
+
+
+def write_processed(root: str, items) -> None:
+    """A predict root holding ``items`` (ProcessedImage) as processed PNGs,
+    with the results/ folders of their wood types."""
+    import os
+
+    from neuralbarkcalculator_tpu_torch.io.native import save_image_u8
+
+    for it in items:
+        d = os.path.join(root, "processed", "samples", it.wood_type)
+        os.makedirs(d, exist_ok=True)
+        for sub in ("combined_images", "outputs"):
+            os.makedirs(os.path.join(root, "results", sub, it.wood_type),
+                        exist_ok=True)
+        save_image_u8(os.path.join(d, it.fname), it.image)
+
+
 def count_leaves(tree) -> int:
     if isinstance(tree, dict):
         return sum(count_leaves(v) for v in tree.values())
