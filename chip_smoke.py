@@ -19,8 +19,10 @@ dropout mask bit for bit; two calls bitwise equal; shapes that miss every
 tile at 1, 3 and 4 classes and rates 0 and 0.8; the integer instructions
 of a step of each kernel's loop, counted in its SASS, from which an
 estimate of the integer pipe's time is printed beside the byte bound).
-Each timing window's device events are counted against what the function
-launches.
+upsample_argmax is also held at the EfficientNet path's stride-32 logits
+(8 images at heights 896/960/1024, F = 28/30/32, Wf = 32, and at width
+1000), and its 1024 x 1024 case timed. Each timing window's device events
+are counted against what the function launches.
 
 Phase 3 drives the predict path, folder prediction, through the engine a
 user calls: a synthetic folder of 16 processed 1024-wide images at trimmed
@@ -55,6 +57,19 @@ JSON requests of the phase 3 images, a raw scan, mask / combined /
 exclude_nodes answers, /healthz and /v1/stats, every answer's numbers and
 the launch shapes checked; then a --float32 server's masks against a
 direct predict_images call (>= 99.9 % of pixels).
+
+The zoo phase runs after phase 7: fcn_resnet101, deeplabv3_resnet50,
+deeplabv3_resnet101, fcn_efficientnet_b0 and deeplabv3_efficientnet_b7
+at full width and depth with random weights from the seed, each through
+the engine over the phase 3 folder (bf16, BN folded, batch 8: a warm
+pass, a timed pass with upsample_argmax launched, a profiled pass, the
+device step alone), held against a per-image float32 reference (the
+float32 engine >= 99.9 % of pixels, the bf16 step within the logit bound);
+the DeepLab head's atrous convs timed against cuDNN's dilated conv; a
+bucketed-height fcn_efficientnet_b0 pass (at most one launch shape per
+bucket and ladder batch); and one served request each for
+deeplabv3_resnet50 and fcn_efficientnet_b0. Every phase prints its wall
+time.
 
 Every path runs with all launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON line, the card's name and
@@ -104,6 +119,10 @@ INTERP_MARGIN = 1e-4
 # give logits with a small spread beside a large common offset that the
 # head's bias cancels, and bf16 rounds relative to that offset.
 BF16_LOGIT_TOL = 0.4
+# A reference pixel counts as a near tie where its float32 top-2 margin is
+# below this share of the image's largest |logit| (the bound between the
+# port and the JAX package in the CPU tests).
+REF_NEAR_TIE = 1e-4
 # The training head's fused dropout + 1x1 conv: h [5, 512, 64, 64] -> 3
 # classes (batch 5 at crop 512, output stride 8), the recipe's rate.
 FDM_SHAPE = (5, 512, 64, 3)  # (B, C, H = W, K)
@@ -154,6 +173,15 @@ PRE_BATCH = 4
 PRE_DIFF_SHARE = 1e-3
 # Images whose dual and figure PNGs the second resumed CLI run finds gone.
 RESUME_DELETE = 3
+# The zoo phase: every other factory family at full width and depth, with
+# the widest backbone among them (B7, 2560 feature channels).
+ZOO = ("fcn_resnet101", "deeplabv3_resnet50", "deeplabv3_resnet101",
+       "fcn_efficientnet_b0", "deeplabv3_efficientnet_b7")
+# upsample_argmax on the EfficientNet path: stride-32 logits at the
+# folder's exact heights (F = 28, 30, 32; Wf = 32) and a width-1000 case;
+# the 1024 x 1024 case is timed.
+STRIDE32_CASES = ((896, 1024), (960, 1024), (1024, 1024), (960, 1000))
+STRIDE32_TIMED = (1024, 1024)
 # The serving phase: batch, the first request's wait, and the concurrent
 # traffic (tools/serving_bench.py's shape: clients x requests each).
 SERVE_BATCH = 8
@@ -1072,9 +1100,12 @@ def make_folder(root: str, seed: int) -> None:
 
 
 def random_state_dict(model, seed: int) -> dict:
-    """fcn_resnet50 weights drawn with numpy from `seed`: He-normal convs,
-    BN with non-trivial statistics (the residual-branch BNs scaled down so
-    the random network stays in range), small biases."""
+    """Weights of any zoo model drawn with numpy from `seed`: He-normal
+    convs (a depthwise conv's fan-in is its k x k window), BN with
+    non-trivial statistics (the BNs that end a residual branch, ResNet's
+    bn3 and downsample.1 and MBConv's _bn2, scaled down so the random
+    network stays in range), small biases. fcn_resnet50 draws the values
+    it drew before the zoo had other models."""
     import numpy as np
     import torch
 
@@ -1092,7 +1123,8 @@ def random_state_dict(model, seed: int) -> dict:
             arr = rng.normal(0.0, 0.1, shape)
         elif k.endswith("running_var"):
             arr = rng.uniform(0.5, 2.0, shape)
-        elif k.endswith(".bn3.weight") or k.endswith("downsample.1.weight"):
+        elif k.endswith((".bn3.weight", "downsample.1.weight",
+                         "._bn2.weight")):
             arr = rng.uniform(0.1, 0.3, shape)
         else:  # other BN scales
             arr = rng.uniform(0.5, 1.5, shape)
@@ -1109,11 +1141,8 @@ def phase_main_path(torch, seed: int, workdir: str, device: str = "cuda"
 
     import numpy as np
 
-    from neuralbarkcalculator_tpu_torch.config import (
-        DEFAULT_MEAN, DEFAULT_STD, PredictConfig)
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
     from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
-    from neuralbarkcalculator_tpu_torch.models.segmentation import (
-        fcn_resnet50)
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
     from neuralbarkcalculator_tpu_torch.utils import profiling
@@ -1121,22 +1150,7 @@ def phase_main_path(torch, seed: int, workdir: str, device: str = "cuda"
     root = os.path.join(workdir, "root")
     make_folder(root, seed)
     ckpt = os.path.join(workdir, "best_model.pt")
-    model = fcn_resnet50().eval()
-    model.load_state_dict(random_state_dict(model, seed))
-    # centre the random head's logits on the first image, so the maps mix
-    # classes and the postprocess and the reference check see real zones
-    first = load_image_u8(os.path.join(root, "processed", "samples",
-                                       "sapin", "img00.png"))
-    with torch.inference_mode():
-        model.to(device)
-        x = torch.from_numpy(first).to(device).float() / 255.0
-        x = ((x - torch.tensor(DEFAULT_MEAN, device=device))
-             / torch.tensor(DEFAULT_STD, device=device))
-        mean = model.head_logits(x[None]).mean(dim=(0, 1, 2)).cpu()
-        model.cpu()
-    model.classifier[4].bias.data -= mean
-    torch.save(model.state_dict(), ckpt)
-    del model
+    random_checkpoint(torch, "fcn_resnet50", seed, root, ckpt, device)
     engine = NeuralBarkCalculator(
         ckpt, config=PredictConfig(model_path=ckpt, figure_dpi=DPI),
         device=device)
@@ -1194,24 +1208,21 @@ def phase_main_path(torch, seed: int, workdir: str, device: str = "cuda"
             "root": root, "seconds": seconds}
 
 
-def phase_profile(torch, main: dict) -> None:
-    """One more folder pass under torch.profiler: the device's busy time
-    (the sum of the device-side events: kernels and copies), set against
-    this profiled pass's own wall time for the busy share, and the kernels
-    that take the most of it. Then the device step alone, at the full batch
-    and at the batch a 6-image bucket would launch without the
-    power-of-two ladder's dummy rows, and the one-off cost of a batch
-    shape the engine has not run before, which is what the ladder saves."""
+def profile_pass(torch, engine, root: str, seconds: float,
+                 label: str = "profile") -> None:
+    """One folder pass under torch.profiler: the device's busy time (the
+    sum of the device-side events: kernels and copies), set against this
+    profiled pass's own wall time for the busy share, and the kernels that
+    take the most of it; `seconds` is the unprofiled timed pass's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine = main["engine"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         # timed inside the block: the profiler's start-up and trace
         # processing are not part of the pass
         t0 = time.perf_counter()
-        engine.predict(main["root"], progress=False)
+        engine.predict(root, progress=False)
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
     # device-side events only: a CPU op may carry the device time of the
@@ -1221,16 +1232,26 @@ def phase_profile(torch, main: dict) -> None:
     device_us = event_device_us
     busy_s = sum(device_us(e) for e in events) / 1e6
     if busy_s == 0:
-        log("profile: the profiler recorded no device time (busy share "
-            "not measured)")
-    else:
-        log(f"profile: device busy {busy_s * 1e3:.3f} ms in the profiled "
-            f"pass of {profiled_s * 1e3:.3f} ms (busy share "
-            f"{busy_s / profiled_s:.4f}; the unprofiled timed pass took "
-            f"{main['seconds'] * 1e3:.3f} ms)")
-        for e in sorted(events, key=device_us, reverse=True)[:8]:
-            log(f"profile: {device_us(e) / 1e3:10.3f} ms {e.count:5d}x "
-                f"{e.key[:90]}")
+        log(f"{label}: the profiler recorded no device time (busy share "
+            f"not measured)")
+        return
+    log(f"{label}: device busy {busy_s * 1e3:.3f} ms in the profiled "
+        f"pass of {profiled_s * 1e3:.3f} ms (busy share "
+        f"{busy_s / profiled_s:.4f}; the unprofiled timed pass took "
+        f"{seconds * 1e3:.3f} ms)")
+    for e in sorted(events, key=device_us, reverse=True)[:8]:
+        log(f"{label}: {device_us(e) / 1e3:10.3f} ms {e.count:5d}x "
+            f"{e.key[:90]}")
+
+
+def phase_profile(torch, main: dict) -> None:
+    """One more folder pass under torch.profiler (profile_pass). Then the
+    device step alone, at the full batch and at the batch a 6-image bucket
+    would launch without the power-of-two ladder's dummy rows, and the
+    one-off cost of a batch shape the engine has not run before, which is
+    what the ladder saves."""
+    engine = main["engine"]
+    profile_pass(torch, engine, main["root"], main["seconds"])
 
     # the engine's device step alone, back to back on device-resident
     # inputs: the ceiling the host would have to keep up with
@@ -1273,10 +1294,29 @@ def phase_profile(torch, main: dict) -> None:
         f"batch {BATCH} ({warm8_ms:.3f} ms wall)")
 
 
-def check_bf16_step(torch, bf16, f32, items) -> None:
+def step_inputs(torch, engine, items):
+    """One launch's device inputs for `items`, as the engine's
+    _launch_batch builds them: (uint8 batch, valid heights or None, row
+    operators). The ragged path pads to PAD_H with row masks; the
+    exact-height path takes items of one height as they are."""
+    dev = engine.device
+    n = len(items)
+    heights = [it.image.shape[0] for it in items]
+    if engine._exact_heights:
+        pad_h = heights[0]
+        if any(h != pad_h for h in heights):
+            raise ValueError(f"exact-height launch of heights {heights}")
+        return (torch.from_numpy(engine._pad_group(items, pad_h, n)).to(dev),
+                None, torch.stack([engine._row_op_dev(pad_h, pad_h)] * n))
+    return (torch.from_numpy(engine._pad_group(items, PAD_H, n)).to(dev),
+            torch.tensor(heights, dtype=torch.int32, device=dev),
+            torch.stack([engine._row_op_dev(h, PAD_H) for h in heights]))
+
+
+def check_bf16_step(torch, bf16, f32, items, label: str = "") -> None:
     """The bf16 engine's device step (bf16 convs, channels_last) against
-    the float32 engine's (TF32 off) on one ragged batch, before any
-    postprocess. The stride-8 logits over the valid rows must agree within
+    the float32 engine's (TF32 off) on one launch (step_inputs), before any
+    postprocess. The head logits over the valid rows must agree within
     BF16_LOGIT_TOL of the float32 logits' spread; a class-map pixel may
     differ only where the float32 top-2 margin is under twice the largest
     change the measured logit error can make after the upsample (the
@@ -1285,16 +1325,13 @@ def check_bf16_step(torch, bf16, f32, items) -> None:
     from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
         upsample_argmax)
 
-    dev = bf16.device
-    n = len(items)
+    batch, valid_h, rows = step_inputs(torch, bf16, items)
     heights = [it.image.shape[0] for it in items]
-    batch = torch.from_numpy(bf16._pad_group(items, PAD_H, n)).to(dev)
-    valid_h = torch.tensor(heights, dtype=torch.int32, device=dev)
-    rows = torch.stack([bf16._row_op_dev(h, PAD_H) for h in heights])
-    colt, col_win = bf16._colt_dev(WIDTH // 8, WIDTH)
+    pad_h = batch.shape[1]
     with torch.inference_mode():
         lo16 = bf16._logits(batch, valid_h)
         lo32 = f32._logits(batch, valid_h)
+        colt, col_win = bf16._colt_dev(lo16.shape[2], WIDTH)
         map16 = upsample_argmax(lo16, rows, colt, col_win)
         planes = torch.einsum("bof,bfwc->bcow", rows, lo32)
         up32 = torch.einsum("bcow,wp->bcop", planes, colt)
@@ -1307,7 +1344,8 @@ def check_bf16_step(torch, bf16, f32, items) -> None:
     gain = (float(rows.abs().sum(dim=2).max())
             * float(colt.abs().sum(dim=0).max()))
     for i, h in enumerate(heights):
-        fh = bf16.model.backbone.valid_feature_height(h)
+        fh = (lo16.shape[1] if valid_h is None
+              else bf16.model.backbone.valid_feature_height(h))
         err = max(err, float((lo16[i, :fh] - lo32[i, :fh]).abs().max()))
         spread = max(spread, float(lo32[i, :fh].std()))
     allowed = 2 * gain * err
@@ -1318,10 +1356,10 @@ def check_bf16_step(torch, bf16, f32, items) -> None:
         total += h * WIDTH
         if bool(differ.any()):
             worst = max(worst, float(margin[i, :h][differ].max()))
-        if h < PAD_H and bool((map16[i, h:] != 0).any()):
+        if h < pad_h and bool((map16[i, h:] != 0).any()):
             raise AssertionError(f"bf16 step: padded rows of image {i} "
                                  f"are not 0")
-    log(f"bf16 step vs float32 step: logit max abs err {err:.5g} "
+    log(f"{label}bf16 step vs float32 step: logit max abs err {err:.5g} "
         f"({err / spread:.5f} of the float32 logits' std {spread:.5g}, "
         f"allowed {BF16_LOGIT_TOL}); {flips} of {total} pixels flipped "
         f"({flips / total:.6f}), largest flipped float32 margin "
@@ -1329,61 +1367,111 @@ def check_bf16_step(torch, bf16, f32, items) -> None:
         f"{gain:.4f}); {near} pixels ({near / total:.6f}) lie under that "
         f"margin")
     if err > BF16_LOGIT_TOL * spread:
-        raise AssertionError(f"bf16 logits differ from float32 by {err}, "
-                             f"above {BF16_LOGIT_TOL} x {spread}")
+        raise AssertionError(f"{label}bf16 logits differ from float32 by "
+                             f"{err}, above {BF16_LOGIT_TOL} x {spread}")
     if flips and worst >= allowed:
-        raise AssertionError(f"bf16 class map flips a pixel whose float32 "
-                             f"margin {worst} is >= {allowed}")
+        raise AssertionError(f"{label}bf16 class map flips a pixel whose "
+                             f"float32 margin {worst} is >= {allowed}")
 
 
-def phase_reference(torch, main: dict) -> None:
-    """The engine against a per-image reference on the card: each image
-    alone, unpadded, through the float32 folded model and the plain
-    upsample, then the same native postprocess. The float32 engine (TF32
-    off, ragged batches, the kernel) must agree on >= 99.9% of pixels;
-    the bf16 engine's agreement is printed and must be >= 95%. The bf16
-    device step is also held against the float32 one before the
-    postprocess (check_bf16_step)."""
-    import numpy as np
-
-    from neuralbarkcalculator_tpu_torch.config import PredictConfig
-    from neuralbarkcalculator_tpu_torch.io.native import (
-        load_image_u8, remove_small_zones_host2)
-    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
-        NeuralBarkCalculator)
+def folder_items(root: str, indices) -> list:
+    """The main-path folder's processed images `indices` as
+    ProcessedImage."""
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
     from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
         ProcessedImage)
 
-    samples = os.path.join(main["root"], "processed", "samples", "sapin")
-    items = [ProcessedImage(load_image_u8(os.path.join(
+    samples = os.path.join(root, "processed", "samples", "sapin")
+    return [ProcessedImage(load_image_u8(os.path.join(
         samples, f"img{i:02d}.png")), f"img{i:02d}.png", "sapin")
-        for i in range(4)]
-    f32 = NeuralBarkCalculator(
-        main["ckpt"], config=PredictConfig(model_path=main["ckpt"],
-                                           use_bfloat16=False),
-        device=main["engine"].device)
-    ref = []
+        for i in indices]
+
+
+def reference_maps(torch, f32, items) -> tuple[list, int]:
+    """Each image alone, unpadded, through the float32 engine's folded
+    model (head_logits), upsample_argmax_plain with the image's own
+    operators and the native postprocess. Returns the maps and the number
+    of near-tie pixels: a float32 top-2 margin under REF_NEAR_TIE of the
+    image's largest |logit|."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.io.native import (
+        remove_small_zones_host2)
+    from neuralbarkcalculator_tpu_torch.ops.resize import (
+        bicubic_resize_matrix, column_operator_t)
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        upsample_argmax_plain)
+
+    ref, ties, feats = [], 0, []
     with torch.inference_mode():
         for it in items:
+            h, w = it.image.shape[:2]
             x = torch.from_numpy(it.image).to(f32.device).float() / 255.0
-            x = (x - f32.mean) / f32.std
-            cmap = f32.model(x[None]).argmax(-1).to(torch.uint8).cpu()
+            feat = f32.model.head_logits(((x - f32.mean) / f32.std)[None])
+            rows = torch.from_numpy(bicubic_resize_matrix(
+                feat.shape[1], h).astype(np.float32)).to(f32.device)[None]
+            colt = torch.from_numpy(column_operator_t(feat.shape[2], w)).to(
+                f32.device)
+            feats.append(feat[0])
+            cmap = upsample_argmax_plain(feat, rows, colt).cpu()
+            top2 = torch.einsum("bcow,wp->bcop", torch.einsum(
+                "bof,bfwc->bcow", rows, feat), colt).topk(2, dim=1).values
+            ties += int((top2[:, 0] - top2[:, 1]
+                         < REF_NEAR_TIE * feat.abs().max()).sum())
             cleaned, _ = remove_small_zones_host2(
-                cmap.numpy(), cmap.shape[2],
-                np.array([it.image.shape[0]], np.int32))
+                cmap.numpy(), w, np.array([h], np.int32))
             ref.append(cleaned[0])
-    for label, engine, floor in (("float32", f32, 0.999),
-                                 ("bf16", main["engine"], 0.95)):
-        got = {it.fname: m for it, m in engine.predict_images(items)}
+        # how far the logits depend on the image rather than the position:
+        # their spread across the images at each position (over the rows
+        # all of them have) against their spread across positions
+        f = min(t.shape[0] for t in feats)
+        stack = torch.stack([t[:f] for t in feats])
+        across = float(stack.std(dim=0).mean())
+        spatial = float((stack - stack.mean(dim=(1, 2), keepdim=True)).std())
+    log(f"reference logits: spread across {len(items)} images {across:.4g} "
+        f"(mean std at a position), across positions {spatial:.4g}")
+    return ref, ties
+
+
+def phase_reference(torch, engine, ckpt: str, items, model_name: str =
+                    "fcn_resnet50", label: str = "",
+                    bf16_floor: float | None = 0.95) -> float:
+    """The engine against a per-image reference on the card
+    (reference_maps). The float32 engine (TF32 off, the engine's batches,
+    the kernel) must agree on >= 99.9% of pixels; the bf16 engine's
+    agreement is printed and, where `bf16_floor` is given, must reach it.
+    The bf16 device step is also held against the float32 one before the
+    postprocess (check_bf16_step), on the items of the first one's height.
+    Returns the float32 engine's agreement."""
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    f32 = NeuralBarkCalculator(
+        ckpt, config=PredictConfig(model_path=ckpt, use_bfloat16=False),
+        model_name=model_name, device=engine.device)
+    ref, ties = reference_maps(torch, f32, items)
+    total = sum(r.size for r in ref)
+    agreement = {}
+    for kind, eng, floor in (("float32", f32, 0.999),
+                             ("bf16", engine, bf16_floor)):
+        got = {it.fname: m for it, m in eng.predict_images(items)}
         agree = sum(int((got[it.fname] == r).sum())
                     for it, r in zip(items, ref))
-        total = sum(r.size for r in ref)
-        log(f"reference check ({label} engine vs per-image float32): "
-            f"{agree / total:.6f} pixel agreement over {len(items)} images")
-        if agree / total < floor:
-            raise AssertionError(f"{label} engine agrees with the reference "
-                                 f"on {agree / total:.6f} < {floor}")
-    check_bf16_step(torch, main["engine"], f32, items)
+        agreement[kind] = agree / total
+        log(f"{label}reference check ({kind} engine vs per-image float32): "
+            f"{agree / total:.6f} pixel agreement over {len(items)} images; "
+            f"{ties} pixels ({ties / total:.6f}) are near ties (margin < "
+            f"{REF_NEAR_TIE} of the largest |logit|)")
+        if floor is not None and agree / total < floor:
+            raise AssertionError(f"{label}{kind} engine agrees with the "
+                                 f"reference on {agree / total:.6f} < {floor}")
+    first_h = items[0].image.shape[0]
+    check_bf16_step(torch, engine, f32,
+                    [it for it in items
+                     if not engine._exact_heights
+                     or it.image.shape[0] == first_h], label)
+    return agreement["float32"]
 
 
 def make_scan_root(root: str, seed: int) -> list[str]:
@@ -1856,6 +1944,341 @@ def phase_serving(torch, main_root: str, ckpt: str, scan: str,
         raise AssertionError("the float32 server disagrees with the engine")
 
 
+def phase_kernel_stride32(torch, seed: int) -> dict:
+    """upsample_argmax on the EfficientNet path's shapes: stride-32 logits
+    at exact heights (a batch of 8 at each STRIDE32_CASES height and
+    width: F = 28 / 30 / 32, so F % 4 != 0 takes the row tile's scalar
+    staging; Wf = 32; width 1000 puts the window edges inside quads) held
+    against the plain version, the uniform 1024^2 batch also against one
+    F.interpolate + argmax call; then the 1024^2 case timed by device time
+    (the kernel, the plain version, two matmuls + argmax, F.interpolate +
+    argmax) in FDM_TIMING_ROUNDS rounds beside its bound."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from neuralbarkcalculator_tpu_torch.ops.resize import (
+        bicubic_resize_matrix, column_operator_t)
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        column_windows, upsample_argmax, upsample_argmax_plain)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 32)
+    flips = 0
+    for h, w in STRIDE32_CASES:
+        f, wf = -(-h // 32), -(-w // 32)
+        feat = torch.from_numpy(rng.standard_normal(
+            (BATCH, f, wf, 3), dtype=np.float32)).to(dev)
+        rows = torch.from_numpy(bicubic_resize_matrix(f, h).astype(
+            np.float32)).to(dev).expand(BATCH, -1, -1).contiguous()
+        colt = torch.from_numpy(column_operator_t(wf, w)).to(dev)
+        col_win = column_windows(colt)
+        got = upsample_argmax(feat, rows, colt, col_win)
+        torch.cuda.synchronize()
+        n, _ = check_map(torch, f"stride 32 [{BATCH}x{h}x{w}, F={f}, "
+                         f"Wf={wf}] vs plain", got,
+                         upsample_argmax_plain(feat, rows, colt), feat, rows,
+                         colt, FLIP_MARGIN)
+        flips += n
+    # the last 1024 x 1024 case is timed: a uniform batch, so one
+    # F.interpolate + argmax call computes the same function
+    h, w = STRIDE32_TIMED
+    f, wf = h // 32, w // 32
+    feat = torch.from_numpy(rng.standard_normal(
+        (BATCH, f, wf, 3), dtype=np.float32)).to(dev)
+    rows = torch.from_numpy(bicubic_resize_matrix(f, h).astype(
+        np.float32)).to(dev).expand(BATCH, -1, -1).contiguous()
+    colt = torch.from_numpy(column_operator_t(wf, w)).to(dev)
+    col_win = column_windows(colt)
+    planes_nchw = feat.permute(0, 3, 1, 2)
+
+    def interpolate():
+        return F.interpolate(planes_nchw, size=(h, w), mode="bicubic",
+                             align_corners=False).argmax(1)
+
+    def library():
+        y = torch.matmul(torch.matmul(rows[:, None], planes_nchw), colt)
+        return y.argmax(dim=1).to(torch.uint8)
+
+    check_map(torch, f"stride 32 [{BATCH}x{h}x{w}] vs F.interpolate + "
+              f"argmax", upsample_argmax(feat, rows, colt, col_win),
+              interpolate().to(torch.uint8), feat, rows, colt, INTERP_MARGIN)
+    fns = (lambda: upsample_argmax(feat, rows, colt, col_win),
+           lambda: upsample_argmax_plain(feat, rows, colt), library,
+           interpolate)
+    rounds, counts = [], []
+    for r in range(FDM_TIMING_ROUNDS):
+        times, n = device_times(torch, fns, ({"upsample_argmax_kernel": 1},
+                                             None, None, None))
+        rounds.append([sum(t.values()) for t in times])
+        counts.append(n)
+        log(f"upsample_argmax stride 32 timing round {r + 1} (device ms per "
+            f"call): kernel {rounds[-1][0]:.4f}, plain {rounds[-1][1]:.4f}, "
+            f"two matmuls + argmax {rounds[-1][2]:.4f}, F.interpolate + "
+            f"argmax {rounds[-1][3]:.4f}; clocks.sm, clocks.mem, power.draw "
+            f"after it: {card_clocks()}")
+    same_counts("upsample_argmax stride 32", counts)
+    ms, plain_ms, library_ms, interp_ms = (statistics.median(col)
+                                           for col in zip(*rounds))
+    ops = band_ops(torch, rows, colt)
+    nbytes = (4 * (feat.numel() + rows.numel() + colt.numel())
+              + BATCH * h * w)
+    op_ms = ops / H100_F32_FLOPS * 1e3
+    byte_ms = nbytes / H100_HBM_BYTES * 1e3
+    bound = max(op_ms, byte_ms)
+    log(f"upsample_argmax stride 32 [{BATCH}x{h}x{w}, F={f}, Wf={wf}]: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two matmuls + argmax "
+        f"{library_ms:.4f} ms, F.interpolate + argmax {interp_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({ops / 1e9:.4f} GFLOP over the windows, "
+        f"{nbytes / 1e6:.3f} MB; {bound / ms:.3f} of it)")
+    return {"stride32_ms": ms, "stride32_plain_ms": plain_ms,
+            "stride32_library_ms": library_ms,
+            "stride32_interpolate_ms": interp_ms, "stride32_bound_ms": bound,
+            "stride32_bound_by": "operations" if op_ms >= byte_ms
+            else "bytes", "stride32_flips": flips}
+
+
+def random_checkpoint(torch, name: str, seed: int, root: str, path: str,
+                      device: str) -> None:
+    """A full-width `name` with random_state_dict weights and the head's
+    bias centred on the first folder image's logits (so the maps mix
+    classes and the postprocess and the reference check see real zones),
+    saved as a reference-named .pt. The BN statistics stay as drawn: set
+    from a calibration pass, they make the random network amplify bf16
+    rounding far past BF16_LOGIT_TOL, while as drawn a random
+    EfficientNet's logits depend on the position far more than on the
+    image (reference_maps prints the two spreads)."""
+    from neuralbarkcalculator_tpu_torch.config import (DEFAULT_MEAN,
+                                                       DEFAULT_STD)
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        MODEL_FACTORIES)
+
+    model = MODEL_FACTORIES[name]().eval()
+    model.load_state_dict(random_state_dict(model, seed))
+    model.to(device)
+    first, = folder_items(root, [0])
+    x = torch.from_numpy(first.image).to(device).float() / 255.0
+    x = ((x - torch.tensor(DEFAULT_MEAN, device=device))
+         / torch.tensor(DEFAULT_STD, device=device))
+    with torch.inference_mode():
+        centre = model.head_logits(x[None]).mean(dim=(0, 1, 2))
+    model.classifier[4].bias.data -= centre
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+
+
+def zoo_step_ms(torch, engine) -> float:
+    """The engine's device step alone on a batch of BATCH random 1024 x
+    1024 images (the exact-height path at that height), back to back."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
+        ProcessedImage)
+
+    img = np.random.default_rng(0).integers(0, 256, (PAD_H, WIDTH, 3),
+                                            np.uint8)
+    batch, valid_h, rows = step_inputs(
+        torch, engine, [ProcessedImage(img, "step", "zoo")] * BATCH)
+    with torch.inference_mode():
+        return time_ms(torch, lambda: engine._device_step(
+            batch, valid_h, rows, pack=True), reps=3, runs=3)
+
+
+def atrous_times(torch, engine) -> None:
+    """The DeepLab head's atrous convs at the engine's launch (bf16
+    channels_last, BATCH x C x 128 x 128): the port's space-to-batch
+    AtrousConv2d at each rate against cuDNN's dilated conv on the same
+    weights at the first rate (its direct kernel takes seconds), also with
+    cudnn.benchmark on, and both in float32 NCHW (TF32 off), by CUDA
+    events, with the largest difference between the two in bf16."""
+    import copy
+
+    import torch.nn.functional as F
+
+    aspp = engine.model.classifier[0]
+    convs = [branch[0] for branch in aspp.convs[1:-1]]
+    x = torch.randn(BATCH, convs[0].in_channels, PAD_H // 8, WIDTH // 8,
+                    device=engine.device, dtype=engine.dtype).contiguous(
+                        memory_format=torch.channels_last)
+    conv, rate = convs[0], convs[0].dilation[0]
+    conv32 = copy.deepcopy(conv).float()
+    x32 = x.float().contiguous()
+
+    def dilated(c, inp):
+        return F.conv2d(inp, c.weight, c.bias, padding=rate, dilation=rate)
+
+    def once(fn) -> float:
+        return time_ms(torch, fn, warmup=1, reps=1, runs=1)
+
+    with torch.inference_mode():
+        port = [time_ms(torch, lambda c=c: c(x), warmup=1, reps=3, runs=3)
+                for c in convs]
+        cudnn_ms = once(lambda: dilated(conv, x))
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            bench_ms = once(lambda: dilated(conv, x))
+        port32 = time_ms(torch, lambda: conv32(x32), warmup=1, reps=3,
+                         runs=3)
+        cudnn32 = time_ms(torch, lambda: dilated(conv32, x32), warmup=1,
+                          reps=3, runs=3)
+        want = dilated(conv, x).float()
+        err = float((conv(x).float() - want).abs().max()
+                    / want.abs().max())
+    log(f"atrous convs [{BATCH}x{convs[0].in_channels}x{PAD_H // 8}x"
+        f"{WIDTH // 8}] -> {convs[0].out_channels}, bf16 channels_last: "
+        f"space-to-batch "
+        + ", ".join(f"rate {c.dilation[0]} {ms:.3f} ms"
+                    for c, ms in zip(convs, port))
+        + f"; cuDNN's dilated conv at rate {rate} {cudnn_ms:.3f} ms, with "
+        f"cudnn.benchmark {bench_ms:.3f} ms; largest difference {err:.3g} "
+        f"of the largest output. float32 NCHW at rate {rate}: "
+        f"space-to-batch {port32:.3f} ms, cuDNN {cudnn32:.3f} ms")
+
+
+def phase_zoo(torch, seed: int, workdir: str, root: str,
+              device: str = "cuda") -> dict:
+    """The rest of the model zoo through the folder engine on the card:
+    each ZOO factory at full width and depth (random_checkpoint weights), a
+    warm-up pass and a timed pass of the main-path folder (bf16, BN
+    folded, batch 8) with every launch count set to 0 just before it and
+    read just after, a profiled pass, the device step alone, and the
+    reference check (phase_reference: float32 >= 99.9%, the bf16 step's
+    logit bound). Then fcn_efficientnet_b0 once more with
+    effnet_bucket_heights: at most one launch shape per (bucket, ladder
+    batch), its maps against the exact-height engine's. Returns each
+    factory's numbers and checkpoint."""
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    out: dict = {}
+    everything = folder_items(root, range(N_IMAGES))
+    exact_b0 = None
+    for name in ZOO:
+        t0 = time.perf_counter()
+        ckpt = os.path.join(workdir, f"{name}.pt")
+        random_checkpoint(torch, name, seed, root, ckpt, device)
+        engine = NeuralBarkCalculator(
+            ckpt, model_name=name, device=device,
+            config=PredictConfig(model_path=ckpt, figure_dpi=DPI))
+        engine.predict(root, progress=False)  # warm-up: cuDNN plans, caches
+        counters = reset_counters()
+        t1 = time.perf_counter()
+        csv = engine.predict(root, progress=False)
+        seconds = time.perf_counter() - t1
+        counts = {k: c.count for k, c in counters.items()}
+        with open(csv) as f:
+            rows = len(f.read().splitlines()) - 1
+        if rows != N_IMAGES or counts["upsample_argmax"] == 0 \
+                or counts["fused_dropout_matmul_fwd"] \
+                or counts["fused_dropout_matmul_bwd"]:
+            raise AssertionError(f"zoo {name}: {rows} CSV rows, launches "
+                                 f"{counts}")
+        stats = engine.cache_stats()
+        log(f"zoo {name}: {N_IMAGES} images (heights {FOLDER_HEIGHTS}, "
+            f"width {WIDTH}, batch {engine.config.batch_size}, bf16, BN "
+            f"folded, exact heights {engine._exact_heights}) in "
+            f"{seconds:.3f} s = {N_IMAGES / seconds:.3f} images/s (warm "
+            f"pass); launches {counts}; cache {stats}")
+        profile_pass(torch, engine, root, seconds, f"zoo {name} profile")
+        step_ms = zoo_step_ms(torch, engine)
+        log(f"zoo {name}: device step alone {step_ms:.3f} ms per batch of "
+            f"{BATCH} at {PAD_H}x{WIDTH} = {BATCH / step_ms * 1e3:.1f} "
+            f"images/s ceiling")
+        if name == "deeplabv3_resnet50":
+            atrous_times(torch, engine)
+        f32_agree = phase_reference(torch, engine, ckpt,
+                                    folder_items(root, range(4)), name,
+                                    f"zoo {name}: ", bf16_floor=None)
+        if name == "fcn_efficientnet_b0":
+            exact_b0 = {it.fname: m for it, m in
+                        engine.predict_images(everything)}
+        out[name] = {"ckpt": ckpt, "images_per_s": N_IMAGES / seconds,
+                     "launches": counts["upsample_argmax"],
+                     "launch_shapes": stats["launch_shapes"],
+                     "step_ms": step_ms, "float32_agreement": f32_agree}
+        del engine
+        torch.cuda.empty_cache()
+        log(f"zoo {name}: {time.perf_counter() - t0:.3f} s")
+
+    # the opt-in bucketed heights on the exact-height path
+    name = "fcn_efficientnet_b0"
+    ckpt = out[name]["ckpt"]
+    engine = NeuralBarkCalculator(
+        ckpt, model_name=name, device=device, config=PredictConfig(
+            model_path=ckpt, figure_dpi=DPI, effnet_bucket_heights=True))
+    planned = {(pad_h, engine._padded_batch(len(idxs)))
+               for pad_h, idxs in engine._plan_chunks(
+                   [(i, it.image.shape[0], WIDTH)
+                    for i, it in enumerate(everything)])}
+    engine.predict(root, progress=False)
+    counters = reset_counters()
+    t1 = time.perf_counter()
+    engine.predict(root, progress=False)
+    seconds = time.perf_counter() - t1
+    launches = counters["upsample_argmax"].count
+    shapes = engine.cache_stats()["launch_shapes"]
+    got = {it.fname: m for it, m in engine.predict_images(everything)}
+    agree = {}
+    for it in everything:
+        h = it.image.shape[0]
+        key = "on the bucket" if h % engine.config.height_bucket == 0 \
+            else "padded"
+        same, n = agree.get(key, (0, 0))
+        agree[key] = (same + int((got[it.fname] == exact_b0[it.fname]).sum()),
+                      n + h * WIDTH)
+    log(f"zoo {name} with effnet_bucket_heights (bucket "
+        f"{engine.config.height_bucket}): {N_IMAGES / seconds:.3f} images/s "
+        f"(warm pass); {launches} upsample_argmax launches; launch shapes "
+        f"{sorted(engine._launch_shapes)} for the planned (bucket, batch) "
+        f"{sorted(planned)}; agreement with the exact-height maps "
+        + ", ".join(f"{k} {s / n:.6f}" for k, (s, n) in sorted(agree.items())))
+    if shapes > len(planned) or launches == 0:
+        raise AssertionError(f"bucketed heights: {shapes} launch shapes for "
+                             f"{len(planned)} (bucket, batch) pairs, "
+                             f"{launches} launches")
+    out["bucketed"] = {"images_per_s": N_IMAGES / seconds,
+                       "launch_shapes": shapes,
+                       "agreement": {k: s / n for k, (s, n) in agree.items()}}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_serving(torch, root: str, zoo: dict, card: str) -> None:
+    """One served request per new family through cli/serve.make_server
+    (bf16, batch SERVE_BATCH, fixed height 1024, warmed up): the first
+    folder image's PNG against deeplabv3_resnet50 and fcn_efficientnet_b0,
+    its answer's numbers checked, upsample_argmax launched, and the
+    launch shapes before and after (an exact-height model takes a new one
+    for a height the warm-up did not run)."""
+    samples = os.path.join(root, "processed", "samples", "sapin")
+    with open(os.path.join(samples, "img00.png"), "rb") as f:
+        body = f.read()
+    for name in ("deeplabv3_resnet50", "fcn_efficientnet_b0"):
+        srv, thread, warm_s = start_server(torch, zoo[name]["ckpt"],
+                                           "--model", name)
+        calc = srv.state.predictor.calc
+        before = sorted(calc._launch_shapes)
+        try:
+            counters = reset_counters()
+            status, _, data, dt = http_call(srv.server_address[1], "POST",
+                                            "/v1/predict", body)
+            answer = check_answer(f"{name} request", status, data)
+            launches = counters["upsample_argmax"].count
+        finally:
+            stop_server(srv, thread)
+        log(f"serving {name} ({card}): warm-up {warm_s:.3f} s, one request "
+            f"in {dt * 1e3:.3f} ms, class pixels {answer['class_pixels']}, "
+            f"bark {answer['bark_percent']} %, node "
+            f"{answer['node_percent']} %; {launches} upsample_argmax "
+            f"launches; launch shapes {before} -> "
+            f"{sorted(calc._launch_shapes)}")
+        if answer["width"] != WIDTH or launches == 0:
+            raise AssertionError(f"serving {name}: answer {answer}, "
+                                 f"{launches} launches")
+        del srv, calc
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1871,29 +2294,39 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
 
-    card = phase_build()
-    kernel = phase_kernel(torch, args.seed)
-    fdm = phase_fdm_kernel(torch, args.seed)
+    def timed(label: str, fn, *fn_args):
+        t0 = time.perf_counter()
+        result = fn(*fn_args)
+        log(f"phase {label}: {time.perf_counter() - t0:.3f} s")
+        return result
+
+    card = timed("build", phase_build)
+    kernel = timed("upsample_argmax", phase_kernel, torch, args.seed)
+    kernel.update(timed("upsample_argmax stride 32", phase_kernel_stride32,
+                        torch, args.seed))
+    fdm = timed("fused_dropout_matmul", phase_fdm_kernel, torch, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        main_path = phase_main_path(torch, args.seed, workdir)
+        main_path = timed("main path", phase_main_path, torch, args.seed,
+                          workdir)
         kernel["launches"] = main_path["launches"]
-        phase_profile(torch, main_path)
-        phase_reference(torch, main_path)
+        timed("profile", phase_profile, torch, main_path)
+        timed("reference", phase_reference, torch, main_path["engine"],
+              main_path["ckpt"], folder_items(main_path["root"], range(4)))
         ckpt, main_root = main_path["ckpt"], main_path["root"]
         del main_path
-        t0 = time.perf_counter()
-        scans = phase_preprocess(torch, args.seed, workdir, card)
-        log(f"phase preprocess: {time.perf_counter() - t0:.3f} s")
-        t0 = time.perf_counter()
-        phase_cli_resume(torch, scans["root"], ckpt, len(scans["paths"]))
-        log(f"phase cli resume: {time.perf_counter() - t0:.3f} s")
-        t0 = time.perf_counter()
-        phase_serving(torch, main_root, ckpt, scans["paths"][0], card)
-        log(f"phase serving: {time.perf_counter() - t0:.3f} s")
-        train = phase_train(torch, args.seed, workdir)
+        scans = timed("preprocess", phase_preprocess, torch, args.seed,
+                      workdir, card)
+        timed("cli resume", phase_cli_resume, torch, scans["root"], ckpt,
+              len(scans["paths"]))
+        timed("serving", phase_serving, torch, main_root, ckpt,
+              scans["paths"][0], card)
+        zoo = timed("zoo", phase_zoo, torch, args.seed, workdir, main_root)
+        kernel["zoo_launches"] = {name: zoo[name]["launches"] for name in ZOO}
+        timed("zoo serving", phase_zoo_serving, torch, main_root, zoo, card)
+        train = timed("train", phase_train, torch, args.seed, workdir)
         for row in fdm:
             row["launches"] = train["launches"][row["name"]]
-    phase_train_vs_cpu(torch, args.seed)
+    timed("train vs cpu", phase_train_vs_cpu, torch, args.seed)
     print(json.dumps({"kernels": [kernel, *fdm]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

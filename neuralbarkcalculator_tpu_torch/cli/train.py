@@ -41,7 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="sampler num_samples = len(train) * factor "
                              "(reference: 12)")
     parser.add_argument("--model", type=str, default="fcn_resnet50",
-                        choices=sorted(MODEL_FACTORIES))
+                        choices=sorted(MODEL_FACTORIES),
+                        help="only fcn_resnet50 trains in the port yet; the "
+                             "other names raise NotImplementedError")
     parser.add_argument("--loss", type=str, default="lovasz",
                         choices=["lovasz"],
                         help="exact Lovász-Softmax, the reference's loss")

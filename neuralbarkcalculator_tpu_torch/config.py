@@ -99,3 +99,14 @@ class PredictConfig:
     figure_dpi: int = 200  # reference hardcodes 900 (models.py:346)
     use_bfloat16: bool = True  # run the conv stack in bf16, channels_last;
     # False runs it in float32 with TF32 off
+    effnet_bucket_heights: bool = False  # EfficientNet backbones cannot
+    # run masked ragged batches exactly (the TF-SAME stride phase,
+    # models/efficientnet.py), so by default every distinct trimmed height
+    # is its own launch shape. This opt-in pads their inputs up to the
+    # height bucket (a multiple of the feature stride) with the last row
+    # replicated instead, for at most one shape per (bucket, batch). It is
+    # APPROXIMATE everywhere, not only near the trim edge: squeeze-excite
+    # pools the whole feature map, so the pad rows move every pixel's SE
+    # scale a little and near-tie pixels flip; exact where heights already
+    # sit on the bucket. ResNet backbones ignore it (their ragged batches
+    # are exact).

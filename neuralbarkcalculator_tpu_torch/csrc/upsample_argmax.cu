@@ -46,7 +46,11 @@
 //   columns share their window, and a group's two quads' windows overlap
 //   in 3 taps, a case unrolled in full), so the operator values are broadcast
 //   loads and a lane reads its row's intermediate values without bank
-//   conflicts.
+//   conflicts. At EfficientNet's scale 32 the window edges fall between
+//   columns 32k + 15 and 32k + 16, on quad edges too, and a group's two
+//   quads mostly share one window (the general quad loop); at other
+//   scales (a 1000-wide image: 31.25) a quad sums over the union of its
+//   columns' windows.
 // - The class bytes go through shared memory and leave as 16-byte stores,
 //   neighbouring threads on neighbouring addresses.
 // - The sums are those of the dense product without its zero terms: fmaf

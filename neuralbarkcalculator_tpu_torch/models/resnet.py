@@ -99,6 +99,9 @@ class DilatedResNet(nn.Module):
     """ResNet backbone with stride->dilation replacement, returning the
     layer4 feature map."""
 
+    supports_ragged = True  # row masks make padded batches exact
+    bn_eps = BN_EPS
+
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  replace_stride_with_dilation: Sequence[bool] = (
                      False, True, True),
@@ -142,6 +145,11 @@ class DilatedResNet(nn.Module):
             stride *= s
         return stride
 
+    def folded_twin(self) -> "DilatedResNet":
+        """The same backbone with BN folded (models/fold.py)."""
+        return DilatedResNet(self.stage_sizes,
+                             self.replace_stride_with_dilation, folded=True)
+
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
                 ) -> torch.Tensor:
         """NCHW input (zero below valid_h) -> NCHW layer4 features."""
@@ -171,6 +179,13 @@ class DilatedResNet(nn.Module):
         return h
 
 
-def resnet50_dilated(folded: bool = False) -> DilatedResNet:
-    """Backbone of reference fcn_resnet50 (models.py:127-134)."""
-    return DilatedResNet(stage_sizes=(3, 4, 6, 3), folded=folded)
+def resnet50_dilated() -> DilatedResNet:
+    """Backbone of reference fcn_resnet50 / deeplabv3_resnet50
+    (models.py:127-134)."""
+    return DilatedResNet(stage_sizes=(3, 4, 6, 3))
+
+
+def resnet101_dilated() -> DilatedResNet:
+    """Backbone of reference fcn_resnet101 / deeplabv3_resnet101
+    (models.py:142-149)."""
+    return DilatedResNet(stage_sizes=(3, 4, 23, 3))

@@ -1,11 +1,21 @@
-"""Segmentation model assembly (reference models.py:27-43, 127-139).
+"""Segmentation model assembly and the model zoo (reference
+models.py:27-154).
 
 ``SegmentationModel`` = backbone -> head -> bicubic upsample to the input
 resolution. Public tensors are NHWC: images in, float32 logits out, as in
-the JAX package, so the two compare like with like.
+the JAX package, so the two compare like with like. The factories mirror
+the reference's zoo:
+
+- fcn_resnet50 (models.py:127-139), the production model (models.py:221);
+- fcn_resnet101 (models.py:142-154);
+- deeplabv3_resnet50 / deeplabv3_resnet101 (models.py:46-71);
+- fcn_efficientnet / deeplabv3_efficientnet (models.py:86-110), and the
+  variant-bound names ``fcn_efficientnet_b0`` ...
+  ``deeplabv3_efficientnet_b7``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -14,21 +24,24 @@ import torch.nn as nn
 
 from ..config import NUM_CLASSES
 from ..ops.resize import bicubic_resize_matrix, bicubic_upsample_ragged
-from .heads import FCNHead
-from .resnet import DilatedResNet, resnet50_dilated
+from .efficientnet import SCALING, EfficientNetBackbone
+from .heads import DeepLabHead, FCNHead
+from .resnet import resnet101_dilated, resnet50_dilated
 
 
 class SegmentationModel(nn.Module):
     """backbone features -> head logits -> bicubic upsample to input H, W.
 
-    Ragged-height batched inference: pass ``valid_h`` ([B] true trimmed
-    heights; inputs zero-padded to the static H) and ``row_upsample``
-    ([B, H, H//8] embedded row operators, ops/resize.embedded_bicubic_rows).
-    Together these make the padded batch equal to running each image at
-    its own height. Without them this is the plain reference forward.
+    Ragged-height batched inference (ResNet backbones): pass ``valid_h``
+    ([B] true trimmed heights; inputs zero-padded to the static H) and
+    ``row_upsample`` ([B, H, H//8] embedded row operators,
+    ops/resize.embedded_bicubic_rows). Together these make the padded batch
+    equal to running each image at its own height. Without them this is
+    the plain reference forward. A backbone without ragged support
+    (``supports_ragged`` False: EfficientNet) raises on ``valid_h``.
     """
 
-    def __init__(self, backbone: DilatedResNet, classifier: FCNHead):
+    def __init__(self, backbone: nn.Module, classifier: nn.Module):
         super().__init__()
         self.backbone = backbone
         self.classifier = classifier
@@ -39,14 +52,17 @@ class SegmentationModel(nn.Module):
         """NHWC images [B, H, W, 3] -> float32 head logits at the feature
         stride, NHWC [B, F, Wf, classes], without the upsample.
         ``dropout_seed`` keys the head's dropout mask in train mode."""
-        feat_h = (None if valid_h is None
-                  else self.backbone.valid_feature_height(valid_h))
         x = x.permute(0, 3, 1, 2)
         if self.training:
             # training runs contiguous NCHW, the reference's layout, so the
             # head's activations reach fused_dropout_matmul without a copy
             x = x.contiguous()
-        feat = self.backbone(x, valid_h=valid_h)
+        if valid_h is None:
+            feat, feat_h = self.backbone(x), None
+        else:
+            # raises for a backbone without ragged support
+            feat_h = self.backbone.valid_feature_height(valid_h)
+            feat = self.backbone(x, valid_h=valid_h)
         logits = self.classifier(feat, valid_h=feat_h,
                                  dropout_seed=dropout_seed).float()
         out = logits.permute(0, 2, 3, 1)
@@ -70,15 +86,70 @@ class SegmentationModel(nn.Module):
         return bicubic_upsample_ragged(logits, row_upsample, in_w)
 
 
-def fcn_resnet50(dropout: float = 0.1, num_classes: int = NUM_CLASSES,
-                 folded: bool = False) -> SegmentationModel:
+def fcn_resnet50(dropout: float = 0.1, num_classes: int = NUM_CLASSES
+                 ) -> SegmentationModel:
     """The reference production model (models.py:127-139, 221)."""
-    backbone = resnet50_dilated(folded=folded)
+    backbone = resnet50_dilated()
     return SegmentationModel(
         backbone, FCNHead(backbone.out_channels, num_classes,
-                          dropout=dropout, folded=folded))
+                          dropout=dropout))
+
+
+def fcn_resnet101(dropout: float = 0.1, num_classes: int = NUM_CLASSES
+                  ) -> SegmentationModel:
+    backbone = resnet101_dilated()
+    return SegmentationModel(
+        backbone, FCNHead(backbone.out_channels, num_classes,
+                          dropout=dropout))
+
+
+def deeplabv3_resnet50(num_classes: int = NUM_CLASSES) -> SegmentationModel:
+    backbone = resnet50_dilated()
+    return SegmentationModel(
+        backbone, DeepLabHead(backbone.out_channels, num_classes))
+
+
+def deeplabv3_resnet101(num_classes: int = NUM_CLASSES) -> SegmentationModel:
+    backbone = resnet101_dilated()
+    return SegmentationModel(
+        backbone, DeepLabHead(backbone.out_channels, num_classes))
+
+
+def fcn_efficientnet(n: int, dropout: float = 0.1,
+                     num_classes: int = NUM_CLASSES) -> SegmentationModel:
+    backbone = EfficientNetBackbone(n)
+    return SegmentationModel(
+        backbone, FCNHead(backbone.out_channels, num_classes,
+                          dropout=dropout))
+
+
+def deeplabv3_efficientnet(n: int, num_classes: int = NUM_CLASSES
+                           ) -> SegmentationModel:
+    backbone = EfficientNetBackbone(n)
+    return SegmentationModel(
+        backbone, DeepLabHead(backbone.out_channels, num_classes))
 
 
 MODEL_FACTORIES: dict[str, Callable[..., SegmentationModel]] = {
     "fcn_resnet50": fcn_resnet50,
+    "fcn_resnet101": fcn_resnet101,
+    "deeplabv3_resnet50": deeplabv3_resnet50,
+    "deeplabv3_resnet101": deeplabv3_resnet101,
+    "fcn_efficientnet": fcn_efficientnet,
+    "deeplabv3_efficientnet": deeplabv3_efficientnet,
 }
+# variant-bound names, so the CLIs and the engine select an EfficientNet
+# without a separate n (reference callers pass n positionally,
+# models.py:104)
+for _n in range(len(SCALING)):
+    MODEL_FACTORIES[f"fcn_efficientnet_b{_n}"] = functools.partial(
+        fcn_efficientnet, _n)
+    MODEL_FACTORIES[f"deeplabv3_efficientnet_b{_n}"] = functools.partial(
+        deeplabv3_efficientnet, _n)
+
+
+def efficientnet_variant_of(model_name: str) -> int | None:
+    """'fcn_efficientnet_b3' -> 3; None for the other names."""
+    if "_efficientnet_b" in model_name:
+        return int(model_name.rsplit("_b", 1)[1])
+    return None

@@ -1,8 +1,9 @@
 """Fused bicubic upsample + class argmax: the CUDA kernel and its plain
 version.
 
-``upsample_argmax(feat, row_ops, colt)`` maps stride-8 head logits
-``feat [B, F, Wf, 3]`` (float32), per-image embedded row operators
+``upsample_argmax(feat, row_ops, colt)`` maps head logits at the feature
+stride (8 for the ResNets' ragged batches, 32 for EfficientNet's exact
+heights) ``feat [B, F, Wf, 3]`` (float32), per-image row operators
 ``row_ops [B, OH, F]`` and the transposed width operator ``colt [Wf, OW]``
 to the uint8 class map ``[B, OH, OW]``, without writing the float
 upsampled logits anywhere. It replaces the Pallas TPU kernel

@@ -10,11 +10,18 @@ batched:
   bicubic row operators make the padded batch exactly equivalent to
   per-image execution (models/resnet.py, ops/resize.py);
 - one device step per batch: uint8 -> float, normalize, re-zero the rows
-  past each image's height, the dilated ResNet-50 + FCN head
-  (``head_logits``: cuDNN convolutions, bf16 and channels_last by
-  default) under ``torch.inference_mode()``, then the hand-written CUDA
-  kernel ``upsample_argmax`` (bicubic upsample + argmax in one pass), then
-  a 2-bit pack so the pull moves a quarter of the bytes;
+  past each image's height, the model's backbone + head (``head_logits``:
+  cuDNN convolutions, bf16 and channels_last by default) under
+  ``torch.inference_mode()``, then the hand-written CUDA kernel
+  ``upsample_argmax`` (bicubic upsample + argmax in one pass), then a
+  2-bit pack so the pull moves a quarter of the bytes;
+- EfficientNet backbones cannot run masked ragged batches exactly (the
+  TF-SAME stride phase, models/efficientnet.py): their images are grouped
+  by true trimmed height instead, one launch shape per distinct height,
+  with no row masks, and ``upsample_argmax`` takes the one (stride-32
+  logits -> height) operator of the launch. The opt-in
+  ``PredictConfig.effnet_bucket_heights`` pads them up to the height
+  bucket by replicating the last row (approximate, see config.py);
 - ``PREFETCH`` chunks are in flight on a worker pool, each doing decode ->
   pad -> upload -> device step -> pull; the caller's thread runs the
   native union-find postprocess (remove_small_zones + exclude_nodes remap
@@ -77,9 +84,8 @@ class NeuralBarkCalculator:
         self.device = resolve_device(device)
         self.config = config or PredictConfig(model_path=model_path)
         if model_name not in MODEL_FACTORIES:
-            raise NotImplementedError(
-                f"model {model_name!r} is not ported yet (have "
-                f"{sorted(MODEL_FACTORIES)})")
+            raise ValueError(f"unknown model {model_name!r} (the zoo: "
+                             f"{sorted(MODEL_FACTORIES)})")
         self.dtype = (torch.bfloat16 if self.config.use_bfloat16
                       else torch.float32)
         if self.dtype == torch.float32:
@@ -94,6 +100,20 @@ class NeuralBarkCalculator:
                else torch.contiguous_format)
         self.model = model.to(device=self.device, dtype=self.dtype,
                               memory_format=fmt).eval()
+        # exact-height backbones (EfficientNet): one launch height per
+        # distinct trimmed height, or per bucket with effnet_bucket_heights
+        backbone = self.model.backbone
+        self._exact_heights = not backbone.supports_ragged
+        self._bucketed_exact = (self._exact_heights
+                                and self.config.effnet_bucket_heights)
+        if self._bucketed_exact and \
+                self.config.height_bucket % backbone.feature_stride:
+            raise ValueError(
+                f"effnet_bucket_heights: height_bucket "
+                f"{self.config.height_bucket} must be a multiple of the "
+                f"backbone's feature stride {backbone.feature_stride} (the "
+                f"TF-SAME padding phase is only height-invariant on stride "
+                f"multiples)")
         self.mean = torch.tensor(self.config.mean, dtype=torch.float32,
                                  device=self.device)
         self.std = torch.tensor(self.config.std, dtype=torch.float32,
@@ -111,6 +131,10 @@ class NeuralBarkCalculator:
         self._cache_lock = threading.Lock()
 
     def _bucket_of(self, h: int) -> int:
+        if self._exact_heights:  # fixed_pad_height does not apply
+            if self._bucketed_exact:
+                return pad_to_multiple(h, self.config.height_bucket)
+            return h
         fixed = self.config.fixed_pad_height
         if fixed and h <= fixed:
             # one pinned launch height (exact through the row masks)
@@ -261,7 +285,8 @@ class NeuralBarkCalculator:
 
     def cache_stats(self) -> dict:
         """Telemetry: ``launch_shapes`` counts distinct (pad_h, batch,
-        width) device-step shapes run; ``rowop_evictions`` counts row
+        width) device-step shapes run (on the exact-height path, one
+        pad_h per distinct height); ``rowop_evictions`` counts row
         operators dropped from the 128-entry device cache; ``bytes_h2d``
         counts host->device pixel bytes, dummy rows of the pow2 ladder
         included."""
@@ -372,13 +397,15 @@ class NeuralBarkCalculator:
                    n_pad: int) -> np.ndarray:
         """[n_pad, pad_h, w, 3] uint8 from trimmed images: pad rows and
         the dummy rows past len(items) are zero (the zero-beyond-valid_h
-        invariant the masking relies on). Only the padding is filled."""
+        invariant the masking relies on); with effnet_bucket_heights the
+        pad rows replicate each image's last row instead. Only the padding
+        is filled."""
         w = items[0].image.shape[1]
         buf = np.empty((n_pad, pad_h, w, 3), np.uint8)
         for i, item in enumerate(items):
             h = item.image.shape[0]
             buf[i, :h] = item.image
-            buf[i, h:] = 0
+            buf[i, h:] = item.image[h - 1] if self._bucketed_exact else 0
         buf[len(items):] = 0
         with self._stats_lock:
             self._cache_stats["bytes_h2d"] += buf.nbytes
@@ -401,8 +428,16 @@ class NeuralBarkCalculator:
                       ) -> tuple[np.ndarray, np.ndarray]:
         """Pad a bucket chunk, run the device step and pull the maps.
         Returns (valid_h [n_pad] int32, class maps [n_pad, pad_h, w or
-        w/4] uint8) on the host; rows past len(items) are dummies."""
-        if pad_h % 8:
+        w/4] uint8) on the host; rows past len(items) are dummies.
+
+        Exact heights: the model runs on the batch as it is, without row
+        masks, and every image takes the launch height's operator; valid_h
+        still carries the true heights, so the postprocess crops the
+        effnet_bucket_heights pad rows."""
+        exact = self._exact_heights
+        if exact and not self._bucketed_exact:
+            assert all(it.image.shape[0] == pad_h for it in items)
+        if not exact and pad_h % 8:
             raise ValueError(
                 f"height bucket {pad_h} must be a multiple of 8 (the "
                 f"model's output stride); set PredictConfig.height_bucket "
@@ -415,14 +450,16 @@ class NeuralBarkCalculator:
                            np.int32)
         batch = self._pad_group(items, pad_h, n_pad)
         # dummies reuse image 0's operator
-        ops = [self._row_op_dev(int(h), pad_h) for h in valid_h]
+        ops = [self._row_op_dev(pad_h if exact else int(h), pad_h)
+               for h in valid_h]
         with self._stats_lock:
             self._launch_shapes.add((pad_h, n_pad, w))
             self._cache_stats["launch_shapes"] = len(self._launch_shapes)
         with stage_timer(f"predict/dispatch_h{pad_h}"), \
                 torch.inference_mode():
             x = torch.from_numpy(batch).to(self.device)
-            vh = torch.from_numpy(valid_h).to(self.device)
+            vh = None if exact else torch.from_numpy(valid_h).to(
+                self.device)
             out = self._device_step(x, vh, torch.stack(ops),
                                     pack=w % 4 == 0)
         with stage_timer(f"predict/pull_h{pad_h}"):
@@ -431,14 +468,21 @@ class NeuralBarkCalculator:
 
     def _row_op_dev(self, h: int, pad_h: int) -> torch.Tensor:
         """The embedded (feat_h -> h) bicubic row operator for one trimmed
-        height, uploaded once and cached on the device."""
+        height, uploaded once and cached on the device. On the exact-height
+        path (h == pad_h) it is the plain (ceil(pad_h / stride) -> pad_h)
+        operator: the model sees the launch height itself."""
         key = (h, pad_h)
         with self._cache_lock:
             op = self._rowop_cache.get(key)
             if op is None:
-                feat_h = self.model.backbone.valid_feature_height(h)
+                backbone = self.model.backbone
+                if self._exact_heights:
+                    feat_h = pad_feat = -(-pad_h // backbone.feature_stride)
+                else:
+                    feat_h = backbone.valid_feature_height(h)
+                    pad_feat = pad_h // 8
                 op = torch.from_numpy(embedded_bicubic_rows(
-                    feat_h, h, pad_h // 8, pad_h)).to(self.device)
+                    feat_h, h, pad_feat, pad_h)).to(self.device)
                 if len(self._rowop_cache) >= 128:  # bound: 128 x 512 KB
                     self._rowop_cache.pop(next(iter(self._rowop_cache)))
                     with self._stats_lock:
@@ -459,26 +503,30 @@ class NeuralBarkCalculator:
                 self._colt_cache[(wf, w)] = op
         return op
 
-    def _device_step(self, batch_u8: torch.Tensor, valid_h: torch.Tensor,
-                     row_ops: torch.Tensor, pack: bool) -> torch.Tensor:
+    def _device_step(self, batch_u8: torch.Tensor,
+                     valid_h: torch.Tensor | None, row_ops: torch.Tensor,
+                     pack: bool) -> torch.Tensor:
         """[B, pad_h, W, 3] uint8 -> class maps [B, pad_h, W] uint8, or
-        [B, pad_h, W/4] 2-bit packed, on the device."""
+        [B, pad_h, W/4] 2-bit packed, on the device. ``valid_h`` None:
+        the exact-height path (no row masks)."""
         feat = self._logits(batch_u8, valid_h)
         preds = upsample_argmax(
             feat, row_ops, *self._colt_dev(feat.shape[2], batch_u8.shape[2]))
         return pack2bit(preds) if pack else preds
 
-    def _logits(self, batch_u8: torch.Tensor, valid_h: torch.Tensor
-                ) -> torch.Tensor:
-        """[B, pad_h, W, 3] uint8 -> float32 stride-8 head logits
-        [B, pad_h/8, W/8, 3], in the engine's dtype and layout."""
+    def _logits(self, batch_u8: torch.Tensor,
+                valid_h: torch.Tensor | None) -> torch.Tensor:
+        """[B, pad_h, W, 3] uint8 -> float32 head logits at the feature
+        stride [B, F, Wf, 3], in the engine's dtype and layout."""
         x = batch_u8.float() / 255.0
         x = (x - self.mean) / self.std
-        # normalization turns the zero-padded rows into -mean/std; re-zero
-        # them: the ragged exactness needs the input zero beyond valid_h,
-        # matching the reference's per-image conv zero padding
-        x = x * row_mask(valid_h, x.shape[1], x.dtype).view(
-            x.shape[0], x.shape[1], 1, 1)
+        if valid_h is not None:
+            # normalization turns the zero-padded rows into -mean/std;
+            # re-zero them: the ragged exactness needs the input zero
+            # beyond valid_h, matching the reference's per-image conv zero
+            # padding
+            x = x * row_mask(valid_h, x.shape[1], x.dtype).view(
+                x.shape[0], x.shape[1], 1, 1)
         return self.model.head_logits(x.to(self.dtype), valid_h)
 
 

@@ -59,6 +59,18 @@ class EpochLog:
         return dataclasses.asdict(self)
 
 
+# the zoo models training is ported for: the other factories take no
+# dropout (DeepLab), and their heads and backbones have no train mode yet
+TRAINABLE = ("fcn_resnet50",)
+
+
+def check_trainable(model_name: str) -> None:
+    if model_name not in TRAINABLE:
+        raise NotImplementedError(
+            f"training {model_name!r} is not ported yet (trainable: "
+            f"{', '.join(TRAINABLE)}): ROADMAP Queue A item 6")
+
+
 def build_model(model_name: str, dropout: float, seed: int
                 ) -> SegmentationModel:
     """A randomly initialized model, the same for the same seed: the
@@ -119,6 +131,7 @@ class Experiment:
                  model_name: str = "fcn_resnet50",
                  loss_name: str = "lovasz", monitor: str | None = None,
                  device: str | torch.device = "cuda"):
+        check_trainable(model_name)
         self.config = cfg = config or TrainConfig()
         self.device = resolve_device(device)
         set_float32_exact(self.device)

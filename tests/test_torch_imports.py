@@ -45,7 +45,9 @@ def test_port_imports_no_jax():
                  "data.augment", "data.sampling", "train.step",
                  "train.optim", "train.checkpoint", "train.loop",
                  "train.evaluate", "cli.train", "ops.resize", "ops.trim",
-                 "pipeline.preprocess", "pipeline.serving", "cli.serve"):
+                 "pipeline.preprocess", "pipeline.serving", "cli.serve",
+                 "models.efficientnet", "models.heads", "models.resnet",
+                 "models.fold", "models.segmentation"):
         assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
 
 
@@ -72,6 +74,9 @@ def test_constants_mirror_jax_config():
         assert set(port) <= set(jax_cfg)
         for name, default in port.items():
             assert default == jax_cfg[name], (cls, name)
+    assert tc.PredictConfig().effnet_bucket_heights is False
+    assert "effnet_bucket_heights" in {
+        f.name for f in dataclasses.fields(jc.PredictConfig)}
     # the training settings this slice does not read (ROADMAP Queue A10)
     dropped = {f.name for f in dataclasses.fields(jc.TrainConfig)} - {
         f.name for f in dataclasses.fields(tc.TrainConfig)}
@@ -137,10 +142,29 @@ def test_serve_cli_defaults_to_cuda_and_drops_int8():
     assert (args.device, args.model, args.fixed_height, args.port) == (
         "cuda", "fcn_resnet50", 1024, 8642)
     assert parser.parse_args(["m.pt", "--device", "cpu"]).device == "cpu"
-    for flag in (["--int8"], ["--model", "fcn_resnet101"],
-                 ["--device", "tpu"]):
+    for model in ("fcn_resnet101", "deeplabv3_efficientnet_b7"):
+        assert parser.parse_args(["m.pt", "--model", model]).model == model
+    for flag in (["--int8"], ["--model", "unet"], ["--device", "tpu"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["m.pt", *flag])
+
+
+def test_model_zoo_names_equal_jax():
+    """The port's zoo has every name of the JAX package's, and each CLI's
+    --model takes them."""
+    from neuralbarkcalculator_tpu.models import segmentation as js
+    from neuralbarkcalculator_tpu_torch.cli import predict, serve, train
+    from neuralbarkcalculator_tpu_torch.models import segmentation as ts
+
+    assert sorted(ts.MODEL_FACTORIES) == sorted(js.MODEL_FACTORIES)
+    assert len(ts.MODEL_FACTORIES) == 22
+    for cli in (predict, serve, train):
+        action = next(a for a in cli.build_parser()._actions
+                      if a.dest == "model")
+        assert sorted(action.choices) == sorted(js.MODEL_FACTORIES)
+    for name in js.MODEL_FACTORIES:
+        assert ts.efficientnet_variant_of(name) == \
+            js.efficientnet_variant_of(name)
 
 
 def test_missing_or_unported_checkpoint(tmp_path):
@@ -156,3 +180,5 @@ def test_missing_or_unported_checkpoint(tmp_path):
     with pytest.raises(NotImplementedError):
         NeuralBarkCalculator(str(msgpack), device="cpu",
                              model_name="fcn_resnet101")
+    with pytest.raises(ValueError, match="unknown model"):
+        NeuralBarkCalculator(str(msgpack), device="cpu", model_name="unet")

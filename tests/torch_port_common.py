@@ -39,13 +39,36 @@ def tiny_torch_model(dropout: float = 0.0):
         backbone, FCNHead(backbone.out_channels, 3, dropout=dropout)).eval()
 
 
-def tiny_variables(seed: int = 0) -> dict:
-    """JAX variables of the tiny model as numpy, with randomized BN."""
+def tiny_deeplab_jax_model():
+    """The tiny dilated ResNet with the DeepLabV3 head (JAX)."""
+    from neuralbarkcalculator_tpu.models.heads import DeepLabHead
+    from neuralbarkcalculator_tpu.models.resnet import DilatedResNet
+    from neuralbarkcalculator_tpu.models.segmentation import SegmentationModel
+
+    return SegmentationModel(backbone=DilatedResNet(stage_sizes=TINY_STAGES),
+                             classifier=DeepLabHead(3))
+
+
+def tiny_deeplab_torch_model():
+    from neuralbarkcalculator_tpu_torch.models.heads import DeepLabHead
+    from neuralbarkcalculator_tpu_torch.models.resnet import DilatedResNet
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        SegmentationModel)
+
+    backbone = DilatedResNet(stage_sizes=TINY_STAGES)
+    return SegmentationModel(backbone,
+                             DeepLabHead(backbone.out_channels, 3)).eval()
+
+
+def tiny_variables(seed: int = 0, model=None) -> dict:
+    """JAX variables of the tiny model (or of ``model``) as numpy, with
+    randomized BN."""
     import jax
     import jax.numpy as jnp
 
+    model = model or tiny_jax_model()
     # jitted: the same values as the eager init, ~4x sooner on a CPU
-    variables = jax.jit(lambda key: tiny_jax_model().init(
+    variables = jax.jit(lambda key: model.init(
         key, jnp.zeros((1, 32, 32, 3)), train=False))(
             jax.random.PRNGKey(seed))
     variables = jax.tree.map(np.asarray, variables)
@@ -70,6 +93,94 @@ def tiny_variables(seed: int = 0) -> dict:
 
     return {"params": randomize(variables["params"]),
             "batch_stats": randomize(variables["batch_stats"])}
+
+
+def calibrate_bn(model, seed: int, hw=(64, 64)):
+    """``model`` with each BatchNorm's running statistics set to its
+    input's batch statistics over four normalized blob images of ``hw``,
+    in forward order, in one eval forward; returns it. The random
+    EfficientNet's logits then depend on the image (uncalibrated, they
+    depend almost on the position alone), at the price of a network that
+    amplifies rounding with depth, which float32 comparisons absorb. A BN that sees one value per channel (the
+    ASPP's pooled branch at batch 1) keeps its statistics."""
+    import torch
+    import torch.nn as nn
+
+    def hook(bn, args):
+        (inp,) = args
+        if inp.numel() // inp.shape[1] > 1:
+            bn.running_mean.copy_(inp.mean(dim=(0, 2, 3)))
+            bn.running_var.copy_(inp.var(dim=(0, 2, 3), unbiased=False))
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(normalized([blob_image(rng, *hw) for _ in range(4)]))
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, nn.BatchNorm2d)]
+    try:
+        with torch.no_grad():
+            model.head_logits(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return model
+
+
+def blob_image(rng, h: int, w: int) -> np.ndarray:
+    """A uint8 [h, w, 3] image of smooth 8-pixel blobs plus fine noise, so
+    the maps have zones above the postprocess's 150-pixel threshold."""
+    coarse = rng.random((h // 8 + 2, w // 8 + 2, 3))
+    img = np.kron(coarse, np.ones((8, 8, 1)))[:h, :w]
+    img = img + 0.15 * rng.random(img.shape)
+    return np.clip(img * 230, 0, 255).astype(np.uint8)
+
+
+def normalized(images) -> np.ndarray:
+    """uint8 NHWC images -> float32, normalized as the engine does."""
+    from neuralbarkcalculator_tpu_torch.config import DEFAULT_MEAN, DEFAULT_STD
+
+    x = np.asarray(images, np.float32) / 255.0
+    return ((x - np.float32(DEFAULT_MEAN)) / np.float32(DEFAULT_STD)).astype(
+        np.float32)
+
+
+def zoo_model(name: str, seed: int):
+    """A port zoo model in eval mode with weights drawn with numpy from
+    ``seed``, as ``chip_smoke.random_state_dict`` draws them: He-normal
+    convs (a depthwise conv's fan-in is its k x k window), BN statistics
+    around 0 and 1, BN scales from [0.5, 1.5] except where a BN ends a
+    residual branch (``bn3``, ``downsample.1``, MBConv's ``_bn2``: [0.1,
+    0.3], as a trained network's tend to be; with unit-scale branches the
+    random network amplifies float32 rounding by ~10^2 over its depth),
+    small biases. Like flax's default init, they leave a random
+    EfficientNet's logits independent of the image (``calibrate_bn``)."""
+    import torch
+
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        MODEL_FACTORIES)
+
+    model = MODEL_FACTORIES[name]().eval()
+    rng = np.random.default_rng(seed)
+    state = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            state[k] = v
+            continue
+        if len(shape) == 4:
+            arr = rng.standard_normal(shape) * np.sqrt(
+                2.0 / (shape[1] * shape[2] * shape[3]))
+        elif k.endswith(("running_mean", "bias")):
+            arr = rng.normal(0.0, 0.1, shape)
+        elif k.endswith("running_var"):
+            arr = rng.uniform(0.5, 2.0, shape)
+        elif k.endswith((".bn3.weight", "downsample.1.weight",
+                         "._bn2.weight")):
+            arr = rng.uniform(0.1, 0.3, shape)
+        else:
+            arr = rng.uniform(0.5, 1.5, shape)
+        state[k] = torch.from_numpy(np.asarray(arr, np.float32))
+    model.load_state_dict(state)
+    return model
 
 
 def torch_model_with(variables: dict):
