@@ -14,11 +14,13 @@ shapes and times the kernel, the plain version and the PyTorch yardstick
 by profiler device time: upsample_argmax at the mixed 8x1024x1024 batch
 (and at small dense operators, and at a uniform batch against one
 F.interpolate + argmax call), and fused_dropout_matmul forward and
-backward at the training head's [5, 512, 64, 64] -> 3, rate 0.8 (the
-dropout mask bit for bit; two calls bitwise equal; shapes that miss every
-tile at 1, 3 and 4 classes and rates 0 and 0.8; the integer instructions
-of a step of each kernel's loop, counted in its SASS, from which an
-estimate of the integer pipe's time is printed beside the byte bound).
+backward at the training head's [5, 512, 64, 64] -> 3, rate 0.8, and at
+the EfficientNet FCN heads' [5, 320, 16, 16] (B0) and [5, 640, 16, 16]
+(B7), each timed and a row of its own (the dropout mask bit for bit; two
+calls bitwise equal; shapes that miss every tile at 1, 3 and 4 classes
+and rates 0 and 0.8; the integer instructions of a step of each kernel's
+loop, counted in its SASS, from which an estimate of the integer pipe's
+time is printed beside the main shape's byte bound).
 upsample_argmax is also held at the EfficientNet path's stride-32 logits
 (8 images at heights 896/960/1024, F = 28/30/32, Wf = 32, and at width
 1000), and its 1024 x 1024 case timed. Each timing window's device events
@@ -39,6 +41,20 @@ validation, test and the report. It checks the checkpoint, best_model.pt,
 the report's 15 columns, finite losses and that the fused dropout kernels
 ran, and prints the warm step time and the peak memory. Then one training
 step on the card is held against the same step on the CPU.
+
+The zoo train phase runs after phase 4, in a child process of this
+script (its own CUDA context, memory peaks and profiler sessions): every
+loss of the training menu on [5, 512, 512, 3] logits on the card against
+the CPU; fcn_resnet101, deeplabv3_resnet101, fcn_efficientnet_b0,
+fcn_efficientnet_b7 and deeplabv3_efficientnet_b7 trained at full width
+and depth on phase 4's dataset (batch 5, crop 512, 9 steps: the warm step
+time on the device clock, the peak memory, a profiled step by kernel
+group, finite losses, fused_dropout_matmul launched once a step for the
+FCN heads and never for DeepLab), each exported best_model.pt loaded by
+the predict engine and answering one image; then cli/train.main for
+deeplabv3_resnet50 with --bf16 --loss lovasz_hist --backbone_ckpt (a
+random torchvision-named ResNet-50 file), and --resume --epochs 2, which
+must go on at epoch 2 with the checkpoint's lr and step count.
 
 Phases 5-7 run between phases 3 and 4. Phase 5, the device preprocess:
 10 synthetic BMP scans from the seed (8 at 4096 x 4096 over two wood
@@ -127,6 +143,11 @@ REF_NEAR_TIE = 1e-4
 # classes (batch 5 at crop 512, output stride 8), the recipe's rate.
 FDM_SHAPE = (5, 512, 64, 3)  # (B, C, H = W, K)
 FDM_RATE = 0.8
+# The EfficientNet FCN heads' at the same batch and crop (output stride
+# 32: 16 x 16 pixels): B0's 1280 / 4 = 320 channels, B7's 2560 / 4 = 640.
+FDM_EFFNET_SHAPES = ((5, 320, 16, 3), (5, 640, 16, 3))
+FDM_EFFNET_MODELS = {(5, 320, 16, 3): "fcn_efficientnet_b0",
+                     (5, 640, 16, 3): "fcn_efficientnet_b7"}
 # Shapes that miss every tile of the kernels (72 channels: not a multiple
 # of 16; 60 x 60 = 3600 pixels: not a multiple of 32 or 1024), each class
 # count and rate 0 (the identity) and the recipe's.
@@ -177,6 +198,34 @@ RESUME_DELETE = 3
 # the widest backbone among them (B7, 2560 feature channels).
 ZOO = ("fcn_resnet101", "deeplabv3_resnet50", "deeplabv3_resnet101",
        "fcn_efficientnet_b0", "deeplabv3_efficientnet_b7")
+# The zoo train phase: each head family on each backbone family at full
+# width and depth, with the widest FCN head (B7's, 640 channels into
+# fused_dropout_matmul) and the widest backbone under the DeepLab head;
+# a samples factor of 2 gives 9 steps of batch 5, as the train phase.
+ZOO_TRAIN = ("fcn_resnet101", "deeplabv3_resnet101", "fcn_efficientnet_b0",
+             "fcn_efficientnet_b7", "deeplabv3_efficientnet_b7")
+ZOO_TRAIN_SAMPLES_FACTOR = 2
+# The FCN model the zoo train phase trains once more in bf16 (autocast,
+# the head upcasting into fused_dropout_matmul): the cheapest FCN step.
+ZOO_TRAIN_BF16 = "fcn_efficientnet_b0"
+# The losses on the card against the CPU, first in float64 (the witness):
+# values and gradients within LOSS_WITNESS_TOL, so the card's sort,
+# histogram counts and weighting compute the CPU's function. Then in
+# float32, the recipe's type: values within LOSS_VALUE_TOL relative,
+# gradients within LOSS_GRAD_TOL of their L2 norm. In float32 the two
+# devices' softmax round some errors an ulp apart, and at 1.3 M pixels in
+# [0, 1] many neighbours in the Lovász order are that close: a foreground
+# and a background pixel that trade places trade Lovász weights (the exact
+# sort's gradient read 5.69e-3 on an H100, mixed's 4.79e-5 under its
+# larger CWE term), and lovasz_hist moves a pixel on a bin edge to the
+# next bin (1.75e-4). In
+# float64 an ulp is ~1e-16 against a mean gap of ~8e-7 between
+# neighbours, so trades are too rare to show. The elementwise losses sum in other
+# orders only.
+LOSS_WITNESS_TOL = 1e-5
+LOSS_VALUE_TOL = 1e-5
+LOSS_GRAD_TOL = {"lovasz": 2e-2, "lovasz_hist": 1e-3, "mixed": 5e-4,
+                 "cwe": 1e-4, "jaccard": 1e-4}
 # upsample_argmax on the EfficientNet path: stride-32 logits at the
 # folder's exact heights (F = 28, 30, 32; Wf = 32) and a width-1000 case;
 # the 1024 x 1024 case is timed.
@@ -709,13 +758,51 @@ def integer_pipe_ms(torch, k_: int, elements: int) -> dict[str, tuple]:
     return out
 
 
+def fdm_row(name: str, shape: tuple, ms: float, plain_ms: float,
+            lib_ms: float, nbytes: int, nops: int, err: float, line: int,
+            rate: float, extra: str = "") -> dict:
+    """One fused_dropout_matmul row of the kernels line, logged beside its
+    bound (the larger of its bytes over HBM3's rate and its float32
+    operations over the non-tensor-core rate)."""
+    op_ms = nops / H100_F32_FLOPS * 1e3
+    byte_ms = nbytes / H100_HBM_BYTES * 1e3
+    bound = max(op_ms, byte_ms)
+    b_, c_, hw, k_ = shape
+    log(f"{name} [{b_}x{c_}x{hw}x{hw} -> {k_}, rate {rate}]: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.dropout + conv2d "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB, "
+        f"{nops / 1e6:.1f} MFLOP; {bound / ms:.3f} of it){extra}")
+    return {
+        "name": name, "route": "cuda",
+        "source": "neuralbarkcalculator_tpu_torch/csrc/"
+                  "fused_dropout_matmul.cu",
+        "replaces": f"neuralbarkcalculator_tpu/ops/pallas_kernels.py:{line}",
+        "shape": list(shape), "launches": 0, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "library_ms": lib_ms,
+    }
+
+
+def fdm_row_name(direction: str, shape: tuple) -> str:
+    """The kernels-line name of a fused_dropout_matmul row: the training
+    head's main shape plain, the EfficientNet heads' with their shape."""
+    base = f"fused_dropout_matmul_{direction}"
+    if tuple(shape) == FDM_SHAPE:
+        return base
+    b_, c_, hw, _ = shape
+    return f"{base}_{b_}x{c_}x{hw}x{hw}"
+
+
 def phase_fdm_kernel(torch, seed: int) -> list[dict]:
     """fused_dropout_matmul's forward and backward kernels against their
     plain versions on the card: at the training head's shapes (h [5, 512,
-    64, 64], K = 3, rate 0.8), twice, bitwise equal; at shapes that miss
+    64, 64], K = 3, rate 0.8) and the EfficientNet FCN heads'
+    (FDM_EFFNET_SHAPES), each twice, bitwise equal; at shapes that miss
     every tile (FDM_ODD_SHAPE, each of FDM_ODD_CLASSES and FDM_ODD_RATES).
-    Then timed, with an estimate of the integer pipe's time from the
-    kernels' SASS beside the byte bound."""
+    Then each of the path's shapes timed, with an estimate of the integer
+    pipe's time from the kernels' SASS beside the main shape's byte
+    bound."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -726,19 +813,24 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(seed)
-    b_, c_, hw, k_ = FDM_SHAPE
     rate = FDM_RATE
-    h, w, bias, g, dseed = fdm_inputs(torch, rng, b_, c_, hw, hw, k_)
-    main = check_fdm(torch, "main shape", h, w, bias, g, dseed, rate,
-                     (0.18, 0.22))
-    # determinism: a second call gives the same bits
-    again = check_fdm(torch, "main shape, again", h, w, bias, g, dseed, rate)
-    same = {n: torch.equal(main[n], again[n]) for n in ("y", "dh", "dw", "db")}
-    log(f"fused_dropout_matmul: two calls at the main shape bitwise equal: "
-        f"{same}")
-    if not all(same.values()):
-        raise AssertionError(f"fused_dropout_matmul is not deterministic: "
-                             f"{same}")
+    cases = []  # (shape, (h, w, bias, g, dseed), the first check's outputs)
+    for shape in (FDM_SHAPE, *FDM_EFFNET_SHAPES):
+        b_, c_, hw, k_ = shape
+        inputs = fdm_inputs(torch, rng, b_, c_, hw, hw, k_)
+        label = ("main shape" if shape == FDM_SHAPE
+                 else f"EfficientNet head {b_}x{c_}x{hw}x{hw}")
+        first = check_fdm(torch, label, *inputs, rate, (0.18, 0.22))
+        # determinism: a second call gives the same bits
+        again = check_fdm(torch, f"{label}, again", *inputs, rate)
+        same = {n: torch.equal(first[n], again[n])
+                for n in ("y", "dh", "dw", "db")}
+        log(f"fused_dropout_matmul: two calls at the {label} bitwise "
+            f"equal: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"fused_dropout_matmul is not "
+                                 f"deterministic at the {label}: {same}")
+        cases.append((shape, inputs, first))
     for odd_k in FDM_ODD_CLASSES:
         for odd_rate in FDM_ODD_RATES:
             check_fdm(torch, "odd shape",
@@ -748,54 +840,70 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
     # times: device time per call from the profiler (a ~0.03 ms kernel
     # behind a Python wrapper leaves the card idle between back-to-back
     # calls, so CUDA events around them time the host), for the kernels,
-    # the library yardstick (F.dropout + a 1x1 F.conv2d through autograd),
-    # the plain versions, and what the card's memory gives torch's own
-    # kernels for the kernels' main traffic (h summed: h read once; h
-    # copied: h read and written once), in FDM_TIMING_ROUNDS rounds beside
-    # the card's clocks; then the medians.
-    hl = h.clone().requires_grad_(True)
+    # the library yardstick (F.dropout + a 1x1 F.conv2d through autograd)
+    # and the plain versions at each shape, and what the card's memory
+    # gives torch's own kernels for the main shape's traffic (h summed: h
+    # read once; h copied: h read and written once), in FDM_TIMING_ROUNDS
+    # rounds beside the card's clocks, all shapes in one profiler session
+    # a round; then the medians.
+    fns, plain_fns, expect, keep = [], [], [], []
+    for shape, (h, w, bias, g, dseed), _ in cases:
+        b_, c_, hw, k_ = shape
+        hl = h.clone().requires_grad_(True)
+        w4 = w.t().reshape(k_, c_, 1, 1).contiguous().requires_grad_(True)
+        bl = bias.clone().requires_grad_(True)
+
+        def lib_fwd(hl=hl, w4=w4, bl=bl):
+            return F.conv2d(F.dropout(hl, rate, training=True), w4, bl)
+
+        y_lib = lib_fwd()
+        keep.append(y_lib)
+        fns += [
+            lambda h=h, w=w, bias=bias, dseed=dseed:
+                fused_dropout_matmul_forward(h, w, bias, dseed, rate),
+            lambda h=h, w=w, g=g, dseed=dseed:
+                fused_dropout_matmul_backward(h, w, g, dseed, rate),
+            lambda lib_fwd=lib_fwd: lib_fwd().detach(),
+            lambda y_lib=y_lib, hl=hl, w4=w4, bl=bl, g=g:
+                torch.autograd.grad(y_lib, (hl, w4, bl), g,
+                                    retain_graph=True)]
+        # the op's events per call: the forward one kernel, the backward
+        # the kernel and the sum of its partials
+        expect += [{f"fdm_forward_kernel<{k_}>": 1},
+                   {f"fdm_backward_kernel<{k_}>": 1,
+                    "fdm_backward_reduce_kernel": 1}, None, None]
+        # ~400 kernels a call each, ~6 ms at the main shape: a few calls
+        plain_fns += [
+            lambda h=h, w=w, bias=bias, dseed=dseed:
+                fused_dropout_matmul_plain(h, w, bias, dseed, rate),
+            lambda h=h, w=w, g=g, dseed=dseed:
+                fused_dropout_matmul_backward_plain(h, w, g, dseed, rate)]
+    h = cases[0][1][0]
     h_copy = torch.empty_like(h)
-    w4 = w.t().reshape(k_, c_, 1, 1).contiguous().requires_grad_(True)
-    bl = bias.clone().requires_grad_(True)
-
-    def lib_fwd():
-        return F.conv2d(F.dropout(hl, rate, training=True), w4, bl)
-
-    y_lib = lib_fwd()
-    fns = (lambda: fused_dropout_matmul_forward(h, w, bias, dseed, rate),
-           lambda: fused_dropout_matmul_backward(h, w, g, dseed, rate),
-           lambda: lib_fwd().detach(),
-           lambda: torch.autograd.grad(y_lib, (hl, w4, bl), g,
-                                       retain_graph=True),
-           h.sum,
-           lambda: h_copy.copy_(h))
-    # ~400 kernels a call each, ~6 ms: a few calls suffice
-    plain_fns = (lambda: fused_dropout_matmul_plain(h, w, bias, dseed, rate),
-                 lambda: fused_dropout_matmul_backward_plain(h, w, g, dseed,
-                                                             rate))
-    # the op's events per call: the forward one kernel, the backward the
-    # kernel and the sum of its partials
-    expect = ({f"fdm_forward_kernel<{k_}>": 1},
-              {f"fdm_backward_kernel<{k_}>": 1,
-               "fdm_backward_reduce_kernel": 1}, None, None, None, None)
+    fns += [h.sum, lambda: h_copy.copy_(h)]
+    expect += [None, None]
     rounds, parts, counts = [], [], []
     for r in range(FDM_TIMING_ROUNDS):
         times, n = device_times(torch, fns, expect)
         plain, n_plain = device_times(torch, plain_fns, warmup=1, reps=3)
-        rounds.append([sum(t.values()) for t in times + plain])
+        rounds.append([sum(t.values()) for t in times]
+                      + [sum(t.values()) for t in plain])
         parts.append(times[:2])
         counts.append(n + n_plain)
         log(f"fused_dropout_matmul timing round {r + 1} (device ms per "
-            f"call): forward {rounds[-1][0]:.4f}, backward "
+            f"call): main shape forward {rounds[-1][0]:.4f}, backward "
             f"{rounds[-1][1]:.4f}, F.dropout + conv2d {rounds[-1][2]:.4f} / "
-            f"{rounds[-1][3]:.4f}, h summed {rounds[-1][4]:.4f}, h copied "
-            f"{rounds[-1][5]:.4f}, plain {rounds[-1][6]:.4f} / "
-            f"{rounds[-1][7]:.4f}; clocks.sm, clocks.mem, power.draw after "
-            f"it: {card_clocks()}")
-    del y_lib, h_copy
+            f"{rounds[-1][3]:.4f}; EfficientNet heads forward / backward "
+            + ", ".join(f"{rounds[-1][4 * i]:.4f} / "
+                        f"{rounds[-1][4 * i + 1]:.4f}"
+                        for i in range(1, len(cases)))
+            + f"; h summed {rounds[-1][len(fns) - 2]:.4f}, h copied "
+            f"{rounds[-1][len(fns) - 1]:.4f}; clocks.sm, clocks.mem, "
+            f"power.draw after it: {card_clocks()}")
+    del keep, h_copy
     same_counts("fused_dropout_matmul", counts)
-    (fwd_ms, bwd_ms, fwd_lib_ms, bwd_lib_ms, sum_ms, copy_ms, fwd_plain_ms,
-     bwd_plain_ms) = (statistics.median(col) for col in zip(*rounds))
+    med = [statistics.median(col) for col in zip(*rounds)]
+    sum_ms, copy_ms = med[len(fns) - 2], med[len(fns) - 1]
     log(f"fused_dropout_matmul: the card's memory for the main traffic, "
         f"through torch's kernels: h summed {sum_ms:.4f} ms "
         f"({4 * h.numel() / sum_ms / 1e9:.3f} TB/s), h copied "
@@ -807,36 +915,25 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
                 f"{k} {statistics.median(p[i].get(k, 0.0) for p in parts):.4f}"
                 for k in kernels))
 
-    n_h, n_y = h.numel(), main["y"].numel()
-    ops = 2 * n_h * k_
-    fwd_bytes = 4 * (n_h + w.numel() + k_ + n_y)
-    bwd_bytes = 4 * (n_h + w.numel() + n_y + n_h + w.numel() + k_)
-    int_est = integer_pipe_ms(torch, k_, n_h)
+    int_est = integer_pipe_ms(torch, FDM_SHAPE[3], h.numel())
     rows = []
-    for name, ms, plain_ms, lib_ms, nbytes, nops, err, line, est in (
-            ("fused_dropout_matmul_fwd", fwd_ms, fwd_plain_ms, fwd_lib_ms,
-             fwd_bytes, ops, main["y_err"], 139, int_est["forward"]),
-            ("fused_dropout_matmul_bwd", bwd_ms, bwd_plain_ms, bwd_lib_ms,
-             bwd_bytes, 2 * ops, main["dh_err"], 148, int_est["backward"])):
-        op_ms = nops / H100_F32_FLOPS * 1e3
-        byte_ms = nbytes / H100_HBM_BYTES * 1e3
-        bound = max(op_ms, byte_ms)
-        log(f"{name} [{b_}x{c_}x{hw}x{hw} -> {k_}, rate {rate}]: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.dropout + conv2d "
-            f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB, "
-            f"{nops / 1e6:.1f} MFLOP; {bound / ms:.3f} of it); integer "
-            f"pipe estimated at {est[0]:.4f}-{est[1]:.4f} ms")
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "neuralbarkcalculator_tpu_torch/csrc/"
-                      "fused_dropout_matmul.cu",
-            "replaces": f"neuralbarkcalculator_tpu/ops/pallas_kernels.py:"
-                        f"{line}",
-            "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-            "library_ms": lib_ms,
-        })
+    for i, (shape, (h, w, _, _, _), first) in enumerate(cases):
+        k_ = shape[3]
+        n_h, n_y = h.numel(), first["y"].numel()
+        ops = 2 * n_h * k_
+        fwd_bytes = 4 * (n_h + w.numel() + k_ + n_y)
+        bwd_bytes = 4 * (n_h + w.numel() + n_y + n_h + w.numel() + k_)
+        plain = med[len(fns):]
+        for j, (direction, nbytes, nops, err, line) in enumerate((
+                ("fwd", fwd_bytes, ops, first["y_err"], 139),
+                ("bwd", bwd_bytes, 2 * ops, first["dh_err"], 148))):
+            est = int_est["forward" if j == 0 else "backward"]
+            extra = ("" if i else f"; integer pipe estimated at "
+                     f"{est[0]:.4f}-{est[1]:.4f} ms")
+            rows.append(fdm_row(
+                fdm_row_name(direction, shape), shape, med[4 * i + j],
+                plain[2 * i + j], med[4 * i + 2 + j], nbytes, nops, err,
+                line, rate, extra))
     return rows
 
 
@@ -949,11 +1046,12 @@ STEP_GROUPS = (
 )
 
 
-def profile_train_step(torch, exp) -> None:
+def profile_train_step(torch, exp, label: str = "train") -> dict:
     """One more train step of the experiment under torch.profiler: device
     time by kernel group (convolutions, batch norm, elementwise, the
     Lovász sort, the fused dropout kernels), against the step's wall
-    time."""
+    time. Returns the groups' device ms (empty when the profiler recorded
+    no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -966,7 +1064,8 @@ def profile_train_step(torch, exp) -> None:
         train_step(exp.model, exp.opt, exp.images, exp.labels, idx,
                    exp.augment_gen, 12345, exp.config.crop_size, exp._mean,
                    exp._std, exp.config.jitter_brightness,
-                   exp.config.jitter_saturation, exp.loss_fn)
+                   exp.config.jitter_saturation, exp.loss_fn,
+                   exp.config.use_bfloat16)
 
     step()
     torch.cuda.synchronize()
@@ -976,30 +1075,37 @@ def profile_train_step(torch, exp) -> None:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels and copies; not the user annotations that torch
+    # records on the device timeline too (Optimizer.step#Adam.step spans
+    # the optimizer's own kernels)
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
 
     def event_ms(e) -> float:
         return event_device_us(e) / 1e3
 
     busy = sum(event_ms(e) for e in events)
     if busy == 0:
-        log("train profile: the profiler recorded no device time (not "
-            "measured)")
-        return
+        log(f"{label} profile: the profiler recorded no device time (not "
+            f"measured)")
+        return {}
     groups: dict[str, float] = {}
     for e in events:
         name = e.key.lower()
         group = next((g for g, keys in STEP_GROUPS
                       if any(k in name for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + event_ms(e)
-    log(f"train profile: one step, device busy {busy:.3f} ms in a profiled "
-        f"step of {wall_ms:.3f} ms wall (busy share {busy / wall_ms:.4f})")
+    log(f"{label} profile: one step, device busy {busy:.3f} ms in a "
+        f"profiled step of {wall_ms:.3f} ms wall (busy share "
+        f"{busy / wall_ms:.4f}), {sum(e.count for e in events)} device "
+        f"events")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"train profile: {group:22s} {ms:9.3f} ms ({ms / busy:.4f})")
+        log(f"{label} profile: {group:22s} {ms:9.3f} ms ({ms / busy:.4f})")
     for e in sorted(events, key=event_ms, reverse=True)[:10]:
-        log(f"train profile: {event_ms(e):9.3f} ms {e.count:5d}x "
+        log(f"{label} profile: {event_ms(e):9.3f} ms {e.count:5d}x "
             f"{e.key[:90]}")
+    return groups
 
 
 def phase_train_vs_cpu(torch, seed: int) -> None:
@@ -1073,6 +1179,257 @@ def phase_train_vs_cpu(torch, seed: int) -> None:
         raise AssertionError("another dropout mask moves the gradients by "
                              "less than 10x the tolerance: the check cannot "
                              "tell masks apart")
+
+
+def losses_card_vs_cpu(torch, seed: int) -> None:
+    """Every loss of the training menu, value and gradient with respect to
+    the logits, on the same [5, 512, 512, 3] logits (the recipe's batch
+    and crop) on the card and on the CPU, with and without a validity mask
+    (one image's lower half masked): in float64 within LOSS_WITNESS_TOL,
+    then in float32 within LOSS_VALUE_TOL / LOSS_GRAD_TOL (the constants
+    say why). Prints each loss's float32 value and gradient time on the
+    card (CUDA events, 5 calls)."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.train.step import (LOSS_NAMES,
+                                                           make_loss_fn)
+
+    rng = np.random.default_rng(seed)
+    b_, crop = 5, 512
+    logits = 2.0 * rng.standard_normal((b_, crop, crop, 3))
+    labels = np.kron(rng.integers(0, 3, (b_, crop // 32, crop // 32)),
+                     np.ones((1, 32, 32), np.int64))
+    mask = np.ones((b_, crop, crop))
+    mask[-1, crop // 2:] = 0.0
+    for name in LOSS_NAMES:
+        fn = make_loss_fn(name)
+        for dtype in (torch.float64, torch.float32):
+            v_tol, g_tol = ((LOSS_WITNESS_TOL, LOSS_WITNESS_TOL)
+                            if dtype == torch.float64 else
+                            (LOSS_VALUE_TOL, LOSS_GRAD_TOL[name]))
+            for masked in (False, True):
+                out = {}
+                for dev in ("cuda", "cpu"):
+                    x = torch.from_numpy(logits).to(dev, dtype)
+                    x.requires_grad_(True)
+                    kw = ({"pixel_weights": torch.from_numpy(mask).to(
+                        dev, dtype)} if masked else {})
+                    value = fn(x, torch.from_numpy(labels).to(dev), **kw)
+                    value.backward()
+                    out[dev] = (float(value.detach()), x.grad.cpu())
+                (vc, gc_), (vp, gp) = out["cuda"], out["cpu"]
+                v_err = abs(vc - vp) / abs(vp)
+                g_err = float((gc_ - gp).norm() / gp.norm())
+                timed = ""
+                if dtype == torch.float32:
+                    x = torch.from_numpy(logits).to("cuda", dtype)
+                    x.requires_grad_(True)
+                    y = torch.from_numpy(labels).cuda()
+                    kw = ({"pixel_weights": torch.from_numpy(mask).to(
+                        "cuda", dtype)} if masked else {})
+                    ms = time_ms(torch, lambda: fn(x, y, **kw).backward(),
+                                 warmup=1, reps=5, runs=1)
+                    timed = f"; value + gradient {ms:.3f} ms on the card"
+                log(f"loss {name}{' masked' if masked else ''} "
+                    f"{str(dtype)[6:]} on [{b_}, {crop}, {crop}, 3]: card "
+                    f"{vc:.10f}, CPU {vp:.10f} (relative {v_err:.3g}, "
+                    f"allowed {v_tol:g}); gradient L2 error {g_err:.3g} "
+                    f"(allowed {g_tol:g}){timed}")
+                if v_err > v_tol or g_err > g_tol:
+                    raise AssertionError(f"loss {name} {dtype}: the card "
+                                         f"disagrees with the CPU")
+
+
+def zoo_train_model(torch, seed: int, data_dir: str, root: str,
+                    name: str, bf16: bool = False) -> dict:
+    """One zoo model trained on the card through Experiment, in float32
+    or (``bf16``) under bf16 autocast: full width and depth, the recipe's
+    batch 5, crop 512 and pad 1024, one epoch of
+    ZOO_TRAIN_SAMPLES_FACTOR * 24 // 5 steps, validation and checkpoint,
+    every launch count set to 0 just before and read just after; then a
+    profiled step by kernel group, and the exported best_model.pt loaded by
+    the predict engine, which answers one 1024 x 1024 image."""
+    import gc
+    import math
+
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.config import (PredictConfig,
+                                                       TrainConfig)
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+    from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
+        ProcessedImage)
+    from neuralbarkcalculator_tpu_torch.train.loop import Experiment
+
+    label = f"{name} bf16" if bf16 else name
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    exp = Experiment(data_dir, os.path.join(root, label.replace(" ", "_")),
+                     config=TrainConfig(
+                         seed=seed, epochs=1, use_bfloat16=bf16,
+                         samples_per_epoch_factor=ZOO_TRAIN_SAMPLES_FACTOR),
+                     model_name=name, device="cuda")
+    exp.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = exp.step_count
+    if steps < 6 or not all(math.isfinite(x) for x in exp.step_losses):
+        raise AssertionError(f"zoo train {label}: {steps} steps, losses "
+                             f"{exp.step_losses}")
+    fdm = (launches["fused_dropout_matmul_fwd"],
+           launches["fused_dropout_matmul_bwd"])
+    want = (steps, steps) if name.startswith("fcn") else (0, 0)
+    if fdm != want or launches["upsample_argmax"]:
+        raise AssertionError(f"zoo train {label}: launches {launches}, "
+                             f"fused_dropout_matmul expected {want}")
+    warm = statistics.median(exp.step_seconds[1:]) * 1e3
+    log(f"zoo train {label}: {steps} steps (batch {exp.config.batch_size}, "
+        f"crop {exp.config.crop_size}, {'bf16' if bf16 else 'float32'}, "
+        f"TF32 off) in an epoch of "
+        f"{exp.history[0].time_s:.3f} s; Experiment + epoch {seconds:.3f} "
+        f"s; step times (device clock) "
+        f"{[round(x * 1e3, 3) for x in exp.step_seconds]} ms; warm median "
+        f"{warm:.3f} ms; peak memory allocated {peak:.3f} GiB; losses "
+        f"{[round(x, 6) for x in exp.step_losses]}; launches {launches}")
+    groups = profile_train_step(torch, exp, f"zoo train {label}")
+    best = exp.ckpts.best_model_path
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = NeuralBarkCalculator(best, model_name=name, device="cuda",
+                                  config=PredictConfig(model_path=best))
+    img = np.random.default_rng(seed).integers(0, 256, (1024, 1024, 3),
+                                               dtype=np.uint8)
+    (_, class_map), = engine.predict_images(
+        [ProcessedImage(img, "zoo.png", "sapin")])
+    if class_map.shape != (1024, 1024) or int(class_map.max()) > 2:
+        raise AssertionError(f"zoo train {label}: the engine answered "
+                             f"{class_map.shape} max {class_map.max()}")
+    log(f"zoo train {label}: the predict engine loaded its best_model.pt "
+        f"and answered a 1024 x 1024 image: class shares "
+        f"{np.bincount(class_map.reshape(-1), minlength=3) / class_map.size}")
+    del engine
+    return {"step_ms": warm, "peak_gib": peak, "launches": launches,
+            "groups": groups, "steps": steps}
+
+
+def zoo_train_cli(torch, seed: int, data_dir: str, workdir: str) -> dict:
+    """cli/train.main for deeplabv3_resnet50 on the card: one epoch in bf16
+    with lovasz_hist from a random torchvision-named ResNet-50 file
+    (--backbone_ckpt), with the report; then --resume --epochs 2
+    --no_report, which must start at epoch 2 with the checkpoint's lr.
+    Launch counts set to 0 before each run and read after."""
+    import math
+
+    from neuralbarkcalculator_tpu_torch.cli.train import (build_parser,
+                                                          main as train_main)
+    from neuralbarkcalculator_tpu_torch.models.resnet import (
+        resnet50_dilated)
+
+    root = os.path.join(workdir, "cli_train_root")
+    os.makedirs(root)
+    ckpt = os.path.join(root, "resnet50_random.pth")
+    torch.manual_seed(seed)
+    torch.save({**resnet50_dilated().state_dict(),
+                "fc.weight": torch.randn(1000, 2048) * 0.01,
+                "fc.bias": torch.zeros(1000)}, ckpt)
+    common = [root, "--seed", str(seed), "--data_dir", data_dir,
+              "--model", "deeplabv3_resnet50", "--samples_factor", "1",
+              "--bf16", "--loss", "lovasz_hist"]
+    out = {}
+    for run, extra in (("first", ["--epochs", "1", "--backbone_ckpt", ckpt,
+                                  "--report_dpi", str(DPI)]),
+                       ("resumed", ["--epochs", "2", "--resume",
+                                    "--no_report"])):
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        exp = train_main(build_parser().parse_args(common + extra))
+        torch.cuda.synchronize()
+        launches = {k: c.count for k, c in counters.items()}
+        log(f"zoo train CLI {run} run ({' '.join(extra)}): epochs "
+            f"{[h.epoch for h in exp.history]}, lr "
+            f"{[h.lr for h in exp.history]}, steps {exp.step_count}, step "
+            f"times (device clock) "
+            f"{[round(x * 1e3, 3) for x in exp.step_seconds]} ms, losses "
+            f"{[round(x, 6) for x in exp.step_losses]}, "
+            f"{time.perf_counter() - t0:.3f} s, launches {launches}")
+        if not exp.config.use_bfloat16 or not all(
+                math.isfinite(x) for x in exp.step_losses):
+            raise AssertionError(f"zoo train CLI {run} run")
+        out[run] = exp
+        del exp
+    moar = os.path.join(root, "moar")
+    first = torch.load(os.path.join(moar, "checkpoint_epoch_1.pt"),
+                       map_location="cpu", weights_only=True)
+    file_w = torch.load(ckpt, weights_only=True)["conv1.weight"]
+    moved = float((first["model"]["backbone.conv1.weight"] - file_w).abs()
+                  .max())
+    steps1 = first["step"]
+    steps2 = torch.load(os.path.join(moar, "checkpoint_epoch_2.pt"),
+                        map_location="cpu", weights_only=True)["step"]
+    lr1 = first["optimizer"]["param_groups"][0]["lr"]
+    resumed = out["resumed"]
+    log(f"zoo train CLI: the backbone moved {moved:.3g} from the file in "
+        f"{steps1} Adam steps at lr {lr1:g} (a fresh init is O(0.1) away); "
+        f"the resumed run's epochs {[h.epoch for h in resumed.history]} at "
+        f"lr {[h.lr for h in resumed.history]}, step count {steps2} at its "
+        f"end")
+    if moved > 10 * lr1 * steps1:
+        raise AssertionError("the backbone checkpoint was not loaded")
+    if [h.epoch for h in resumed.history] != [2] or \
+            resumed.history[0].lr != lr1 or steps2 != 2 * steps1:
+        raise AssertionError("the resumed run did not continue at epoch 2 "
+                             "with the restored lr and step count")
+    return {"steps": steps1}
+
+
+def zoo_train(torch, seed: int, root: str, workdir: str) -> dict:
+    """The zoo train phase's body (run in a child process): the losses on
+    the card against the CPU, ZOO_TRAIN each trained, ZOO_TRAIN_BF16 in
+    bf16, then the CLI run."""
+    data_dir = os.path.join(root, "Images", "1024_with_jedi")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    losses_card_vs_cpu(torch, seed)
+    out = {name: zoo_train_model(torch, seed, data_dir, workdir, name)
+           for name in ZOO_TRAIN}
+    out[f"{ZOO_TRAIN_BF16} bf16"] = zoo_train_model(
+        torch, seed, data_dir, workdir, ZOO_TRAIN_BF16, bf16=True)
+    zoo_train_cli(torch, seed, data_dir, workdir)
+    return out
+
+
+def phase_zoo_train(torch, seed: int, workdir: str) -> dict:
+    """The zoo train phase in a child process of this script, on the train
+    phase's dataset: a fresh CUDA context, whose memory peaks and profiler
+    sessions are its own (a process that had opened some twenty profiler
+    sessions saw every later one record nothing). Streams the child's log
+    and returns its last line's JSON."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+           "--zoo-train", os.path.join(workdir, "train_root"), workdir]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    try:
+        last = ""
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            last = line
+        if proc.wait() != 0:
+            raise RuntimeError(f"the zoo train phase exited {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    result = json.loads(last)
+    log("zoo train: " + "; ".join(
+        f"{name} step {r['step_ms']:.3f} ms, peak {r['peak_gib']:.3f} GiB"
+        for name, r in result.items()))
+    return result
 
 
 def make_folder(root: str, seed: int) -> None:
@@ -2282,6 +2639,9 @@ def phase_zoo_serving(torch, root: str, zoo: dict, card: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--zoo-train", dest="zoo_train", nargs=2,
+                        metavar=("TRAIN_ROOT", "WORKDIR"), default=None,
+                        help=argparse.SUPPRESS)  # the zoo train phase's child
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(REPO, "neuralbarkcalculator_tpu_torch")):
         print("chip_smoke: the neuralbarkcalculator_tpu_torch package is not "
@@ -2293,6 +2653,10 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if args.zoo_train:
+        result = zoo_train(torch, args.seed, *args.zoo_train)
+        print(json.dumps(result), flush=True)
+        return 0
 
     def timed(label: str, fn, *fn_args):
         t0 = time.perf_counter()
@@ -2324,8 +2688,14 @@ def main() -> int:
         kernel["zoo_launches"] = {name: zoo[name]["launches"] for name in ZOO}
         timed("zoo serving", phase_zoo_serving, torch, main_root, zoo, card)
         train = timed("train", phase_train, torch, args.seed, workdir)
+        zoo_train_runs = timed("zoo train", phase_zoo_train, torch,
+                               args.seed, workdir)
         for row in fdm:
-            row["launches"] = train["launches"][row["name"]]
+            direction = row["name"][len("fused_dropout_matmul_"):][:3]
+            counts = (train["launches"] if tuple(row["shape"]) == FDM_SHAPE
+                      else zoo_train_runs[FDM_EFFNET_MODELS[
+                          tuple(row["shape"])]]["launches"])
+            row["launches"] = counts[f"fused_dropout_matmul_{direction}"]
     timed("train vs cpu", phase_train_vs_cpu, torch, args.seed)
     print(json.dumps({"kernels": [kernel, *fdm]}), flush=True)
     print(card, flush=True)

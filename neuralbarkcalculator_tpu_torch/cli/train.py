@@ -1,14 +1,17 @@
 """Training CLI of the PyTorch port (reference __main__.py:467-494).
 
 Usage: ``python -m neuralbarkcalculator_tpu_torch.cli.train ROOT_DIR
-[--device {cuda,cpu}] [--seed N]``
+[--device {cuda,cpu}] [--seed N] [--model NAME] [--loss NAME] [--bf16]
+[--backbone_ckpt FILE] [--resume] [--tpu-native-recipe]``
 
 Runs on the card by default (``--device cuda``) and raises when there is
 none; ``--device cpu`` runs the same path on the CPU. The reference flow
 (__main__.py:199-311): dataset at ROOT_DIR/Images/1024_with_jedi,
 checkpoints under ROOT_DIR/moar, fcn_resnet50(dropout=0.8) trained for 30
 epochs, the test split, then the evaluation report. The sizing flags
-shrink a run; their defaults are the reference recipe's.
+shrink a run; their defaults are the reference recipe's. Every option of
+the JAX package's CLI is here but ``--mpl`` (the matplotlib renderer is
+not ported).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import argparse
 import os
 
 from ..models.segmentation import MODEL_FACTORIES
+from ..train.step import LOSS_NAMES
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,13 +44,40 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--samples_factor", type=int, default=None,
                         help="sampler num_samples = len(train) * factor "
                              "(reference: 12)")
+    parser.add_argument("--resume", action="store_true", default=False,
+                        help="continue after the last epoch checkpoint "
+                             "under ROOT_DIR/moar")
+    parser.add_argument("--bf16", action="store_true", default=False,
+                        help="run the forward under bf16 autocast "
+                             "(parameters, optimizer state and the loss "
+                             "stay float32); the reference recipe trains "
+                             "in float32")
     parser.add_argument("--model", type=str, default="fcn_resnet50",
                         choices=sorted(MODEL_FACTORIES),
-                        help="only fcn_resnet50 trains in the port yet; the "
-                             "other names raise NotImplementedError")
-    parser.add_argument("--loss", type=str, default="lovasz",
-                        choices=["lovasz"],
-                        help="exact Lovász-Softmax, the reference's loss")
+                        help="the zoo model to train (the reference's is "
+                             "fcn_resnet50); EfficientNets by their "
+                             "variant-bound names, *_efficientnet_b0..b7")
+    parser.add_argument("--backbone_ckpt", type=str, default=None,
+                        help="start from an ImageNet backbone: a local "
+                             "torchvision ResNet-50/101 or "
+                             "efficientnet_pytorch state dict "
+                             "(.pt/.pth/.npz), bare or in a segmentation "
+                             "checkpoint; the reference's pretrained=True "
+                             "(models.py:127-130)")
+    parser.add_argument("--loss", type=str, default=None,
+                        choices=list(LOSS_NAMES),
+                        help="lovasz: exact Lovász-Softmax, the reference's "
+                             "and the default; lovasz_hist: its sort-free "
+                             "histogram form (1024 bins, within ~1/bins of "
+                             "it); cwe: weighted cross-entropy; mixed: "
+                             "cwe / 4 + Lovász; jaccard: soft Jaccard. An "
+                             "explicit choice overrides "
+                             "--tpu-native-recipe")
+    parser.add_argument("--tpu-native-recipe", dest="tpu_native_recipe",
+                        action="store_true", default=False,
+                        help="the JAX package's fast recipe, kept as an "
+                             "alias: lovasz_hist and the bf16 forward; "
+                             "explicit --loss / --bf16 flags win")
     parser.add_argument("--monitor", type=str, default=None,
                         help="val_miou (code default, __main__.py:241) or "
                              "val_f1 (README-described selection)")
@@ -71,13 +102,19 @@ def main(args: argparse.Namespace):
         if value is not None:
             setattr(config, field, value)
 
+    if args.backbone_ckpt is not None:
+        config.backbone_ckpt = args.backbone_ckpt
+    config.use_bfloat16 = args.bf16 or args.tpu_native_recipe
+    loss_name = args.loss or (
+        "lovasz_hist" if args.tpu_native_recipe else "lovasz")
+
     data_dir = args.data_dir or os.path.join(args.root_dir, "Images",
                                              "1024_with_jedi")
     exp = Experiment(data_dir, os.path.join(args.root_dir, "moar"),
                      config=config, model_name=args.model,
-                     loss_name=args.loss, monitor=args.monitor,
+                     loss_name=loss_name, monitor=args.monitor,
                      device=args.device)
-    exp.train()
+    exp.train(resume=args.resume)
     exp.test()
     if exp.ckpts.best_epoch is not None:
         exp.load_best()

@@ -49,8 +49,8 @@ IMG_EXTENSIONS = (
 class TrainConfig:
     """Training hyperparameters, defaults pinned to __main__.py:234-269.
 
-    The recipe trains in float32 (TF32 off on a card), with the dataset
-    resident on the device and a randomly initialized model."""
+    By default the recipe trains in float32 (TF32 off on a card), with the
+    dataset resident on the device and a randomly initialized model."""
 
     seed: int = 42
     lr: float = 5e-4
@@ -78,6 +78,28 @@ class TrainConfig:
     # Splits (utils.py:77-79)
     train_percent: float = 0.8
     valid_percent: float = 0.1
+    # The per-train-batch F1 skips the metric's connected-component
+    # postprocess by default (display only; validation and test F1 always
+    # run it); True gives the reference's exact batch logs.
+    train_f1_postprocess: bool = False
+    # Run the forward under bf16 autocast; parameters, Adam state, the
+    # loss and the metrics stay float32. The reference recipe trains in
+    # float32.
+    use_bfloat16: bool = False
+    # Keep the whole uint8 dataset on the device (steps take indices);
+    # False keeps it on the host and uploads each step's gathered batch,
+    # for a corpus larger than the card's memory.
+    device_resident_data: bool = True
+    # An ImageNet backbone to start from, the reference's pretrained=True
+    # (models.py:127-130 via __main__.py:231): a local torchvision
+    # ResNet-50/101 or efficientnet_pytorch state dict (.pt/.pth/.npz),
+    # bare or inside a segmentation checkpoint (models/convert.py).
+    backbone_ckpt: str | None = None
+
+
+# Inverse-frequency class weights of the weighted cross-entropy loss
+# (utils.py:73).
+CLASS_WEIGHTS = (0.4004, 2.0334, 93.1921)
 
 
 @dataclasses.dataclass

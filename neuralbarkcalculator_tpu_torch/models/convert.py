@@ -23,6 +23,13 @@ package's ``torch_state_dict_to_variables``):
   ``_bn0`` / ``_conv_head`` / ``_bn1``, and ``block{stage}_{i}`` ->
   ``model._blocks.{j}``, j the flat index of the variant's block table.
 
+An ImageNet backbone to start training from (``TrainConfig.backbone_ckpt``,
+the reference's pretrained=True) comes through ``load_backbone_checkpoint``
+(a local torchvision ResNet-50/101 or efficientnet_pytorch state dict, bare
+or inside a segmentation checkpoint, in ``.pt`` / ``.pth`` / ``.npz``) and
+``merge_backbone``, which checks every tensor's name and shape against the
+model's backbone before loading it.
+
 Loading flax ``.msgpack`` files or orbax directories is not part of this
 port yet: the machine with the card has neither jax nor flax.
 """
@@ -170,3 +177,63 @@ def load_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:
     if isinstance(state, Mapping) and "state_dict" in state:
         state = state["state_dict"]
     return {k: torch.as_tensor(v) for k, v in state.items()}
+
+
+# the ImageNet classifiers of a bare backbone checkpoint: torchvision's
+# ResNet ``fc``, efficientnet_pytorch's ``_fc`` (under the backbone's model)
+_IMAGENET_HEADS = ("fc.", "model._fc.")
+
+
+def load_backbone_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """A backbone state dict named as the port's ``model.backbone`` from a
+    local file (JAX ``load_backbone_checkpoint``): a torchvision ResNet
+    (``conv1.weight``, ``layer1.0.conv1.weight``, ...) or an
+    efficientnet_pytorch net (``_conv_stem.weight``, ``_blocks.0...``),
+    bare or as a full segmentation checkpoint (``backbone.*``, whose
+    classifier is left out), in ``.pt`` / ``.pth`` (possibly wrapped as
+    ``{'state_dict': ...}``) or ``.npz``. The ImageNet classifier is
+    dropped. On the CPU."""
+    if path.endswith(".npz"):
+        with np.load(path) as arrays:
+            state = {k: torch.from_numpy(arrays[k]) for k in arrays.files}
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(state, Mapping) and "state_dict" in state:
+            state = state["state_dict"]
+        state = {k: torch.as_tensor(v) for k, v in state.items()}
+    if any(k.startswith("backbone.") for k in state):
+        state = {k[len("backbone."):]: v for k, v in state.items()
+                 if k.startswith("backbone.")}
+    if any(k.startswith("_conv_stem.") for k in state):
+        # bare efficientnet_pytorch: the port wraps the net as .model
+        state = {f"model.{k}": v for k, v in state.items()}
+    return {k: v for k, v in state.items()
+            if not k.startswith(_IMAGENET_HEADS)}
+
+
+def merge_backbone(model: nn.Module, state: Mapping[str, torch.Tensor]
+                   ) -> None:
+    """Load ``state`` (``load_backbone_checkpoint``) into ``model.backbone``
+    in place, after checking that it holds every tensor of the backbone
+    and nothing else, each of the backbone's shape, as JAX
+    ``merge_backbone`` does: a ResNet-50 / -101 mix-up fails before
+    training. BatchNorm ``num_batches_tracked`` counters are neither
+    required nor checked."""
+    own = {k: v for k, v in model.backbone.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    given = {k: v for k, v in state.items()
+             if not k.endswith("num_batches_tracked")}
+    missing, unexpected = sorted(set(own) - set(given)), sorted(
+        set(given) - set(own))
+    if missing or unexpected:
+        raise ValueError(
+            f"backbone checkpoint does not match the model's backbone: "
+            f"{len(missing)} tensors missing ({missing[:3]}...), "
+            f"{len(unexpected)} unexpected ({unexpected[:3]}...)")
+    for k, v in own.items():
+        if tuple(given[k].shape) != tuple(v.shape):
+            raise ValueError(
+                f"backbone checkpoint shape mismatch at {k}: model "
+                f"{tuple(v.shape)} vs checkpoint {tuple(given[k].shape)}")
+    model.backbone.load_state_dict(
+        {k: v.to(own[k].dtype) for k, v in given.items()}, strict=False)

@@ -1,4 +1,4 @@
-"""EfficientNet-B0..B7 feature extractor (eval), in PyTorch.
+"""EfficientNet-B0..B7 feature extractor, in PyTorch.
 
 The reference's alternate backbones (models.py:86-110) wrap
 ``efficientnet_pytorch.EfficientNet.from_pretrained('efficientnet-b{n}')``
@@ -16,16 +16,21 @@ unchanged (its unused ImageNet ``_fc`` is dropped by models/convert.py).
   input's own size (efficientnet_pytorch's ``Conv2dStaticSamePadding``, and
   flax's ``"SAME"``). A stride-2 conv on an even size pads one row more at
   the bottom than at the top.
-- BatchNorm: eps 1e-3, torch momentum 0.01 (flax's 0.99). Activations are
-  swish (``F.silu``); squeeze-excite pools, reduces with bias, swish,
-  expands with bias, sigmoid.
+- BatchNorm: eps 1e-3, torch momentum 0.01 (flax's 0.99); in train mode
+  batch statistics, the running ones updated. Activations are swish
+  (``F.silu``); squeeze-excite pools, reduces with bias, swish, expands
+  with bias, sigmoid.
+- Stochastic depth in train mode, on the residual blocks only (stride 1,
+  in == out): each sample's branch is dropped with probability
+  ``DROP_CONNECT_RATE * j / blocks`` for block j (0.2, efficientnet_
+  pytorch's and the JAX package's), survivors rescaled by 1 / keep; the
+  draws come from the step's backbone generator (models/seeding.py).
 - ``folded``: BN folded into the producer convs (models/fold.py).
 
 Ragged batches are not supported: the stride-2 SAME padding depends on
 the true height's parity, so a zero-padded batch cannot reproduce each
 image's own conv phase; the predict engine runs these backbones at exact
-heights. Stochastic depth (drop-connect) belongs to training, which the
-port does not run for these backbones yet: train mode raises.
+heights.
 
 The tables are the JAX package's (neuralbarkcalculator_tpu/models/
 efficientnet.py), which mirror efficientnet_pytorch's params; the port
@@ -38,6 +43,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .seeding import BACKBONE_STREAM, drop_path, layer_generator
 
 # (width_mult, depth_mult) per variant b0..b7 (efficientnet_pytorch params)
 SCALING = [
@@ -57,6 +64,7 @@ EFFICIENTNET_INPLANES = [1280, 1280, 1408, 1536, 1792, 2048, 2304, 2560]
 BN_EPS = 1e-3  # efficientnet_pytorch's batch_norm_epsilon
 BN_MOMENTUM = 0.01  # torch's convention for flax's 0.99
 SE_RATIO = 0.25
+DROP_CONNECT_RATE = 0.2
 
 
 def round_filters(filters: int, width_mult: float, divisor: int = 8) -> int:
@@ -110,13 +118,16 @@ def _norm(channels: int, folded: bool) -> nn.Module:
 
 class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck with squeeze-excite
-    (efficientnet_pytorch's MBConvBlock), eval forward."""
+    (efficientnet_pytorch's MBConvBlock); ``drop_rate`` is its stochastic
+    depth in train mode."""
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: int,
-                 kernel: int, stride: int, folded: bool = False):
+                 kernel: int, stride: int, folded: bool = False,
+                 drop_rate: float = 0.0):
         super().__init__()
         mid = in_ch * expand_ratio
         self.skip = stride == 1 and in_ch == out_ch
+        self.drop_rate = drop_rate
         if expand_ratio != 1:
             self._expand_conv = nn.Conv2d(in_ch, mid, 1, bias=folded)
             self._bn0 = _norm(mid, folded)
@@ -131,7 +142,8 @@ class MBConvBlock(nn.Module):
         self._project_conv = nn.Conv2d(mid, out_ch, 1, bias=folded)
         self._bn2 = _norm(out_ch, folded)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h = x
         if self._expand_conv is not None:
             h = F.silu(self._bn0(self._expand_conv(h)))
@@ -141,13 +153,17 @@ class MBConvBlock(nn.Module):
         s = self._se_expand(F.silu(self._se_reduce(s)))
         h = h * torch.sigmoid(s)
         h = self._bn2(self._project_conv(h))
-        return h + x if self.skip else h
+        if not self.skip:
+            return h
+        if self.training and self.drop_rate > 0:
+            h = drop_path(h, self.drop_rate, generator)
+        return h + x
 
 
 class EfficientNetFeatures(nn.Module):
     """``extract_features``: stem -> MBConv blocks -> 1x1 head conv, each
     with BN and swish. NCHW in, NCHW [B, inplanes, ceil(H/32), ceil(W/32)]
-    out."""
+    out. ``generator`` draws the stochastic depth in train mode."""
 
     def __init__(self, variant: int = 0, folded: bool = False):
         super().__init__()
@@ -156,21 +172,24 @@ class EfficientNetFeatures(nn.Module):
         self._conv_stem = SameConv2d(3, in_ch, 3, stride=2, bias=folded)
         self._bn0 = _norm(in_ch, folded)
         blocks = []
-        for stage, i in block_table(variant):
+        table = block_table(variant)
+        for j, (stage, i) in enumerate(table):
             expand, ch, _, stride, kernel = BASE_BLOCKS[stage]
             out_ch = round_filters(ch, width_mult)
-            blocks.append(MBConvBlock(in_ch, out_ch, expand, kernel,
-                                      stride if i == 0 else 1, folded))
+            blocks.append(MBConvBlock(
+                in_ch, out_ch, expand, kernel, stride if i == 0 else 1,
+                folded, DROP_CONNECT_RATE * j / len(table)))
             in_ch = out_ch
         self._blocks = nn.ModuleList(blocks)
         self._conv_head = nn.Conv2d(in_ch, EFFICIENTNET_INPLANES[variant], 1,
                                     bias=folded)
         self._bn1 = _norm(EFFICIENTNET_INPLANES[variant], folded)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = F.silu(self._bn0(self._conv_stem(x)))
         for block in self._blocks:
-            x = block(x)
+            x = block(x, generator)
         return F.silu(self._bn1(self._conv_head(x)))
 
 
@@ -193,12 +212,19 @@ class EfficientNetBackbone(nn.Module):
         """The same backbone with BN folded (models/fold.py)."""
         return EfficientNetBackbone(self.variant, folded=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training the EfficientNet backbones (batch statistics, "
-                "stochastic depth) is not ported yet: ROADMAP Queue A item 6")
-        return self.model(x)
+    def forward(self, x: torch.Tensor, dropout_seed: int | None = None
+                ) -> torch.Tensor:
+        """In train mode ``dropout_seed`` (the step's) keys the stochastic
+        depth."""
+        generator = None
+        if self.training and any(b.drop_rate > 0 for b in self.model._blocks):
+            if dropout_seed is None:
+                raise ValueError("EfficientNet in train mode needs the "
+                                 "step's dropout_seed for its stochastic "
+                                 "depth")
+            generator = layer_generator(dropout_seed, BACKBONE_STREAM,
+                                        x.device)
+        return self.model(x, generator)
 
     def valid_feature_height(self, valid_h):
         raise NotImplementedError(

@@ -21,7 +21,10 @@ In train mode with ``dropout > 0``, the FCN head's ``classifier.3`` +
 ``classifier.4`` (dropout, then the 1x1 conv) run as one op,
 ``ops/fused_dropout_matmul``, on the 1x1 conv's own weight and bias; the
 step's ``dropout_seed`` keys its mask. Eval mode, and dropout 0, run the
-modules one by one. The DeepLab head has no train mode in the port yet.
+modules one by one. In train mode the DeepLab head's BatchNorms use batch
+statistics and update their running ones, and the ASPP's Dropout(0.5) is
+an inverted dropout drawn from the step's head generator
+(models/seeding.py).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 
 from ..ops.fused_dropout_matmul import fused_dropout_matmul
 from .resnet import BN_EPS, apply_row_mask
+from .seeding import HEAD_STREAM, inverted_dropout, layer_generator
 
 ASPP_RATES = (12, 24, 36)
 ASPP_CHANNELS = 256
@@ -75,6 +79,10 @@ class FCNHead(nn.Sequential):
                              "the step's dropout_seed")
         for layer in list(self)[:3]:
             x = layer(x)
+        # the kernel takes float32 only: under bf16 autocast the ReLU's
+        # output is bf16, and this is one extra copy of it (the JAX package
+        # runs this layer in bf16, models/heads.py:54-56)
+        x = x.float().contiguous()
         conv = self[4]
         w = conv.weight.view(conv.out_channels, conv.in_channels).t()
         return fused_dropout_matmul(x, w, conv.bias, dropout_seed,
@@ -97,6 +105,11 @@ class AtrousConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.dilation[0]
         b, c, h, w = x.shape
+        if d >= h and d >= w:
+            # every tap but the centre reads only padding (EfficientNet's
+            # 16 x 16 maps at crop 512, any map at rate 36 from 1024 rows /
+            # 32): a 1x1 conv of the centre tap, the same nonzero products
+            return F.conv2d(x, self.weight[:, :, 1:2, 1:2], self.bias)
         # pad by d, then up to a multiple of d: phase (r, s) takes the
         # padded rows r, r + d, ... and the columns s, s + d, ...
         ph, pw = -(-(h + 2 * d) // d) * d, -(-(w + 2 * d) // d) * d
@@ -161,17 +174,27 @@ class ASPP(nn.Module):
             nn.Conv2d(c * len(self.convs), c, 1, bias=folded),
             _norm(c, folded), nn.ReLU(), nn.Dropout(0.5))
 
-    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator`` draws the dropout's mask in train mode."""
         x = apply_row_mask(x, valid_h)  # the atrous branches mix rows
         branches = [conv(x) for conv in self.convs[:-1]]
         branches.append(self.convs[-1](x, valid_h))
-        return self.project(torch.cat(branches, dim=1))
+        y = torch.cat(branches, dim=1)
+        for layer in list(self.project)[:3]:
+            y = layer(y)
+        if not self.training:
+            return y
+        if generator is None:
+            raise ValueError("the ASPP in train mode needs the step's "
+                             "generator for its dropout")
+        return inverted_dropout(y, self.project[3].p, generator)
 
 
 class DeepLabHead(nn.Sequential):
     """torchvision's DeepLabHead: ASPP, 3x3 conv, BN, ReLU, 1x1 classifier
-    (with bias). Eval only in this port: train mode raises."""
+    (with bias). In train mode the step's ``dropout_seed`` keys the ASPP's
+    dropout."""
 
     def __init__(self, in_channels: int, channels: int,
                  folded: bool = False):
@@ -193,11 +216,13 @@ class DeepLabHead(nn.Sequential):
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 dropout_seed: int | None = None) -> torch.Tensor:
+        generator = None
         if self.training:
-            raise NotImplementedError(
-                "training the DeepLabV3 head (its ASPP dropout) is not ported "
-                "yet: ROADMAP Queue A item 6")
-        x = self[0](x, valid_h)
+            if dropout_seed is None:
+                raise ValueError("DeepLabHead in train mode needs the step's "
+                                 "dropout_seed")
+            generator = layer_generator(dropout_seed, HEAD_STREAM, x.device)
+        x = self[0](x, valid_h, generator)
         x = apply_row_mask(x, valid_h)
         for layer in list(self)[1:]:
             x = layer(x)

@@ -150,9 +150,11 @@ class DilatedResNet(nn.Module):
         return DilatedResNet(self.stage_sizes,
                              self.replace_stride_with_dilation, folded=True)
 
-    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
-                ) -> torch.Tensor:
-        """NCHW input (zero below valid_h) -> NCHW layer4 features."""
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
+                dropout_seed: int | None = None) -> torch.Tensor:
+        """NCHW input (zero below valid_h) -> NCHW layer4 features. The
+        ResNet has no random layer: ``dropout_seed`` is taken, as every
+        backbone takes it, and ignored."""
         x = F.relu(self.bn1(self.conv1(x)))
         h = None if valid_h is None else conv_out_size(valid_h, 7, 2, 3)
         # masked zeros equal max_pool2d's -inf padding here because the

@@ -51,14 +51,18 @@ class SegmentationModel(nn.Module):
                     dropout_seed: int | None = None) -> torch.Tensor:
         """NHWC images [B, H, W, 3] -> float32 head logits at the feature
         stride, NHWC [B, F, Wf, classes], without the upsample.
-        ``dropout_seed`` keys the head's dropout mask in train mode."""
+        ``dropout_seed`` keys every random layer in train mode: the head's
+        dropout and a backbone's stochastic depth (models/seeding.py)."""
         x = x.permute(0, 3, 1, 2)
         if self.training:
+            if self.backbone.folded or self.classifier.folded:
+                raise ValueError("a folded model is inference-only")
             # training runs contiguous NCHW, the reference's layout, so the
             # head's activations reach fused_dropout_matmul without a copy
             x = x.contiguous()
         if valid_h is None:
-            feat, feat_h = self.backbone(x), None
+            feat = self.backbone(x, dropout_seed=dropout_seed)
+            feat_h = None
         else:
             # raises for a backbone without ragged support
             feat_h = self.backbone.valid_feature_height(valid_h)
@@ -75,7 +79,9 @@ class SegmentationModel(nn.Module):
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 row_upsample: torch.Tensor | None = None,
                 dropout_seed: int | None = None) -> torch.Tensor:
-        """NHWC images -> NHWC float32 logits at the input resolution."""
+        """NHWC images -> NHWC float32 logits at the input resolution. The
+        upsample runs in float32 also under autocast (the loss and the
+        metrics take float32 logits)."""
         in_h, in_w = x.shape[1], x.shape[2]
         logits = self.head_logits(x, valid_h, dropout_seed)
         if row_upsample is None:
@@ -83,7 +89,8 @@ class SegmentationModel(nn.Module):
                 bicubic_resize_matrix(logits.shape[1], in_h).astype(
                     np.float32), device=x.device)
             row_upsample = rows.expand(x.shape[0], -1, -1)
-        return bicubic_upsample_ragged(logits, row_upsample, in_w)
+        with torch.autocast(x.device.type, enabled=False):
+            return bicubic_upsample_ragged(logits, row_upsample, in_w)
 
 
 def fcn_resnet50(dropout: float = 0.1, num_classes: int = NUM_CLASSES

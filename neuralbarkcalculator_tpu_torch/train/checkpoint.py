@@ -4,8 +4,10 @@ Replaces the Poutyne Experiment checkpoint machinery the reference
 delegates to (__main__.py:235-242): a checkpoint per epoch
 (``checkpoint_epoch_<n>.pt``: model and optimizer state dicts and the step
 count), monitor-metric bookkeeping in ``experiment_log.json`` (val_miou,
-mode max), ``load_checkpoint(n)`` / best restore, and ``best_model.pt``, a
-plain torchvision-named state dict that the port's predict CLI loads.
+mode max; every epoch's metrics and lr, which a resumed run replays
+through its plateau and early-stop controllers), ``load_checkpoint(n)`` /
+best restore, and ``best_model.pt``, a plain torchvision-named state dict
+that the port's predict CLI loads.
 """
 from __future__ import annotations
 
@@ -90,6 +92,12 @@ class ExperimentCheckpoints:
     @property
     def best_epoch(self) -> int | None:
         return self.log.get("best_epoch")
+
+    @property
+    def last_epoch(self) -> int:
+        """The last epoch logged (0 for none): where a resumed run
+        continues from."""
+        return max((e["epoch"] for e in self.log["epochs"]), default=0)
 
     def export_best_model(self, model: torch.nn.Module) -> str:
         """Write ``best_model.pt``, the model's state dict on the CPU: the

@@ -95,8 +95,9 @@ def render_eval_image(input_img, target, preds, fname, wood_type, split,
 def evaluation_report(experiment, root_dir: str, dpi: int = 200,
                       workers: int = 8) -> str:
     """Render the report over all splits with the experiment's current
-    weights, from its device-resident (pad_resized) dataset: forwards of
-    8 images in eval mode, metrics per image, figures on a thread pool.
+    weights, from its (pad_resized) dataset: forwards of 8 images in eval
+    mode (under bf16 autocast when the experiment trains so), metrics per
+    image, figures on a thread pool.
     Returns the CSV's path."""
     batch = 8
     results_dir = generate_output_folders(root_dir)
@@ -112,18 +113,20 @@ def evaluation_report(experiment, root_dir: str, dpi: int = 200,
     with ThreadPoolExecutor(max_workers=workers) as pool:
         futures = []
         for start in range(0, n, batch):
-            idx = torch.arange(start, min(n, start + batch),
-                               device=experiment.device)
-            with torch.no_grad():
-                x = ((experiment.images[idx].float() / 255.0
+            rows = np.arange(start, min(n, start + batch))
+            images, labels, idx = experiment.batch_inputs(rows)
+            with torch.no_grad(), torch.autocast(
+                    experiment.device.type, dtype=torch.bfloat16,
+                    enabled=experiment.config.use_bfloat16):
+                x = ((images[idx].float() / 255.0
                       - experiment._mean) / experiment._std)
                 logits = model(x)
-            for k, i in enumerate(idx.tolist()):
-                target = experiment.labels[i].long()
+            for k, i in enumerate(rows.tolist()):
+                target = labels[idx[k]].long()
                 m = eval_image_metrics(logits[k], target)
                 futures.append(pool.submit(
                     render_eval_image,
-                    experiment.images[i].cpu().numpy(),
+                    images[idx[k]].cpu().numpy(),
                     target.to(torch.int32).cpu().numpy(), m["preds"],
                     experiment.fnames[i], experiment.wood_types[i],
                     split_of[i], m["iou"], m["f1"], results_dir, dpi))

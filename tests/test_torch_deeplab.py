@@ -240,7 +240,20 @@ def test_deeplab_has_torchvision_names():
 
 
 def test_deeplab_train_mode_raises(tiny):
-    _, model = tiny
-    with pytest.raises(NotImplementedError, match="item 6"):
-        model.train().head_logits(torch.zeros(1, 32, 32, 3))
-    model.eval()
+    """Train mode runs with the step's seed (tests/test_torch_train_zoo.py
+    holds it against JAX); it raises without the seed, and for a folded
+    (inference-only) model, as JAX's folded heads do."""
+    import copy
+
+    from neuralbarkcalculator_tpu_torch.models.fold import fold_model
+
+    model = copy.deepcopy(tiny[1]).train()
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 32, 32, 3)).astype(np.float32))
+    with pytest.raises(ValueError, match="dropout_seed"):
+        model.head_logits(x)
+    out = model.head_logits(x, dropout_seed=5)
+    assert out.shape == (2, 4, 4, 3) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="inference-only"):
+        fold_model(copy.deepcopy(tiny[1])).train().head_logits(
+            x, dropout_seed=5)

@@ -141,9 +141,17 @@ def test_same_padding_matches_flax():
 
 
 def test_train_mode_and_ragged_raise(b0):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        b0.train().head_logits(torch.zeros(1, 32, 32, 3))
-    b0.eval()
+    """Train mode needs the step's seed (its stochastic depth) and an
+    unfolded model; ragged batches raise."""
+    import copy
+
+    from neuralbarkcalculator_tpu_torch.models.fold import fold_model
+
+    with pytest.raises(ValueError, match="dropout_seed"):
+        copy.deepcopy(b0).train().head_logits(torch.zeros(2, 32, 32, 3))
+    with pytest.raises(ValueError, match="inference-only"):
+        fold_model(b0).train().head_logits(torch.zeros(2, 32, 32, 3),
+                                           dropout_seed=1)
     with pytest.raises(NotImplementedError, match="ResNet"):
         b0.head_logits(torch.zeros(1, 32, 32, 3),
                        valid_h=torch.tensor([32]))

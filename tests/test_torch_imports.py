@@ -47,7 +47,7 @@ def test_port_imports_no_jax():
                  "train.evaluate", "cli.train", "ops.resize", "ops.trim",
                  "pipeline.preprocess", "pipeline.serving", "cli.serve",
                  "models.efficientnet", "models.heads", "models.resnet",
-                 "models.fold", "models.segmentation"):
+                 "models.fold", "models.segmentation", "models.seeding"):
         assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
 
 
@@ -77,11 +77,11 @@ def test_constants_mirror_jax_config():
     assert tc.PredictConfig().effnet_bucket_heights is False
     assert "effnet_bucket_heights" in {
         f.name for f in dataclasses.fields(jc.PredictConfig)}
-    # the training settings this slice does not read (ROADMAP Queue A10)
+    # every training setting of the JAX package is ported
     dropped = {f.name for f in dataclasses.fields(jc.TrainConfig)} - {
         f.name for f in dataclasses.fields(tc.TrainConfig)}
-    assert dropped == {"use_bfloat16", "device_resident_data",
-                       "backbone_ckpt", "train_f1_postprocess"}
+    assert dropped == set()
+    assert tc.CLASS_WEIGHTS == jc.CLASS_WEIGHTS
 
 
 def test_engine_without_device_needs_a_card(tmp_path):

@@ -1,12 +1,12 @@
 """PyTorch port: the whole model zoo through folding, the CLIs, serving and
-the training refusal.
+what training refuses.
 
 - Folding: every factory's folded twin gives its unfolded logits within
   1e-5 of the largest |logit| (float64 fold, float32 forward), with
   EfficientNet's BN eps 1e-3 and the heads' 1e-5.
 - ``cli/predict --model deeplabv3_resnet50`` and a served exact-height
-  model run on the CPU; ``cli/train`` and ``Experiment`` refuse every name
-  but fcn_resnet50 with NotImplementedError before touching the data.
+  model run on the CPU; what ``cli/train`` and ``Experiment`` still refuse
+  for the zoo's models, before touching the data.
 """
 import os
 import subprocess
@@ -169,14 +169,26 @@ def test_served_exact_height_model(tmp_path):
 @pytest.mark.parametrize("name", ["deeplabv3_resnet50", "fcn_resnet101",
                                   "fcn_efficientnet_b0"])
 def test_training_refuses_other_zoo_models(name, tmp_path):
+    """Training takes every zoo model now (tests/test_torch_train_zoo.py
+    trains each); what it still refuses for them: a bare EfficientNet name
+    without its variant, an unknown sampler, and --mpl, before touching
+    the data."""
     from neuralbarkcalculator_tpu_torch.cli.train import build_parser
-    from neuralbarkcalculator_tpu_torch.cli.train import main as train_main
-    from neuralbarkcalculator_tpu_torch.train.loop import Experiment
+    from neuralbarkcalculator_tpu_torch.train.loop import (Experiment,
+                                                           build_model)
 
-    with pytest.raises(NotImplementedError, match="item 6"):
+    model = build_model(name, 0.8, seed=0)
+    assert model.classifier.__class__.__name__ == (
+        "DeepLabHead" if name.startswith("deeplab") else "FCNHead")
+    with pytest.raises(ValueError, match="sampler"):
         Experiment(str(tmp_path), str(tmp_path / "moar"), model_name=name,
-                   device="cpu")
-    args = build_parser().parse_args([str(tmp_path), "--device", "cpu",
-                                      "--model", name])
-    with pytest.raises(NotImplementedError, match="fcn_resnet50"):
-        train_main(args)
+                   sampler="uniform", device="cpu")
+    bare = name.rsplit("_b", 1)[0] if "efficientnet" in name else None
+    if bare:
+        with pytest.raises(ValueError, match="variant"):
+            Experiment(str(tmp_path), str(tmp_path / "moar"),
+                       model_name=bare, device="cpu")
+    with pytest.raises(SystemExit):
+        build_parser().parse_args([str(tmp_path), "--device", "cpu",
+                                   "--model", name, "--mpl"])
+    assert not (tmp_path / "moar").exists()

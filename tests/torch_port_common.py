@@ -311,6 +311,27 @@ def write_processed(root: str, items) -> None:
         save_image_u8(os.path.join(d, it.fname), it.image)
 
 
+def write_train_root(root) -> str:
+    """A training dataset in the reference layout under ``root``: 10
+    images per wood type, 64x64, with duals (0/127/255), so the 80/10/10
+    split gives 24/3/3."""
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+    for wood_type in ("epinette_gelee", "epinette_non_gelee", "sapin"):
+        for sub in ("samples", "duals"):
+            (root / sub / wood_type).mkdir(parents=True)
+        for i in range(10):
+            img = (rng.random((64, 64, 3)) * 200 + 30).astype(np.uint8)
+            Image.fromarray(img).save(root / "samples" / wood_type /
+                                      f"img{i}.bmp")
+            dual = rng.choice([0, 127, 255], size=(64, 64),
+                              p=[0.6, 0.35, 0.05]).astype(np.uint8)
+            Image.fromarray(dual, mode="L").save(root / "duals" / wood_type /
+                                                 f"img{i}.png")
+    return str(root)
+
+
 def count_leaves(tree) -> int:
     if isinstance(tree, dict):
         return sum(count_leaves(v) for v in tree.values())
