@@ -84,8 +84,23 @@ float32 engine >= 99.9 % of pixels, the bf16 step within the logit bound);
 the DeepLab head's atrous convs timed against cuDNN's dilated conv; a
 bucketed-height fcn_efficientnet_b0 pass (at most one launch shape per
 bucket and ladder batch); and one served request each for
-deeplabv3_resnet50 and fcn_efficientnet_b0. Every phase prints its wall
-time.
+deeplabv3_resnet50 and fcn_efficientnet_b0.
+
+The int8 phase runs after the zoo phase: fcn_resnet50 (phase 3's
+checkpoint) and deeplabv3_resnet50 (the zoo phase's) through the folder
+engine with quantize_int8 (bf16 stem, batch 8) over the phase 3 folder:
+the first pass calibrates lazily on the first chunk (its ms printed), a
+warm pass gives images/s with upsample_argmax launched; the int8 class
+maps against the bf16 and float32 engines' (> 0.5, the JAX package's floor
+on random weights); the int8 device step alone against bf16's, in turns,
+with their peak memory, and a profiled int8 step split by kernel group
+(int8 GEMM, im2col concat, elementwise epilogues); from one post-stem int8
+tensor the int8 blocks and head on the card against the CPU, bit for bit
+(the DeepLab pooled branch within 1 LSB); the calibrated model saved and
+loaded by a new engine, maps bit for bit; one request through a --int8
+server; and for fcn_resnet50 cli/quantize_checkpoint -> cli/predict.main
+on the .int8.pt against a lazy engine calibrated on the same image. Every
+phase prints its wall time.
 
 Every path runs with all launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON line, the card's name and
@@ -161,8 +176,10 @@ FDM_ODD_RATES = (0.0, 0.8)
 FDM_TIMING_ROUNDS = 3
 # Idle time at each end of a device_times window: one run's middle round
 # read the forward 11 % low and the backward 6 % high beside two steady
-# rounds, as events crossing windows would.
-DEVICE_TIMES_MARGIN_S = 0.005
+# rounds, as events crossing windows would; at 5 ms a run failed three
+# sessions in a row, a kernel of the next function's warm-up counted in
+# the window before it.
+DEVICE_TIMES_MARGIN_S = 0.02
 # The training phase's synthetic dataset: 10 images per wood type (so the
 # 80/10/10 split gives 24/3/3), 1024x1024; a samples factor of 2 gives
 # 24 * 2 // 5 = 9 train steps.
@@ -233,6 +250,24 @@ STRIDE32_CASES = ((896, 1024), (960, 1024), (1024, 1024), (960, 1000))
 STRIDE32_TIMED = (1024, 1024)
 # The serving phase: batch, the first request's wait, and the concurrent
 # traffic (tools/serving_bench.py's shape: clients x requests each).
+# The int8 phase: each model through the folder engine with lazy int8
+# calibration (bf16 stem), its class maps against the bf16 and float32
+# engines' at the JAX package's floor for random weights (near-tie logits
+# everywhere, tests/test_quantize.py), the offline export path on the
+# first INT8_CLI_IMAGES folder images at batch 1.
+INT8_MODELS = ("fcn_resnet50", "deeplabv3_resnet50")
+INT8_AGREE_FLOOR = 0.5
+INT8_CLI_IMAGES = 4
+INT8_STEP_GROUPS = (
+    ("upsample_argmax", ("upsample_argmax",)),
+    ("stem conv", ("fprop", "implicit", "conv", "cudnn")),
+    ("im2col concat", ("catarraybatchedcopy",)),
+    ("int8 GEMM", ("gemm", "xmma", "cutlass", "imma", "s8", "i8", "sm90")),
+    ("elementwise (epilogues, masks, casts, copies)",
+     ("elementwise", "vectorized", "unrolled")),
+    ("reduction (pool, sums)", ("reduce", "pool")),
+)
+
 SERVE_BATCH = 8
 SERVE_WAIT_MS = 25
 SERVE_CLIENTS = 8
@@ -296,7 +331,7 @@ def event_device_us(e) -> float:
 
 
 def device_times(torch, fns, expect=None, warmup: int = 3, reps: int = 20,
-                 attempts: int = 3
+                 attempts: int = 5
                  ) -> tuple[list[dict[str, float]], list[dict[str, int]]]:
     """The device time per call of each of `fns`, by kernel label, from one
     torch.profiler session: each fn's `reps` calls, after `warmup` calls of
@@ -2636,6 +2671,314 @@ def phase_zoo_serving(torch, root: str, zoo: dict, card: str) -> None:
         del srv, calc
 
 
+def int8_step_profile(torch, engine, label: str) -> dict:
+    """The int8 engine's device step on BATCH random 1024 x 1024 images
+    under torch.profiler: device ms by kernel group (INT8_STEP_GROUPS:
+    cuBLAS's int8 GEMMs, the im2col / concat / pad copies, the float32
+    epilogues and masks as elementwise kernels, the stem conv,
+    upsample_argmax) and the largest kernels."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
+        ProcessedImage)
+
+    img = np.random.default_rng(0).integers(0, 256, (PAD_H, WIDTH, 3),
+                                            np.uint8)
+    batch, valid_h, rows = step_inputs(
+        torch, engine, [ProcessedImage(img, "step", "int8")] * BATCH)
+    with torch.inference_mode():
+        engine._device_step(batch, valid_h, rows, pack=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine._device_step(batch, valid_h, rows, pack=True)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(event_device_us(e) for e in events) / 1e3
+    if busy == 0:
+        log(f"{label} profile: the profiler recorded no device time (not "
+            f"measured)")
+        return {}
+    groups: dict[str, float] = {}
+    for e in events:
+        name = e.key.lower()
+        group = next((g for g, keys in INT8_STEP_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + event_device_us(e) / 1e3
+    log(f"{label} profile: one device step, busy {busy:.3f} ms in "
+        f"{wall_ms:.3f} ms wall, {sum(e.count for e in events)} device "
+        f"events")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"{label} profile: {group:26s} {ms:9.3f} ms ({ms / busy:.4f})")
+    for e in sorted(events, key=event_device_us, reverse=True)[:12]:
+        log(f"{label} profile: {event_device_us(e) / 1e3:9.3f} ms "
+            f"{e.count:5d}x {e.key[:110]}")
+    return groups
+
+
+def int8_card_vs_cpu(torch, engine, item, label: str) -> None:
+    """From one post-stem int8 tensor of `item` (a 1024-wide image, made on
+    the card), the int8 blocks and head on the card against a CPU copy of
+    the same model: the features and the FCN logits bit for bit (integer
+    sums are exact, the epilogues separate float32 operations). The
+    DeepLab pooled branch's float32 product [1, 2048] x [2048, 256] may sum
+    in another order: its int8 result may move by 1 LSB, and with the
+    card's pooled branch given to the CPU the logits must be equal."""
+    import copy
+
+    qm = engine.model
+    cpu = copy.deepcopy(qm).cpu()
+    x = torch.from_numpy(item.image).to(engine.device)[None]
+    with torch.inference_mode():
+        x_q = qm.backbone.stem(engine._normalize(x, None).to(engine.dtype))
+        feat = qm.backbone.blocks(x_q)
+        logits = qm.classifier(feat)
+        t0 = time.perf_counter()
+        feat_c = cpu.backbone.blocks(x_q.cpu())
+        note = ""
+        if hasattr(cpu.classifier, "aspp"):
+            pooled = qm.classifier.aspp.pooled(feat)
+            pooled_c = cpu.classifier.aspp.pooled(feat_c)
+            lsb = int((pooled.cpu().int() - pooled_c.int()).abs().max())
+            note = f"; pooled branch max |diff| {lsb} LSB"
+            if lsb > 1:
+                raise AssertionError(f"{label}: the pooled branch differs "
+                                     f"by {lsb} LSB on the CPU")
+            cpu.classifier.aspp.pooled = lambda *a: pooled.cpu()
+        logits_c = cpu.classifier(feat_c)
+        cpu_s = time.perf_counter() - t0
+    same_feat = torch.equal(feat.cpu(), feat_c)
+    same = torch.equal(logits.cpu(), logits_c)
+    log(f"{label} card vs CPU from one post-stem int8 tensor "
+        f"{tuple(x_q.shape)} ({item.fname}): features equal {same_feat}, "
+        f"logits equal {same} (max |diff| "
+        f"{float((logits.cpu() - logits_c).abs().max()):.3g}){note}; the "
+        f"CPU's blocks and head took {cpu_s:.3f} s")
+    if not (same_feat and same):
+        raise AssertionError(f"{label}: int8 card and CPU differ")
+
+
+def int8_cli(torch, workdir: str, root: str, ckpt: str, name: str) -> None:
+    """The offline path: cli/quantize_checkpoint --n 1 over a folder of
+    the first INT8_CLI_IMAGES processed images (it calibrates on img00,
+    alone), then cli/predict.main on the .int8.pt at batch 1, against a
+    lazy engine at batch 1 (its first chunk is img00 alone, 896 rows, on
+    the 128-row bucket, so its calibration batch is unpadded too): the
+    same calibration, so the dual masks must equal the lazy maps.""" 
+    import shutil
+
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.cli import predict as cli_predict
+    from neuralbarkcalculator_tpu_torch.cli import quantize_checkpoint
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    cli_root = os.path.join(workdir, f"int8_cli_{name}")
+    src = os.path.join(root, "processed", "samples", "sapin")
+    dst = os.path.join(cli_root, "processed", "samples", "sapin")
+    os.makedirs(dst)
+    os.makedirs(os.path.join(cli_root, "samples", "sapin"))
+    items = folder_items(root, range(INT8_CLI_IMAGES))
+    for it in items:
+        shutil.copy(os.path.join(src, it.fname), dst)
+    lazy = NeuralBarkCalculator(
+        ckpt, model_name=name, device="cuda", config=PredictConfig(
+            model_path=ckpt, batch_size=1, quantize_int8=True))
+    want = {it.fname: m for it, m in lazy.predict_images(items)}
+    del lazy
+    t0 = time.perf_counter()
+    out = quantize_checkpoint.main(quantize_checkpoint.build_parser(
+        ).parse_args([os.path.join(cli_root, "processed"), "--model_path",
+                      ckpt, "--model", name, "--n", "1", "--out",
+                      os.path.join(workdir, f"{name}.cli.int8.pt")]))
+    export_s = time.perf_counter() - t0
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    cli_predict.main(cli_predict.build_parser().parse_args(
+        [cli_root, "--model_path", out, "--model", name, "--resume",
+         "--batch_size", "1", "--dpi", str(DPI)]))
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    launches = counters["upsample_argmax"].count
+    equal = 0
+    for it in items:
+        dual = load_image_u8(os.path.join(cli_root, "results", "outputs",
+                                          "sapin", it.fname), grayscale=True)
+        equal += int(np.array_equal(
+            dual, np.choose(want[it.fname], [0, 127, 255]).astype(np.uint8)))
+    log(f"int8 {name} offline path: cli/quantize_checkpoint --n 1 "
+        f"{export_s:.3f} s ({os.path.getsize(out) / 1e6:.1f} MB), "
+        f"cli/predict.main on it at batch 1 {predict_s:.3f} s, "
+        f"{launches} upsample_argmax launches; {equal} of {len(items)} "
+        f"dual masks equal the lazy engine's maps")
+    if equal != len(items) or launches == 0:
+        raise AssertionError(f"int8 {name}: the offline path's maps differ "
+                             f"from the lazy run's, or no launch")
+
+
+def phase_int8(torch, workdir: str, root: str, ckpts: dict,
+               card: str) -> dict:
+    """int8 inference on the card, for each of INT8_MODELS (full width and
+    depth, the random_checkpoint weights of phase 3 and the zoo phase):
+    the folder engine with quantize_int8 (bf16 stem, batch 8) over phase
+    3's 16 images, its first pass calibrating lazily on the first chunk
+    (the calibration's ms), then a warm pass (images/s) with every launch
+    count set to 0 just before it and read just after; class-map agreement
+    with the bf16 and float32 engines; the int8 device step alone against
+    bf16's, in turns, with their peak memory; a profiled int8 step by
+    kernel group; the card against the CPU from one post-stem int8 tensor
+    (int8_card_vs_cpu); the calibrated model saved with save_quantized and
+    loaded by a new engine: maps bit for bit; and one request through a
+    --int8 server. For fcn_resnet50 also the cli/quantize_checkpoint ->
+    cli/predict path (int8_cli). Returns each model's numbers."""
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.models.quantize import save_quantized
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        QuantizedSegmentationModel)
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+    from neuralbarkcalculator_tpu_torch.utils import profiling
+
+    items = folder_items(root, range(N_IMAGES))
+    out: dict = {}
+    for name in INT8_MODELS:
+        t0 = time.perf_counter()
+        ckpt = ckpts[name]
+        label = f"int8 {name}"
+
+        def engine(path=ckpt, **config):
+            return NeuralBarkCalculator(
+                path, model_name=name, device="cuda", config=PredictConfig(
+                    model_path=path, figure_dpi=DPI, **config))
+
+        int8 = engine(quantize_int8=True)
+        profiling.report(reset=True)
+        counters = reset_counters()
+        t1 = time.perf_counter()
+        int8.predict(root, progress=False)  # calibrates on the first chunk
+        first_s = time.perf_counter() - t1
+        first_launches = counters["upsample_argmax"].count
+        calib_ms = profiling.report(reset=True)[
+            "predict/quantize_calibration"]["total_s"] * 1e3
+        if not isinstance(int8.model, QuantizedSegmentationModel) \
+                or first_launches == 0:
+            raise AssertionError(f"{label}: model {type(int8.model)}, "
+                                 f"{first_launches} launches")
+        counters = reset_counters()
+        t1 = time.perf_counter()
+        csv = int8.predict(root, progress=False)
+        seconds = time.perf_counter() - t1
+        counts = {k: c.count for k, c in counters.items()}
+        with open(csv) as f:
+            rows = len(f.read().splitlines()) - 1
+        if rows != N_IMAGES or counts["upsample_argmax"] == 0 \
+                or counts["fused_dropout_matmul_fwd"] \
+                or counts["fused_dropout_matmul_bwd"]:
+            raise AssertionError(f"{label}: {rows} CSV rows, launches "
+                                 f"{counts}")
+        log(f"{label}: {N_IMAGES} images (heights {FOLDER_HEIGHTS}, width "
+            f"{WIDTH}, batch {int8.config.batch_size}, bf16 stem) first "
+            f"pass {first_s:.3f} s with the lazy calibration "
+            f"{calib_ms:.3f} ms and {first_launches} upsample_argmax "
+            f"launches; warm pass {seconds:.3f} s = "
+            f"{N_IMAGES / seconds:.3f} images/s, launches {counts}")
+
+        maps = {it.fname: m for it, m in int8.predict_images(items)}
+        total = sum(m.size for m in maps.values())
+        bf16 = engine()
+        agree = {}
+        for kind, eng in (("bf16", bf16),
+                          ("float32", engine(use_bfloat16=False))):
+            got = {it.fname: m for it, m in eng.predict_images(items)}
+            agree[kind] = sum(int((got[k] == maps[k]).sum())
+                              for k in maps) / total
+        log(f"{label}: class-map agreement with the bf16 engine "
+            f"{agree['bf16']:.6f}, with the float32 engine "
+            f"{agree['float32']:.6f} over {N_IMAGES} images (random "
+            f"weights; floor {INT8_AGREE_FLOOR})")
+        if min(agree.values()) <= INT8_AGREE_FLOOR:
+            raise AssertionError(f"{label}: agreement {agree}")
+
+        steps: dict[str, list[float]] = {"int8": [], "bf16": []}
+        peaks: dict[str, float] = {}
+        for kind in ("int8", "bf16", "bf16", "int8"):
+            eng = int8 if kind == "int8" else bf16
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps[kind].append(zoo_step_ms(torch, eng))
+            peaks[kind] = max(peaks.get(kind, 0.0),
+                              torch.cuda.max_memory_allocated() / 2 ** 30)
+        int8_ms = statistics.median(steps["int8"])
+        bf16_ms = statistics.median(steps["bf16"])
+        log(f"{label}: device step alone per batch of {BATCH} at {PAD_H}x"
+            f"{WIDTH} (int8, bf16, bf16, int8): int8 "
+            f"{', '.join(f'{v:.3f}' for v in steps['int8'])} ms, bf16 "
+            f"{', '.join(f'{v:.3f}' for v in steps['bf16'])} ms; int8 / "
+            f"bf16 {int8_ms / bf16_ms:.3f}; peak memory int8 "
+            f"{peaks['int8']:.3f} GiB, bf16 {peaks['bf16']:.3f} GiB")
+        del bf16
+        torch.cuda.empty_cache()
+        groups = int8_step_profile(torch, int8, label)
+        int8_card_vs_cpu(torch, int8, items[0], label)
+
+        qpath = os.path.join(workdir, f"{name}.int8.pt")
+        save_quantized(qpath, int8.model, name)
+        offline = engine(qpath)
+        got = {it.fname: m for it, m in offline.predict_images(items)}
+        same = sum(int((got[k] == maps[k]).all()) for k in maps)
+        log(f"{label}: save_quantized -> {os.path.getsize(qpath) / 1e6:.1f} "
+            f"MB; a new engine on it equals the lazy maps on {same} of "
+            f"{N_IMAGES} images")
+        if same != N_IMAGES:
+            raise AssertionError(f"{label}: the offline export's maps "
+                                 f"differ")
+        del offline
+
+        srv, thread, warm_s = start_server(torch, ckpt, "--model", name,
+                                           "--int8")
+        try:
+            with open(os.path.join(root, "processed", "samples", "sapin",
+                                   items[0].fname), "rb") as f:
+                body = f.read()
+            counters = reset_counters()
+            status, _, data, dt = http_call(srv.server_address[1], "POST",
+                                            "/v1/predict", body)
+            answer = check_answer(f"{label} request", status, data)
+            launches = counters["upsample_argmax"].count
+            served_int8 = isinstance(srv.state.predictor.calc.model,
+                                     QuantizedSegmentationModel)
+        finally:
+            stop_server(srv, thread)
+        log(f"{label} --int8 server ({card}): warm-up with the calibration "
+            f"{warm_s:.3f} s, one request in {dt * 1e3:.3f} ms, class "
+            f"pixels {answer['class_pixels']}, {launches} upsample_argmax "
+            f"launches, int8 model {served_int8}")
+        if not served_int8 or launches == 0 or answer["width"] != WIDTH:
+            raise AssertionError(f"{label} server: answer {answer}, "
+                                 f"{launches} launches")
+        if name == "fcn_resnet50":
+            del int8
+            torch.cuda.empty_cache()
+            int8_cli(torch, workdir, root, ckpt, name)
+        out[name] = {"images_per_s": N_IMAGES / seconds,
+                     "launches": counts["upsample_argmax"],
+                     "step_ms": int8_ms, "bf16_step_ms": bf16_ms,
+                     "calibration_ms": calib_ms, "agreement": agree,
+                     "groups": groups}
+        torch.cuda.empty_cache()
+        log(f"{label}: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2687,6 +3030,12 @@ def main() -> int:
         zoo = timed("zoo", phase_zoo, torch, args.seed, workdir, main_root)
         kernel["zoo_launches"] = {name: zoo[name]["launches"] for name in ZOO}
         timed("zoo serving", phase_zoo_serving, torch, main_root, zoo, card)
+        int8 = timed("int8", phase_int8, torch, workdir, main_root,
+                     {"fcn_resnet50": ckpt,
+                      "deeplabv3_resnet50": zoo["deeplabv3_resnet50"]["ckpt"]},
+                     card)
+        kernel["int8_launches"] = {name: int8[name]["launches"]
+                                   for name in INT8_MODELS}
         train = timed("train", phase_train, torch, args.seed, workdir)
         zoo_train_runs = timed("zoo train", phase_zoo_train, torch,
                                args.seed, workdir)

@@ -3,7 +3,7 @@ parity).
 
 Usage: ``python -m neuralbarkcalculator_tpu_torch.cli.predict ROOT_DIR
 [--device {cuda,cpu}] [--exclude_nodes] [--only_preprocess] [--resume]
-[--preprocess_backend {auto,device,host}] [--watch SECS]``
+[--preprocess_backend {auto,device,host}] [--watch SECS] [--int8]``
 
 Runs on the card by default (``--device cuda``) and raises when there is
 none; ``--device cpu`` runs the same path on the CPU. It creates the
@@ -11,7 +11,9 @@ output folders, preprocesses ROOT/samples (on the device or the host) and
 predicts, streaming (preprocess overlapped with prediction) or
 sequentially. ``--resume`` skips images already processed and predicted;
 ``--watch SECS`` rescans ROOT every SECS seconds and handles only new
-images, until interrupted.
+images, until interrupted. ``--int8`` quantizes the model on the first
+batch (models/quantize.py); an offline int8 checkpoint as
+``--model_path`` runs int8 without it.
 """
 from __future__ import annotations
 
@@ -34,7 +36,9 @@ def build_parser() -> argparse.ArgumentParser:
                         default=False)
     parser.add_argument("--model_path", type=str, default="./best_model.pt",
                         help="reference best_model.pt (torchvision-named "
-                             "state dict; reference predict.py:57)")
+                             "state dict; reference predict.py:57), or an "
+                             "offline int8 checkpoint (*.int8.pt, "
+                             "cli/quantize_checkpoint)")
     parser.add_argument("--model", type=str, default="fcn_resnet50",
                         choices=sorted(MODEL_FACTORIES),
                         help="model zoo entry (fcn_resnet50 is the "
@@ -48,6 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--float32", action="store_true", default=False,
                         help="run the conv stack in float32 (TF32 off) "
                              "instead of bfloat16")
+    parser.add_argument("--int8", action="store_true", default=False,
+                        help="int8 inference: post-training quantization "
+                             "calibrated on the first batch "
+                             "(models/quantize.py); approximate, ResNet "
+                             "models only")
     parser.add_argument("--profile", action="store_true", default=False,
                         help="print per-stage wall-time report at the end")
     parser.add_argument("--pipeline", type=str, default="streaming",
@@ -88,6 +97,8 @@ def main(args: argparse.Namespace) -> None:
         config.figure_dpi = args.dpi
     if args.float32:
         config.use_bfloat16 = False
+    if args.int8:
+        config.quantize_int8 = True
 
     model = None
 

@@ -6,7 +6,7 @@ Usage::
     python -m neuralbarkcalculator_tpu_torch.cli.serve MODEL.pt \
         [--device cuda|cpu] [--host 127.0.0.1] [--port 8642] \
         [--batch_size N] [--max_wait_ms MS] [--model fcn_resnet50] \
-        [--fixed_height 1024] [--float32] [--no_warmup]
+        [--fixed_height 1024] [--float32] [--int8] [--no_warmup]
 
 Runs on the card by default (``--device cuda``) and raises when there is
 none; ``--device cpu`` serves from the CPU.
@@ -68,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="bark calculator inference server (PyTorch / CUDA)")
     parser.add_argument("model_path", type=str,
                         help="reference best_model.pt (torchvision-named "
-                             "state dict)")
+                             "state dict), or an offline int8 checkpoint "
+                             "(*.int8.pt, cli/quantize_checkpoint)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="serve from the CUDA card (default; fails "
@@ -90,6 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--float32", action="store_true", default=False,
                         help="run the conv stack in float32 (TF32 off) "
                              "instead of bfloat16")
+    parser.add_argument("--int8", action="store_true", default=False,
+                        help="int8 inference (post-training quantization "
+                             "calibrated on the warm-up batch, or the first "
+                             "request's with --no_warmup); approximate, "
+                             "ResNet models only")
     parser.add_argument("--no_warmup", action="store_true", default=False,
                         help="skip running the canonical 1024x1024 launch "
                              "shapes at startup")
@@ -283,6 +289,8 @@ def make_server(args: argparse.Namespace) -> ThreadingHTTPServer:
         config.batch_size = args.batch_size
     if args.float32:
         config.use_bfloat16 = False
+    if args.int8:
+        config.quantize_int8 = True
     if args.fixed_height:
         config.fixed_pad_height = args.fixed_height
     calc = NeuralBarkCalculator(args.model_path, config=config,

@@ -132,3 +132,8 @@ class PredictConfig:
     # scale a little and near-tie pixels flip; exact where heights already
     # sit on the bucket. ResNet backbones ignore it (their ragged batches
     # are exact).
+    quantize_int8: bool = False  # opt-in int8 inference: post-training
+    # per-channel weight + static activation quantization calibrated on
+    # the first chunk (models/quantize.py), the convs as cuBLAS int8
+    # GEMMs. APPROXIMATE: class maps can differ from float on pixels near
+    # a class boundary; ResNet backbones only (EfficientNet raises)

@@ -30,6 +30,10 @@ or inside a segmentation checkpoint, in ``.pt`` / ``.pth`` / ``.npz``) and
 ``merge_backbone``, which checks every tensor's name and shape against the
 model's backbone before loading it.
 
+An int8 model quantized by the JAX package (``quantize_variables``'
+``{'params'}``) comes across through ``quantized_variables_to_state_dict``
+into the port's int8 state dict (models/quantize.py).
+
 Loading flax ``.msgpack`` files or orbax directories is not part of this
 port yet: the machine with the card has neither jax nor flax.
 """
@@ -105,8 +109,8 @@ def _efficientnet_name(rest: list[str], blocks: dict[str, int] | None
     return None
 
 
-def _module_name(path: tuple[str, ...], blocks: dict[str, int] | None
-                 ) -> str:
+def module_name(path: tuple[str, ...], blocks: dict[str, int] | None = None
+                ) -> str:
     """flax scope path (without the leaf) -> the port's module name."""
     root, *rest = path
     name = None
@@ -147,10 +151,59 @@ def variables_to_state_dict(variables: Mapping,
                 raise KeyError(f"unmapped leaf {col}/{'/'.join(path)}")
             if path[-1] == "kernel":
                 arr = arr.transpose(3, 2, 0, 1)
-            key = f"{_module_name(path[:-1], blocks)}.{_LEAF[path[-1]]}"
+            key = f"{module_name(path[:-1], blocks)}.{_LEAF[path[-1]]}"
             if key in out:
                 raise KeyError(f"two leaves map to {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+# int8 conv scopes whose port module has another name
+_QCONV = {"downsample_conv": "downsample", "b0_conv": "b0",
+          "project_conv": "project"}
+_QLEAF = {"pool_conv_kernel": "pool_kernel", "pool_conv_bias": "pool_bias"}
+
+
+def _quantized_key(path: tuple[str, ...]) -> str:
+    """A JAX quantized param path -> the port's int8 state-dict key:
+    ``(..., 'layer1_0', 'conv1_q')`` -> ``...layer1.0.conv1.q`` (``_m``,
+    ``_b`` alike), ``downsample_conv`` / ``b0_conv`` / ``project_conv`` ->
+    ``downsample`` / ``b0`` / ``project``, an atrous branch's ``b1/conv_q``
+    -> ``b1.q``, the stem's ``kernel`` -> ``weight``."""
+    *scope, leaf = path
+    mods = [p.replace("_", ".") if p.startswith("layer") else p
+            for p in scope]
+    if leaf[-2:] in ("_q", "_m", "_b"):
+        conv = leaf[:-2]
+        if not (conv == "conv" and mods and mods[-1] in ("b1", "b2", "b3")):
+            mods.append(_QCONV.get(conv, conv))
+        leaf = leaf[-1]
+    else:
+        leaf = {"kernel": "weight"}.get(leaf, _QLEAF.get(leaf, leaf))
+    return ".".join([*mods, leaf])
+
+
+def quantized_variables_to_state_dict(qvariables: Mapping
+                                      ) -> dict[str, torch.Tensor]:
+    """A JAX quantized ``{'params'}`` tree (models/quantize.py's
+    ``quantize_variables``, numpy or array leaves) -> the port's int8
+    state dict (``QuantizedSegmentationModel``): each int8 HWIO kernel
+    flattened to [kh * kw * cin, cout] and transposed to [cout, K], cout
+    padded to a multiple of 8 with zero rows (models/qops.py); the float
+    stem kernel to OIHW; every other leaf as it is."""
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(qvariables["params"]).items():
+        arr = np.asarray(leaf)
+        key = _quantized_key(path)
+        if path[-1].endswith("_q"):
+            w = arr.reshape(-1, arr.shape[-1]).T
+            arr = np.zeros((-(-w.shape[0] // 8) * 8, w.shape[1]), np.int8)
+            arr[:w.shape[0]] = w
+        elif path[-1] == "kernel":
+            arr = arr.transpose(3, 2, 0, 1)
+        if key in out:
+            raise KeyError(f"two leaves map to {key}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
 
 

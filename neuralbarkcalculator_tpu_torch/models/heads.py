@@ -11,6 +11,10 @@
   ``classifier.0.project``, ``classifier.{1,2,4}``), so a reference
   ``best_model.pt`` loads unchanged.
 
+``QuantizedFCNHead``, ``QuantizedASPP`` and ``QuantizedDeepLabHead`` are
+the int8 inference twins (JAX ``heads.py`` with ``quantized=True``): int8
+NHWC features in, float32 NHWC logits out.
+
 ``valid_h`` (feature-resolution valid heights, [B]) masks the input of
 every row-mixing op for exact ragged-height batching (see
 models/resnet.py): the FCN head's 3x3 conv; DeepLab's ASPP input and its
@@ -35,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fused_dropout_matmul import fused_dropout_matmul
+from .qops import QConv, mask_rows, quantize_act
 from .resnet import BN_EPS, apply_row_mask
 from .seeding import HEAD_STREAM, inverted_dropout, layer_generator
 
@@ -47,6 +52,8 @@ def _norm(channels: int, folded: bool) -> nn.Module:
 
 
 class FCNHead(nn.Sequential):
+    supports_quantize = True  # an int8 twin (QuantizedFCNHead)
+
     def __init__(self, in_channels: int, channels: int,
                  dropout: float = 0.1, folded: bool = False):
         inter = in_channels // 4
@@ -66,6 +73,10 @@ class FCNHead(nn.Sequential):
         """The same head with BN folded (models/fold.py)."""
         return FCNHead(self.in_channels, self.channels, self.dropout,
                        folded=True)
+
+    def quantized_twin(self) -> "QuantizedFCNHead":
+        """The int8 head of the same widths (models/quantize.py)."""
+        return QuantizedFCNHead(self.in_channels, self.channels)
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 dropout_seed: int | None = None) -> torch.Tensor:
@@ -196,6 +207,8 @@ class DeepLabHead(nn.Sequential):
     (with bias). In train mode the step's ``dropout_seed`` keys the ASPP's
     dropout."""
 
+    supports_quantize = True  # an int8 twin (QuantizedDeepLabHead)
+
     def __init__(self, in_channels: int, channels: int,
                  folded: bool = False):
         c = ASPP_CHANNELS
@@ -214,6 +227,10 @@ class DeepLabHead(nn.Sequential):
         """The same head with BN folded (models/fold.py)."""
         return DeepLabHead(self.in_channels, self.channels, folded=True)
 
+    def quantized_twin(self) -> "QuantizedDeepLabHead":
+        """The int8 head of the same widths (models/quantize.py)."""
+        return QuantizedDeepLabHead(self.in_channels, self.channels)
+
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 dropout_seed: int | None = None) -> torch.Tensor:
         generator = None
@@ -229,4 +246,85 @@ class DeepLabHead(nn.Sequential):
         return x
 
 
-__all__ = ["ASPP", "ASPPPooling", "AtrousConv2d", "DeepLabHead", "FCNHead"]
+class QuantizedFCNHead(nn.Module):
+    """The int8 FCN head (JAX ``FCNHead._quantized_forward``): int8 NHWC
+    backbone features (their scale is in ``conv1``'s epilogue) -> float32
+    NHWC logits. The row mask zeroes the 3x3 conv's input; the dropout is
+    an inference no-op and left out."""
+
+    def __init__(self, in_channels: int, channels: int):
+        super().__init__()
+        self.conv1 = QConv(in_channels, in_channels // 4, 3)
+        self.conv2 = QConv(in_channels // 4, channels)
+
+    def forward(self, x_q: torch.Tensor,
+                valid_h: torch.Tensor | None = None) -> torch.Tensor:
+        return self.conv2.dequant(self.conv1.relu(mask_rows(x_q, valid_h)))
+
+
+class QuantizedASPP(nn.Module):
+    """The int8 ASPP (JAX ``ASPP._quantized_forward``): int8 NHWC at s_in
+    -> int8 at s_proj. The 1x1 branch ``b0`` and the atrous branches
+    ``b1``-``b3`` run int8 and requantize to one concat scale s_cat. The
+    pooled branch sums the int8 map exactly in int32 (so a padded batch
+    equals per-image runs), dequantizes by ``s_in``, divides by the true
+    pixel count (valid_h * W), runs the 1x1 conv in float32
+    (``pool_kernel`` [cin, 256], ``pool_bias``), and quantizes its ReLU by
+    ``inv_s_cat``, broadcast to every pixel. ``project`` maps the concat
+    to 256; the dropout is left out."""
+
+    def __init__(self, in_channels: int, rates: Sequence[int] = ASPP_RATES):
+        super().__init__()
+        c = ASPP_CHANNELS
+        self.b0 = QConv(in_channels, c)
+        self.rates = tuple(rates)
+        for i, rate in enumerate(self.rates):
+            self.add_module(f"b{i + 1}", QConv(in_channels, c, 3, 1, rate))
+        self.register_buffer("pool_kernel", torch.zeros(in_channels, c))
+        self.register_buffer("pool_bias", torch.zeros(c))
+        self.register_buffer("s_in", torch.ones(()))
+        self.register_buffer("inv_s_cat", torch.ones(()))
+        self.project = QConv(c * (len(self.rates) + 2), c)
+
+    def pooled(self, x_q: torch.Tensor,
+               valid_h: torch.Tensor | None = None) -> torch.Tensor:
+        """The pooled branch of a masked int8 map: int8 [B, 256] at
+        s_cat."""
+        sums = x_q.sum(dim=(1, 2), dtype=torch.int32)
+        denom = (float(x_q.shape[1] * x_q.shape[2]) if valid_h is None
+                 else (valid_h.float() * x_q.shape[2])[:, None])
+        pooled = sums.float() * self.s_in / denom
+        pooled = pooled @ self.pool_kernel + self.pool_bias
+        return quantize_act(F.relu(pooled), self.inv_s_cat)
+
+    def forward(self, x_q: torch.Tensor,
+                valid_h: torch.Tensor | None = None) -> torch.Tensor:
+        x_q = mask_rows(x_q, valid_h)  # the atrous branches mix rows
+        branches = [getattr(self, f"b{i}").relu(x_q)
+                    for i in range(len(self.rates) + 1)]
+        pooled_q = self.pooled(x_q, valid_h)
+        branches.append(pooled_q[:, None, None, :].expand(
+            *x_q.shape[:3], pooled_q.shape[1]))
+        return self.project.relu(torch.cat(branches, dim=-1))
+
+
+class QuantizedDeepLabHead(nn.Module):
+    """The int8 DeepLabV3 head (JAX ``DeepLabHead._quantized_forward``):
+    the int8 ASPP, the row mask, the 3x3 ``conv`` and the 1x1
+    ``classifier`` -> float32 NHWC logits."""
+
+    def __init__(self, in_channels: int, channels: int):
+        super().__init__()
+        c = ASPP_CHANNELS
+        self.aspp = QuantizedASPP(in_channels)
+        self.conv = QConv(c, c, 3)
+        self.classifier = QConv(c, channels)
+
+    def forward(self, x_q: torch.Tensor,
+                valid_h: torch.Tensor | None = None) -> torch.Tensor:
+        x = mask_rows(self.aspp(x_q, valid_h), valid_h)
+        return self.classifier.dequant(self.conv.relu(x))
+
+
+__all__ = ["ASPP", "ASPPPooling", "AtrousConv2d", "DeepLabHead", "FCNHead",
+           "QuantizedASPP", "QuantizedDeepLabHead", "QuantizedFCNHead"]

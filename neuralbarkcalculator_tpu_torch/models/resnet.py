@@ -22,6 +22,12 @@ the head masks its 3x3 conv), which is what per-image conv zero padding
 gives at the true bottom edge. 1x1 convs, BN and ReLU are pointwise, so
 the rows they make past ``valid_h`` are cleaned at the next masked op.
 Per-stage valid heights follow ``conv_out_size``.
+
+``QuantizedResNet`` / ``QuantizedBottleneck`` are the int8 inference
+twins (JAX ``resnet.py`` with ``quantized=True``; models/quantize.py
+builds them): NHWC from the stem to the features, every conv but the
+float stem an int8 GEMM (models/qops.py), the same row masks on int8
+tensors.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .qops import QConv, mask_rows, quantize_act
 
 BN_EPS = 1e-5  # torchvision BatchNorm2d default
 
@@ -95,24 +103,21 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
-class DilatedResNet(nn.Module):
-    """ResNet backbone with stride->dilation replacement, returning the
-    layer4 feature map."""
+class _ResNetLayers(nn.Module):
+    """The stage layout shared by the float and the int8 backbones:
+    ``layer1`` ... ``layer4`` of blocks made by ``make_block(inplanes,
+    planes, stride, dilation, has_downsample)``, torchvision's stride ->
+    dilation replacement, and the valid-row arithmetic of the masked
+    forward."""
 
     supports_ragged = True  # row masks make padded batches exact
-    bn_eps = BN_EPS
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 replace_stride_with_dilation: Sequence[bool] = (
-                     False, True, True),
-                 folded: bool = False):
-        super().__init__()
+    def _build_layers(self, stage_sizes: Sequence[int],
+                      replace_stride_with_dilation: Sequence[bool],
+                      make_block) -> None:
         self.stage_sizes = tuple(stage_sizes)
         self.replace_stride_with_dilation = tuple(
             replace_stride_with_dilation)
-        self.folded = folded
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=folded)
-        self.bn1 = _norm(64, folded)
         self._strides = []  # each stage's stride after dilation replacement
         inplanes, dilation = 64, 1
         for stage, num_blocks in enumerate(self.stage_sizes):
@@ -125,13 +130,10 @@ class DilatedResNet(nn.Module):
             blocks = []
             for block in range(num_blocks):
                 first = block == 0
-                blocks.append(Bottleneck(
-                    inplanes, planes,
-                    stride=stride if first else 1,
-                    dilation=prev_dilation if first else dilation,
-                    has_downsample=first and (
-                        stride != 1 or inplanes != planes * 4),
-                    folded=folded))
+                blocks.append(make_block(
+                    inplanes, planes, stride if first else 1,
+                    prev_dilation if first else dilation,
+                    first and (stride != 1 or inplanes != planes * 4)))
                 inplanes = planes * 4
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             self._strides.append(stride)
@@ -145,24 +147,9 @@ class DilatedResNet(nn.Module):
             stride *= s
         return stride
 
-    def folded_twin(self) -> "DilatedResNet":
-        """The same backbone with BN folded (models/fold.py)."""
-        return DilatedResNet(self.stage_sizes,
-                             self.replace_stride_with_dilation, folded=True)
-
-    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
-                dropout_seed: int | None = None) -> torch.Tensor:
-        """NCHW input (zero below valid_h) -> NCHW layer4 features. The
-        ResNet has no random layer: ``dropout_seed`` is taken, as every
-        backbone takes it, and ignored."""
-        x = F.relu(self.bn1(self.conv1(x)))
-        h = None if valid_h is None else conv_out_size(valid_h, 7, 2, 3)
-        # masked zeros equal max_pool2d's -inf padding here because the
-        # pool's input is post-ReLU (>= 0)
-        x = apply_row_mask(x, h)
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        if h is not None:
-            h = conv_out_size(h, 3, 2, 1)
+    def _blocks(self, x: torch.Tensor, h) -> torch.Tensor:
+        """Every block in order; ``h`` the valid rows after the max pool
+        (or None), updated at each stage's strided conv."""
         for stage, stride in enumerate(self._strides):
             for i, block in enumerate(getattr(self, f"layer{stage + 1}")):
                 x = block(x, valid_h=h)
@@ -179,6 +166,130 @@ class DilatedResNet(nn.Module):
             if stride != 1:
                 h = conv_out_size(h, 3, stride, 1)  # stage's strided conv2
         return h
+
+
+class DilatedResNet(_ResNetLayers):
+    """ResNet backbone with stride->dilation replacement, returning the
+    layer4 feature map."""
+
+    supports_quantize = True  # an int8 twin (QuantizedResNet)
+    bn_eps = BN_EPS
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 replace_stride_with_dilation: Sequence[bool] = (
+                     False, True, True),
+                 folded: bool = False):
+        super().__init__()
+        self.folded = folded
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=folded)
+        self.bn1 = _norm(64, folded)
+        self._build_layers(
+            stage_sizes, replace_stride_with_dilation,
+            lambda cin, planes, stride, dilation, ds: Bottleneck(
+                cin, planes, stride, dilation, ds, folded=folded))
+
+    def folded_twin(self) -> "DilatedResNet":
+        """The same backbone with BN folded (models/fold.py)."""
+        return DilatedResNet(self.stage_sizes,
+                             self.replace_stride_with_dilation, folded=True)
+
+    def quantized_twin(self) -> "QuantizedResNet":
+        """The int8 backbone of the same layout (models/quantize.py fills
+        it)."""
+        return QuantizedResNet(self.stage_sizes,
+                               self.replace_stride_with_dilation)
+
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
+                dropout_seed: int | None = None) -> torch.Tensor:
+        """NCHW input (zero below valid_h) -> NCHW layer4 features. The
+        ResNet has no random layer: ``dropout_seed`` is taken, as every
+        backbone takes it, and ignored."""
+        x = F.relu(self.bn1(self.conv1(x)))
+        h = None if valid_h is None else conv_out_size(valid_h, 7, 2, 3)
+        # masked zeros equal max_pool2d's -inf padding here because the
+        # pool's input is post-ReLU (>= 0)
+        x = apply_row_mask(x, h)
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        if h is not None:
+            h = conv_out_size(h, 3, 2, 1)
+        return self._blocks(x, h)
+
+
+class QuantizedBottleneck(nn.Module):
+    """The int8 bottleneck (JAX ``Bottleneck._quantized_forward``): int8
+    NHWC at the input's scale s_in -> int8 at the block's s_out. conv3's
+    epilogue and the downsample branch land in s_out units, so the whole
+    residual add runs there: the main branch dequantized (m, b divided by
+    s_out), the identity either the downsample branch requantized to int8
+    at s_out (a symmetric clip) or ``x_q * s_ratio`` (s_in / s_out). The
+    sum is rounded and clipped to [0, 127], which is also its ReLU."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, has_downsample: bool = False):
+        super().__init__()
+        self.conv1 = QConv(inplanes, planes)
+        self.conv2 = QConv(planes, planes, 3, stride, dilation)
+        self.conv3 = QConv(planes, planes * 4)
+        self.downsample = (QConv(inplanes, planes * 4, 1, stride)
+                           if has_downsample else None)
+        if not has_downsample:
+            self.register_buffer("s_ratio", torch.ones(()))
+
+    def forward(self, x_q: torch.Tensor,
+                valid_h: torch.Tensor | None = None) -> torch.Tensor:
+        # conv2 is the only row-mixing op in the block
+        t1 = mask_rows(self.conv1.relu(x_q), valid_h)
+        out = self.conv3.dequant(self.conv2.relu(t1))
+        if self.downsample is not None:
+            out.add_(self.downsample.signed(x_q))
+        else:
+            out.add_(x_q * self.s_ratio)
+        return out.round_().clamp_(0, 127).to(torch.int8)
+
+
+class QuantizedResNet(_ResNetLayers):
+    """The int8 dilated ResNet (JAX ``DilatedResNet`` with
+    ``quantized=True``). The stem stays a float conv (BN folded, with a
+    bias; float32 weights, run at the input's dtype), then ReLU, the row
+    mask and the max pool;
+    the pooled map is quantized by ``inv_s_stem`` (the pool is a max of
+    post-ReLU values, so quantizing after it equals quantizing before it)
+    and every block runs int8. NHWC in, int8 NHWC features out."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 replace_stride_with_dilation: Sequence[bool] = (
+                     False, True, True)):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=True)
+        self.register_buffer("inv_s_stem", torch.ones(()))
+        self._build_layers(stage_sizes, replace_stride_with_dilation,
+                           QuantizedBottleneck)
+
+    def stem(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
+             ) -> torch.Tensor:
+        """NHWC images (zero below valid_h) -> the int8 NHWC map after the
+        max pool. The conv runs at ``x``'s dtype (the engine's), its
+        float32 weights cast to it, as the JAX package casts them."""
+        conv = self.conv1
+        y = F.relu(F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
+                            conv.bias.to(x.dtype), conv.stride,
+                            conv.padding))
+        h = None if valid_h is None else conv_out_size(valid_h, 7, 2, 3)
+        y = F.max_pool2d(apply_row_mask(y, h), 3, stride=2, padding=1)
+        return quantize_act(y.permute(0, 2, 3, 1),
+                            self.inv_s_stem).contiguous()
+
+    def blocks(self, x_q: torch.Tensor, valid_h: torch.Tensor | None = None
+               ) -> torch.Tensor:
+        """The int8 blocks from the stem's int8 map; ``valid_h`` are the
+        images' valid rows (not the map's)."""
+        h = None if valid_h is None else conv_out_size(
+            conv_out_size(valid_h, 7, 2, 3), 3, 2, 1)
+        return self._blocks(x_q, h)
+
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        return self.blocks(self.stem(x, valid_h), valid_h)
 
 
 def resnet50_dilated() -> DilatedResNet:

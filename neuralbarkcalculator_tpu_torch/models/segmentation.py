@@ -12,6 +12,9 @@ the reference's zoo:
 - fcn_efficientnet / deeplabv3_efficientnet (models.py:86-110), and the
   variant-bound names ``fcn_efficientnet_b0`` ...
   ``deeplabv3_efficientnet_b7``.
+
+``QuantizedSegmentationModel`` is the int8 model of the ResNet factories
+(models/quantize.py).
 """
 from __future__ import annotations
 
@@ -91,6 +94,24 @@ class SegmentationModel(nn.Module):
             row_upsample = rows.expand(x.shape[0], -1, -1)
         with torch.autocast(x.device.type, enabled=False):
             return bicubic_upsample_ragged(logits, row_upsample, in_w)
+
+
+class QuantizedSegmentationModel(SegmentationModel):
+    """The int8 inference model (models/quantize.py builds it): a
+    ``QuantizedResNet`` and a ``QuantizedFCNHead`` or
+    ``QuantizedDeepLabHead``. The path stays NHWC from the stem to the
+    logits, with no permute; ``head_logits`` returns float32 NHWC
+    [B, F, Wf, classes], contiguous, for ``upsample_argmax``, and the
+    inherited ``forward`` upsamples them. Inference only."""
+
+    def head_logits(self, x: torch.Tensor,
+                    valid_h: torch.Tensor | None = None,
+                    dropout_seed: int | None = None) -> torch.Tensor:
+        if self.training:
+            raise ValueError("an int8 model is inference-only")
+        feat_h = (None if valid_h is None
+                  else self.backbone.valid_feature_height(valid_h))
+        return self.classifier(self.backbone(x, valid_h), feat_h)
 
 
 def fcn_resnet50(dropout: float = 0.1, num_classes: int = NUM_CLASSES

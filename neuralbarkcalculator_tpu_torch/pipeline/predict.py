@@ -30,10 +30,20 @@ batched:
 
 Checkpoints: a reference ``best_model.pt`` (torchvision-named state dict)
 or weights carried across from the JAX package with
-models/convert.variables_to_state_dict and saved as ``.pt``.
+models/convert.variables_to_state_dict and saved as ``.pt``; or the
+port's offline int8 checkpoint (models/quantize.py, ``*.int8.pt``), which
+starts the engine quantized.
+
+int8 (``PredictConfig.quantize_int8``, opt-in and approximate; JAX
+pipeline/predict.py): the first chunk's first images calibrate the folded
+model at the engine's dtype before the pump submits any chunk
+(``_calibrate_first``), then the engine runs the int8 model
+(models/quantize.py): the float stem, cuBLAS int8 GEMMs, float32
+requantizing epilogues, float32 logits into ``upsample_argmax``.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 from collections import deque
@@ -48,6 +58,10 @@ from ..data.dataset import make_dataset
 from ..io.native import image_info, load_image_u8, remove_small_zones_host2
 from ..models.convert import load_state_dict_into, load_torch_checkpoint
 from ..models.fold import fold_model
+from ..models.quantize import (check_quantizable,
+                               is_jax_quantized_checkpoint,
+                               is_quantized_checkpoint, load_quantized,
+                               quantize_model)
 from ..models.resnet import row_mask
 from ..models.segmentation import MODEL_FACTORIES
 from ..ops.resize import column_operator_t, embedded_bicubic_rows
@@ -60,6 +74,8 @@ from .report import PredictReporter
 
 # chunks in flight in the predict pump
 PREFETCH = 2
+# images of the first chunk that the lazy int8 calibration runs on
+CALIBRATION_IMAGES = 4
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -90,16 +106,32 @@ class NeuralBarkCalculator:
                       else torch.float32)
         if self.dtype == torch.float32:
             set_float32_exact(self.device)
-        model = MODEL_FACTORIES[model_name]()
-        load_state_dict_into(model, _load_state_dict(model_path))
-        # constant-fold eval-mode BatchNorm into the conv weights and biases
-        model = fold_model(model)
-        # bf16 runs channels_last, cuDNN's fast layout; an NHWC batch
-        # viewed as NCHW already has that layout
-        fmt = (torch.channels_last if self.dtype == torch.bfloat16
-               else torch.contiguous_format)
-        self.model = model.to(device=self.device, dtype=self.dtype,
-                              memory_format=fmt).eval()
+        self._quantize_pending = False
+        self._quant_lock = threading.Lock()
+        if _load_checkpoint_kind(model_path) == "int8":
+            # an offline int8 checkpoint: no folding, no calibration
+            self.model = load_quantized(model_path, model_name).to(
+                self.device)
+        else:
+            model = MODEL_FACTORIES[model_name]()
+            if self.config.quantize_int8:
+                check_quantizable(model)  # raises for EfficientNet
+            load_state_dict_into(model, load_torch_checkpoint(model_path))
+            # constant-fold eval-mode BatchNorm into the conv weights and
+            # biases
+            model = fold_model(model)
+            if self.config.quantize_int8:
+                # int8 calibrates on the first chunk (_calibrate_first);
+                # until then keep the folded float32 weights on the host
+                self._host_state = {k: v.detach() for k, v in
+                                    model.state_dict().items()}
+                self._quantize_pending = True
+            # bf16 runs channels_last, cuDNN's fast layout; an NHWC batch
+            # viewed as NCHW already has that layout
+            fmt = (torch.channels_last if self.dtype == torch.bfloat16
+                   else torch.contiguous_format)
+            self.model = model.to(device=self.device, dtype=self.dtype,
+                                  memory_format=fmt).eval()
         # exact-height backbones (EfficientNet): one launch height per
         # distinct trimmed height, or per bucket with effnet_bucket_heights
         backbone = self.model.backbone
@@ -348,13 +380,21 @@ class NeuralBarkCalculator:
         postprocesses and yields (index, ProcessedImage, class_map,
         counts3). The workers share the current CUDA stream, so the
         device runs the steps in submission order."""
+        it = iter(chunks)
+        if self._quantize_pending:
+            # int8 calibration needs real pixels before the first step
+            first = next(it, None)
+            if first is None:
+                return
+            decode_chunk = self._calibrate_first(*first, decode_chunk)
+            it = itertools.chain([first], it)
+
         def pump_one(pad_h, idxs):
             items = decode_chunk(idxs)
             valid_h, out = self._launch_batch(items, pad_h)
             return items, valid_h, out
 
         with ThreadPoolExecutor(max_workers=PREFETCH) as pool:
-            it = iter(chunks)
             window: deque = deque()
 
             def submit_next() -> bool:
@@ -374,6 +414,61 @@ class NeuralBarkCalculator:
                 submit_next()
                 yield from self._finish_batch_raw(exclude_nodes, idxs,
                                                   items, valid_h, out)
+
+    def _calibrate_first(self, pad_h: int, idxs: list[int], decode_chunk):
+        """Lazy int8 calibration (PredictConfig.quantize_int8) on the first
+        chunk, before the pump submits any: up to CALIBRATION_IMAGES of its
+        images, decoded once, as one batch zero-padded to the chunk's
+        height and run without row masks (the padded rows only make the
+        scales a little conservative). Returns ``decode_chunk`` serving
+        those images from memory, so the pump does not decode them again
+        (a decode that pops its items, as the streaming path's, works as
+        well)."""
+        with self._quant_lock:
+            if not self._quantize_pending:  # another caller calibrated
+                return decode_chunk
+            head = idxs[:CALIBRATION_IMAGES]
+            items = decode_chunk(head)
+            self.quantize([items], pad_h)
+        memo = dict(zip(head, items))
+
+        def decode(chunk_idxs):
+            got = {i: memo.pop(i) for i in chunk_idxs if i in memo}
+            missing = [i for i in chunk_idxs if i not in got]
+            if missing:
+                got.update(zip(missing, decode_chunk(missing)))
+            return [got[i] for i in chunk_idxs]
+        return decode
+
+    def quantize(self, groups: Sequence[Sequence[ProcessedImage]],
+                 pad_h: int | None = None) -> None:
+        """Calibrate int8 on ``groups`` of images (each group one batch,
+        zero-padded to ``pad_h`` or its tallest image, normalized as the
+        device step normalizes, run at the engine's dtype on its device
+        without row masks), quantize the folded float32 host weights and
+        swap the engine to the int8 model; the host copy is freed. Needs
+        ``quantize_int8`` and no calibration yet."""
+        if not self._quantize_pending:
+            raise RuntimeError("quantize: the engine is not waiting for an "
+                               "int8 calibration (quantize_int8 off, an "
+                               "int8 checkpoint, or calibrated already)")
+        batches = []
+        for items in groups:
+            height = pad_h or max(it.image.shape[0] for it in items)
+            batch = np.zeros((len(items), height, items[0].image.shape[1],
+                              3), np.uint8)
+            for i, it in enumerate(items):
+                batch[i, :it.image.shape[0]] = it.image
+            vh = torch.tensor([it.image.shape[0] for it in items],
+                              dtype=torch.int32, device=self.device)
+            x = self._normalize(torch.from_numpy(batch).to(self.device), vh)
+            batches.append(x.to(self.dtype))
+        with stage_timer("predict/quantize_calibration"):
+            qmodel = quantize_model(self.model, batches,
+                                    folded_state=self._host_state)
+        self.model = qmodel.to(self.device)
+        del self._host_state
+        self._quantize_pending = False
 
     def _finish_batch_raw(self, exclude_nodes, chunk_idxs, items, valid_h,
                           out):
@@ -518,6 +613,13 @@ class NeuralBarkCalculator:
                 valid_h: torch.Tensor | None) -> torch.Tensor:
         """[B, pad_h, W, 3] uint8 -> float32 head logits at the feature
         stride [B, F, Wf, 3], in the engine's dtype and layout."""
+        x = self._normalize(batch_u8, valid_h)
+        return self.model.head_logits(x.to(self.dtype), valid_h)
+
+    def _normalize(self, batch_u8: torch.Tensor,
+                   valid_h: torch.Tensor | None) -> torch.Tensor:
+        """[B, pad_h, W, 3] uint8 -> normalized float32, zero past each
+        image's valid rows."""
         x = batch_u8.float() / 255.0
         x = (x - self.mean) / self.std
         if valid_h is not None:
@@ -527,7 +629,7 @@ class NeuralBarkCalculator:
             # padding
             x = x * row_mask(valid_h, x.shape[1], x.dtype).view(
                 x.shape[0], x.shape[1], 1, 1)
-        return self.model.head_logits(x.to(self.dtype), valid_h)
+        return x
 
 
 def pack2bit(m: torch.Tensor) -> torch.Tensor:
@@ -561,19 +663,28 @@ def _header_size(path: str) -> tuple[int, int]:
     return h, w
 
 
-def _load_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """A torchvision-named state dict from a ``.pt`` / ``.pth`` file."""
+def _load_checkpoint_kind(path: str) -> str:
+    """"int8" for the port's offline int8 checkpoint, "float" for a
+    ``.pt`` / ``.pth`` state dict; raises for a missing file and for a
+    format the port does not load."""
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"model checkpoint not found: {path!r} (expected a reference "
             f"best_model.pt; the predict CLI looks for ./best_model.pt by "
             f"default, reference predict.py:57)")
-    if path.endswith((".pt", ".pth")):
-        return load_torch_checkpoint(path)
-    raise NotImplementedError(
-        f"{path!r}: only .pt/.pth state dicts load in the port; export "
-        f"flax .msgpack or orbax checkpoints with "
-        f"tools/export_torch_checkpoint.py")
+    if is_jax_quantized_checkpoint(path):
+        raise NotImplementedError(
+            f"{path!r} is the JAX package's int8 checkpoint, which the port "
+            f"does not read: export the float checkpoint it was quantized "
+            f"from with tools/export_torch_checkpoint.py, then run python "
+            f"-m neuralbarkcalculator_tpu_torch.cli.quantize_checkpoint "
+            f"IMAGES --model_path MODEL.pt for the port's .int8.pt")
+    if not path.endswith((".pt", ".pth")):
+        raise NotImplementedError(
+            f"{path!r}: only .pt/.pth state dicts load in the port; export "
+            f"flax .msgpack or orbax checkpoints with "
+            f"tools/export_torch_checkpoint.py")
+    return "int8" if is_quantized_checkpoint(path) else "float"
 
 
 __all__ = ["NeuralBarkCalculator", "pack2bit"]

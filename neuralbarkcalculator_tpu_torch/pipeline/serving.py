@@ -131,7 +131,15 @@ class BatchingPredictor:
         ladder, ``launch_item_counts``), so no request pays the one-off
         set-up of an unseen launch shape; then reset the stats, so the
         warmup does not count as traffic. Called before the server takes
-        requests: it runs the engine on the caller's thread."""
+        requests: it runs the engine on the caller's thread.
+
+        The image is seeded uniform noise, not a constant, and the largest
+        batch runs first: with lazy int8 quantization
+        (``PredictConfig.quantize_int8`` and no offline int8 checkpoint)
+        the engine's first chunk is its calibration set, and a constant
+        image would give unrepresentative activation scales, fewer images
+        a worse max|x| estimate. An offline int8 checkpoint
+        (cli/quantize_checkpoint) skips calibration altogether."""
         img = np.random.default_rng(0).integers(
             0, 256, (height, width, 3), np.uint8)
         sizes = [n for n in self.calc.launch_item_counts()

@@ -47,7 +47,9 @@ def test_port_imports_no_jax():
                  "train.evaluate", "cli.train", "ops.resize", "ops.trim",
                  "pipeline.preprocess", "pipeline.serving", "cli.serve",
                  "models.efficientnet", "models.heads", "models.resnet",
-                 "models.fold", "models.segmentation", "models.seeding"):
+                 "models.fold", "models.segmentation", "models.seeding",
+                 "models.qops", "models.quantize",
+                 "cli.quantize_checkpoint"):
         assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
 
 
@@ -114,7 +116,10 @@ def test_cli_defaults_to_cuda_and_drops_unported_flags():
     parser = build_parser()
     assert parser.parse_args(["root"]).device == "cuda"
     assert parser.parse_args(["root", "--device", "cpu"]).device == "cpu"
-    for flag in (["--int8"], ["--shard", "0/2"], ["--mpl"],
+    # --int8 is ported (tests/test_torch_quantize_engine.py drives it)
+    assert parser.parse_args(["root", "--int8"]).int8
+    assert not parser.parse_args(["root"]).int8
+    for flag in (["--shard", "0/2"], ["--mpl"],
                  ["--preprocess_backend", "tpu"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["root", *flag])
@@ -144,7 +149,11 @@ def test_serve_cli_defaults_to_cuda_and_drops_int8():
     assert parser.parse_args(["m.pt", "--device", "cpu"]).device == "cpu"
     for model in ("fcn_resnet101", "deeplabv3_efficientnet_b7"):
         assert parser.parse_args(["m.pt", "--model", model]).model == model
-    for flag in (["--int8"], ["--model", "unet"], ["--device", "tpu"]):
+    # --int8 is ported now (tests/test_torch_quantize_engine.py serves
+    # through it); the other flags stay refused
+    assert parser.parse_args(["m.pt", "--int8"]).int8
+    assert not args.int8
+    for flag in (["--model", "unet"], ["--device", "tpu"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["m.pt", *flag])
 
