@@ -24,7 +24,12 @@ time is printed beside the main shape's byte bound).
 upsample_argmax is also held at the EfficientNet path's stride-32 logits
 (8 images at heights 896/960/1024, F = 28/30/32, Wf = 32, and at width
 1000), and its 1024 x 1024 case timed. Each timing window's device events
-are counted against what the function launches.
+are counted against what the function launches. fused_dropout_matmul is
+also held at the main shape at a data-parallel rank's element offset (2
+x 512 x 64 x 64): against the plain versions there, its mask equal to
+rows 2-4 of the offset-0 mask, the kernels on rows 2-4 alone equal to the
+offset-0 run's rows bit for bit, and its time beside offset 0's, which it
+must match within the phase's spread.
 
 Phase 3 drives the predict path, folder prediction, through the engine a
 user calls: a synthetic folder of 16 processed 1024-wide images at trimmed
@@ -32,7 +37,13 @@ heights 896/960/1024, a full-width fcn_resnet50 with random weights drawn
 from the seed (bf16, BN folded, batch 8). It checks the artifacts, that
 upsample_argmax was launched during the timed pass, profiles one more
 pass for the device's busy share, and holds the engine's maps against a
-per-image float32 reference on the card.
+per-image float32 reference on the card. Then the sharded-predict phase:
+cli/predict --shard k/2 --float32 as two concurrent child processes of
+this script on the one card over the same folder and checkpoint (shard 0
+merges), against the single-process float32 engine: every artifact once,
+the merged CSV's names and order equal, the rows whose bytes differ
+counted, the dual masks >= 99.9 % equal, each shard's upsample_argmax
+launches, the wall time against phase 3's.
 
 Phase 4 drives the training path through cli/train.main: a synthetic
 30-image 1024x1024 dataset with duals, the full-width, full-depth
@@ -40,7 +51,27 @@ fcn_resnet50 at the recipe's batch 5 and crop 512, one epoch of 9 steps,
 validation, test and the report. It checks the checkpoint, best_model.pt,
 the report's 15 columns, finite losses and that the fused dropout kernels
 ran, and prints the warm step time and the peak memory. Then one training
-step on the card is held against the same step on the CPU.
+step on the card is held against the same step on the CPU. Then the NCCL
+phase: cli/train --distributed under torchrun's environment at world size
+1 (a NCCL process group on the card: cross-rank BatchNorms, the loss's
+inputs gathered, the gradients all-reduced) and the same run without a
+process group, on phase 4's dataset for one 4-step epoch with cuDNN's
+deterministic algorithms: losses, parameters after each step and dropout
+masks bit for bit, fused_dropout_matmul once a step, the collectives
+counted, the warm step times beside phase 4's. At one rank the cross-rank
+BatchNorm is torch's own and the collectives copy, so then the two-rank
+phase runs their arithmetic on the card: two ranks of cli/train
+--distributed as child processes sharing the one card over gloo (NCCL
+refuses two ranks on one device) at global batch 10 for one 4-step epoch,
+against cli/train without a process group at batch 10 and against a
+third run from weights moved one float32 ulp (float32's own reach): the
+ranks bit for bit, their masks the global batch's rows, the first step's
+loss and BN running statistics as the CPU tests hold two ranks, its
+gradients by network stage within 3x the nudged run's, the epoch's mean
+loss within 1e-3, fused_dropout_matmul once a step on each rank, both
+runs' warm step times and peak memory; and first, in each rank, the
+cross-rank BatchNorm alone at [10, 512, 64, 64] in float32 and under
+bf16 autocast against float64 (cuDNN's BN beside it), with its memory.
 
 The zoo train phase runs after phase 4, in a child process of this
 script (its own CUDA context, memory peaks and profiler sessions): every
@@ -174,6 +205,9 @@ FDM_ODD_RATES = (0.0, 0.8)
 # constant clocks: they timed the host. The fused kernels are timed by
 # device time, in rounds, each beside the card's clocks.
 FDM_TIMING_ROUNDS = 3
+# A data-parallel rank's rows of the main shape's batch: rows 2-4 of 5, at
+# the mask's element offset of row 2.
+FDM_OFFSET_ROWS = 2
 # Idle time at each end of a device_times window: one run's middle round
 # read the forward 11 % low and the backward 6 % high beside two steady
 # rounds, as events crossing windows would; at 5 ms a run failed three
@@ -269,6 +303,56 @@ INT8_STEP_GROUPS = (
 )
 
 SERVE_BATCH = 8
+# The sharded-predict phase: the main path's folder in this many shards, one
+# process each, on the one card; a shard's dual masks must agree with the
+# single process's on at least the float32 reference check's floor.
+SHARDS = 2
+SHARD_AGREE_FLOOR = 0.999
+# The two-rank phase: cli/train at global batch 10 (each of 2 ranks the
+# main path's 5), samples factor 2: 24 * 2 // 10 = 4 steps. Its first step
+# starts from equal weights and is held to the one-process step: the loss
+# within 1e-6 relative and the BN running statistics within rtol 1e-4 /
+# atol 1e-6, as the CPU tests hold two gloo ranks to one process
+# (tests/test_torch_data_parallel.py). The gradients are held against
+# float32's own reach: a one-process run from weights moved one ulp up
+# (NUDGE) differs from the unmoved run's gradient by what float32 cannot
+# determine, growing from the head to the stem as each BN backward
+# subtracts two means from its upstream gradient. On an H100 (--seed 0)
+# the nudged run read 1.5e-3 of the norm at the last conv and 2.5e-2 at
+# layer1, the two ranks 1.5e-3 and 1.8e-2; a lost term, a world-size
+# factor or a stale statistic moves a stage by tens of percent. So each
+# stage's gradient error is held within TWO_RANK_FLOOR_FACTOR times the
+# nudged run's. Adam's first step turns each gradient into about lr x its
+# sign, so the updates and the later steps are printed, not held; the
+# epoch's mean loss within 1e-3 relative, as the CPU tests hold a
+# two-rank epoch.
+TWO_RANKS = 2
+TWO_RANK_BATCH = 10
+TWO_RANK_ARGS = ("--batch_size", str(TWO_RANK_BATCH), "--samples_factor",
+                 "2")
+TWO_RANK_LOSS_TOL = 1e-6
+TWO_RANK_EPOCH_LOSS_TOL = 1e-3
+TWO_RANK_BN_RTOL = 1e-4
+TWO_RANK_BN_ATOL = 1e-6
+TWO_RANK_FLOOR_FACTOR = 3.0
+# The cross-rank BatchNorm alone at the FCN head's BN (512 channels) on
+# the two-rank phase's global batch, [10, 512, 64, 64]: each rank's rows
+# against the BN of the whole batch in float64 from the same values (bf16
+# ones as bf16 rounds them), from random inputs and upstream gradients.
+# Largest difference over the largest float64 value: float32 within 1e-5,
+# the CPU tests' rtol, but the parameter gradients, sums over 40960
+# elements whose terms cancel (a float32 sum's rounding, ~log2(N) x 6e-8
+# x the sum of |terms|, reaches ~4e-5 of the largest result): 1e-4. Under
+# bf16 autocast the output and input gradient are rounded to bf16 (2^-8
+# of a value, 3.9e-3), the parameter gradients and statistics float32
+# sums of the bf16 values, bounded as in float32. On an H100 cuDNN's bf16
+# parameter gradients read 4.4e-3 / 3.1e-3 from the cross-rank module's:
+# cuDNN's own distance from float64 is printed beside it.
+BN_CHECK_SHAPE = (TWO_RANK_BATCH, 512, 64, 64)
+BN_CHECK_TOL = {"float32": {"y": 1e-5, "dx": 1e-5, "dw": 1e-4, "db": 1e-4,
+                            "mean": 1e-5, "var": 1e-5},
+                "bf16": {"y": 4e-3, "dx": 4e-3, "dw": 1e-4, "db": 1e-4,
+                         "mean": 1e-5, "var": 1e-5}}
 SERVE_WAIT_MS = 25
 SERVE_CLIENTS = 8
 SERVE_PER_CLIENT = 4
@@ -679,20 +763,22 @@ def phase_kernel(torch, seed: int) -> dict:
 
 
 def check_fdm(torch, label: str, h, w, bias, g, dseed: int, rate: float,
-              keep_range: tuple[float, float] | None = None) -> dict:
+              keep_range: tuple[float, float] | None = None,
+              offset: int = 0) -> dict:
     """Both fused_dropout_matmul kernels against their plain versions on
-    one input: the mask bit for bit (with w = g = 1, dh is K/keep where
-    kept and 0 where dropped), dh exactly 0 where dropped, y, dh, dw and db
-    within the stated tolerances. Returns the outputs and the errors."""
+    one input at the mask's element `offset`: the mask bit for bit (with
+    w = g = 1, dh is K/keep where kept and 0 where dropped), dh exactly 0
+    where dropped, y, dh, dw and db within the stated tolerances. Returns
+    the outputs and the errors."""
     from neuralbarkcalculator_tpu_torch.ops.fused_dropout_matmul import (
         dropout_mask, fused_dropout_matmul_backward,
         fused_dropout_matmul_backward_plain, fused_dropout_matmul_forward,
         fused_dropout_matmul_plain)
 
     dh1, _, _ = fused_dropout_matmul_backward(
-        h, torch.ones_like(w), torch.ones_like(g), dseed, rate)
+        h, torch.ones_like(w), torch.ones_like(g), dseed, rate, offset)
     torch.cuda.synchronize()
-    mask = dropout_mask(h.shape, dseed, rate, h.device)
+    mask = dropout_mask(h.shape, dseed, rate, offset, h.device)
     kept = mask != 0
     mask_diff = int(((dh1 != 0) != kept).sum())
     keep_frac = float(kept.float().mean())
@@ -704,12 +790,12 @@ def check_fdm(torch, label: str, h, w, bias, g, dseed: int, rate: float,
         raise AssertionError(f"fused_dropout_matmul {label}: keep fraction "
                              f"{keep_frac} outside {keep_range}")
 
-    y = fused_dropout_matmul_forward(h, w, bias, dseed, rate)
-    dh, dw, db = fused_dropout_matmul_backward(h, w, g, dseed, rate)
+    y = fused_dropout_matmul_forward(h, w, bias, dseed, rate, offset)
+    dh, dw, db = fused_dropout_matmul_backward(h, w, g, dseed, rate, offset)
     torch.cuda.synchronize()
-    y_p = fused_dropout_matmul_plain(h, w, bias, dseed, rate)
+    y_p = fused_dropout_matmul_plain(h, w, bias, dseed, rate, offset)
     dh_p, dw_p, db_p = fused_dropout_matmul_backward_plain(h, w, g, dseed,
-                                                           rate)
+                                                           rate, offset)
     # y: a sum over C channels in another order; 1e-5 of max|y|
     y_err = float((y - y_p).abs().max())
     y_tol = 1e-5 * float(y_p.abs().max())
@@ -729,7 +815,8 @@ def check_fdm(torch, label: str, h, w, bias, g, dseed: int, rate: float,
     db_err = float((db - db_p).abs().max())
     db_tol = 1e-5 * float(g.abs().sum(dim=(0, 2, 3)).max())
     log(f"fused_dropout_matmul {label} [{'x'.join(map(str, h.shape))} -> "
-        f"{w.shape[1]}, rate {rate}]: 0 of {mask.numel()} keep decisions "
+        f"{w.shape[1]}, rate {rate}, element offset {offset}]: 0 of "
+        f"{mask.numel()} keep decisions "
         f"differ (keep fraction {keep_frac:.5f}); y max abs err {y_err:.4g} "
         f"(allowed {y_tol:.4g}); dh max abs err {dh_err:.4g}, {dh_dropped} "
         f"nonzero at dropped elements; dw max abs err {dw_err:.4g} (allowed "
@@ -871,6 +958,7 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
             check_fdm(torch, "odd shape",
                       *fdm_inputs(torch, rng, *FDM_ODD_SHAPE, odd_k), odd_rate,
                       (0.18, 0.22) if odd_rate else (1.0, 1.0))
+    offset = check_fdm_offset(torch, cases[0][1], cases[0][2], rate)
 
     # times: device time per call from the profiler (a ~0.03 ms kernel
     # behind a Python wrapper leaves the card idle between back-to-back
@@ -913,7 +1001,17 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
                 fused_dropout_matmul_plain(h, w, bias, dseed, rate),
             lambda h=h, w=w, g=g, dseed=dseed:
                 fused_dropout_matmul_backward_plain(h, w, g, dseed, rate)]
-    h = cases[0][1][0]
+    # the main shape's kernels at a data-parallel rank's element offset
+    h, w, bias, g, dseed = cases[0][1]
+    k_ = FDM_SHAPE[3]
+    fns += [lambda h=h, w=w, bias=bias, dseed=dseed:
+            fused_dropout_matmul_forward(h, w, bias, dseed, rate, offset),
+            lambda h=h, w=w, g=g, dseed=dseed:
+            fused_dropout_matmul_backward(h, w, g, dseed, rate, offset)]
+    expect += [{f"fdm_forward_kernel<{k_}>": 1},
+               {f"fdm_backward_kernel<{k_}>": 1,
+                "fdm_backward_reduce_kernel": 1}]
+    at_offset = 4 * len(cases)
     h_copy = torch.empty_like(h)
     fns += [h.sum, lambda: h_copy.copy_(h)]
     expect += [None, None]
@@ -932,6 +1030,8 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
             + ", ".join(f"{rounds[-1][4 * i]:.4f} / "
                         f"{rounds[-1][4 * i + 1]:.4f}"
                         for i in range(1, len(cases)))
+            + f"; main shape at element offset {offset} forward / backward "
+            f"{rounds[-1][at_offset]:.4f} / {rounds[-1][at_offset + 1]:.4f}"
             + f"; h summed {rounds[-1][len(fns) - 2]:.4f}, h copied "
             f"{rounds[-1][len(fns) - 1]:.4f}; clocks.sm, clocks.mem, "
             f"power.draw after it: {card_clocks()}")
@@ -950,6 +1050,26 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
                 f"{k} {statistics.median(p[i].get(k, 0.0) for p in parts):.4f}"
                 for k in kernels))
 
+    # the offset's cost: one 64-bit add to each lane's first counter. The
+    # kernel at the offset must time as at offset 0 within the phase's
+    # spread (the largest max - min over the rounds of any of the port's
+    # kernels timed here)
+    kernel_cols = [4 * i + j for i in range(len(cases)) for j in (0, 1)]
+    kernel_cols += [at_offset, at_offset + 1]
+    spread = max(max(r[c] for r in rounds) - min(r[c] for r in rounds)
+                 for c in kernel_cols)
+    offset_ms = (med[at_offset], med[at_offset + 1])
+    for j, direction in enumerate(("forward", "backward")):
+        diff = abs(offset_ms[j] - med[j])
+        log(f"fused_dropout_matmul {direction} at the main shape: "
+            f"{med[j]:.4f} ms at offset 0, {offset_ms[j]:.4f} ms at element "
+            f"offset {offset} (difference {diff:.4f} ms; the phase's spread "
+            f"{spread:.4f} ms)")
+        if diff > spread:
+            raise AssertionError(f"fused_dropout_matmul {direction}: the "
+                                 f"kernel at an element offset times "
+                                 f"{diff:.4f} ms away from offset 0, beyond "
+                                 f"the phase's spread {spread:.4f} ms")
     int_est = integer_pipe_ms(torch, FDM_SHAPE[3], h.numel())
     rows = []
     for i, (shape, (h, w, _, _, _), first) in enumerate(cases):
@@ -969,7 +1089,46 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
                 fdm_row_name(direction, shape), shape, med[4 * i + j],
                 plain[2 * i + j], med[4 * i + 2 + j], nbytes, nops, err,
                 line, rate, extra))
+            if i == 0:
+                rows[-1]["offset_ms"] = offset_ms[j]
     return rows
+
+
+def check_fdm_offset(torch, inputs, first: dict, rate: float) -> int:
+    """The main shape's kernels at a data-parallel rank's element offset:
+    against their plain versions there (check_fdm, masks bit for bit); the
+    offset's mask of rows FDM_OFFSET_ROWS.. equal to those rows of the
+    offset-0 mask of the whole batch; and the kernels on those rows alone,
+    at the offset, equal to the rows of the offset-0 run (y and dh, bit for
+    bit: each row's sums are the same in both). Returns the offset."""
+    from neuralbarkcalculator_tpu_torch.ops.fused_dropout_matmul import (
+        dropout_mask, fused_dropout_matmul_backward,
+        fused_dropout_matmul_forward)
+
+    h, w, bias, g, dseed = inputs
+    r0 = FDM_OFFSET_ROWS
+    offset = r0 * h[0].numel()
+    check_fdm(torch, "main shape at a rank's offset", h, w, bias, g, dseed,
+              rate, (0.18, 0.22), offset)
+    rows_mask = dropout_mask((h.shape[0] - r0, *h.shape[1:]), dseed, rate,
+                             offset, h.device)
+    same_mask = torch.equal(rows_mask, dropout_mask(
+        h.shape, dseed, rate, 0, h.device)[r0:])
+    part, g_part = h[r0:].contiguous(), g[r0:].contiguous()
+    y = fused_dropout_matmul_forward(part, w, bias, dseed, rate, offset)
+    dh, _, _ = fused_dropout_matmul_backward(part, w, g_part, dseed, rate,
+                                             offset)
+    torch.cuda.synchronize()
+    same_y = torch.equal(y, first["y"][r0:])
+    same_dh = torch.equal(dh, first["dh"][r0:])
+    log(f"fused_dropout_matmul rows {r0}-{h.shape[0] - 1} of the main shape "
+        f"at element offset {offset}: the mask equals those rows of the "
+        f"offset-0 mask {same_mask}; the kernels on those rows equal the "
+        f"offset-0 run's rows bit for bit: y {same_y}, dh {same_dh}")
+    if not (same_mask and same_y and same_dh):
+        raise AssertionError("fused_dropout_matmul at an element offset is "
+                             "not the global batch's rows")
+    return offset
 
 
 def make_train_root(data_dir: str, seed: int) -> None:
@@ -1438,6 +1597,632 @@ def zoo_train(torch, seed: int, root: str, workdir: str) -> dict:
         torch, seed, data_dir, workdir, ZOO_TRAIN_BF16, bf16=True)
     zoo_train_cli(torch, seed, data_dir, workdir)
     return out
+
+
+def predict_shard_child(torch, argv: list[str]) -> dict:
+    """The sharded-predict phase's child (``--predict-shard ARGV``):
+    cli/predict.main on ARGV with every launch count set to 0 just before
+    and read just after; returns them and the run's seconds."""
+    from neuralbarkcalculator_tpu_torch.cli.predict import build_parser, main
+
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    main(build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    return {"launches": {name: c.count for name, c in counters.items()},
+            "seconds": time.perf_counter() - t0}
+
+
+def copy_folder(src_root: str, dst_root: str, as_sources: bool) -> None:
+    """The main path's processed folder under `dst_root`, with empty
+    results/ folders; with `as_sources` also as its samples/ (1024-wide
+    sources that the preprocess leaves as they are, and finds done)."""
+    import shutil
+
+    src = os.path.join(src_root, "processed", "samples")
+    shutil.copytree(src, os.path.join(dst_root, "processed", "samples"))
+    if as_sources:
+        shutil.copytree(src, os.path.join(dst_root, "samples"))
+    for wood in os.listdir(src):
+        for sub in ("combined_images", "outputs"):
+            os.makedirs(os.path.join(dst_root, "results", sub, wood))
+
+
+def phase_sharded_predict(torch, workdir: str, main_root: str, ckpt: str,
+                          main_seconds: float, f32_agreement: float,
+                          card: str) -> list[int]:
+    """Sharded folder prediction on the card: `cli/predict --shard k/N
+    --float32` for k < SHARDS as concurrent child processes over the main
+    path's folder and checkpoint (shard 0 owns the preprocess, which finds
+    every image done, and merges), against the single-process float32
+    engine over a copy of the folder. Every artifact exactly once, the
+    merged CSV's names and order equal, the rows whose bytes differ
+    counted, the dual masks agreeing on >= SHARD_AGREE_FLOOR of pixels
+    (cuDNN may take other algorithms for other batch compositions: byte
+    identity is held in the CPU tests). Each shard's launch counts are set
+    to 0 before its run and read after; each must launch upsample_argmax.
+    Returns the shards' upsample_argmax launches."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    single_root = os.path.join(workdir, "single_f32")
+    shard_root = os.path.join(workdir, "sharded")
+    copy_folder(main_root, single_root, False)
+    copy_folder(main_root, shard_root, True)
+    f32 = NeuralBarkCalculator(
+        ckpt, config=PredictConfig(model_path=ckpt, use_bfloat16=False,
+                                   figure_dpi=DPI))
+    f32.predict(single_root, progress=False)  # warm-up
+    t0 = time.perf_counter()
+    with open(f32.predict(single_root, progress=False), "rb") as f:
+        single = f.read()
+    single_s = time.perf_counter() - t0
+    del f32
+
+    argv = [shard_root, "--model_path", ckpt, "--float32", "--dpi", str(DPI),
+            "--preprocess_backend", "device"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--predict-shard",
+         *argv, "--shard", f"{k}/{SHARDS}"], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(SHARDS)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    shards = []
+    for k, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"shard {k}/{SHARDS} exited {p.returncode}: "
+                               f"{err[-3000:]}")
+        shards.append(json.loads(out.strip().splitlines()[-1]))
+
+    results = os.path.join(shard_root, "results")
+    with open(os.path.join(results, "final_stats.csv"), "rb") as f:
+        merged = f.read()
+    leftovers = [n for n in os.listdir(results) if ".shard-" in n]
+    got_rows, want_rows = (merged.decode().splitlines(),
+                           single.decode().splitlines())
+    same_names = ([r.split("\t")[:2] for r in got_rows]
+                  == [r.split("\t")[:2] for r in want_rows])
+    differ = sum(a != b for a, b in zip(got_rows, want_rows))
+    agree = total = 0
+    for row in want_rows[1:]:
+        fname, wood = row.split("\t")[:2]
+        for sub in ("combined_images", "outputs"):
+            if not os.path.isfile(os.path.join(results, sub, wood, fname)):
+                raise AssertionError(f"sharded run: missing {sub}/{fname}")
+        a = load_image_u8(os.path.join(results, "outputs", wood, fname),
+                          grayscale=True)
+        b = load_image_u8(os.path.join(single_root, "results", "outputs",
+                                       wood, fname), grayscale=True)
+        agree += int((a == b).sum())
+        total += b.size
+    counts = {sub: sum(len(files) for _, _, files in os.walk(
+        os.path.join(results, sub))) for sub in ("combined_images",
+                                                 "outputs")}
+    launches = [sh["launches"]["upsample_argmax"] for sh in shards]
+    log(f"sharded predict ({card}): {SHARDS} processes of cli/predict "
+        f"--shard k/{SHARDS} --float32 on one card over the {N_IMAGES}-image "
+        f"folder: wall {wall:.3f} s from launch to both exits (process start "
+        f"and model load included); the shards' own CLI runs "
+        f"{[round(sh['seconds'], 3) for sh in shards]} s; launches "
+        f"{[sh['launches'] for sh in shards]}; single-process float32 "
+        f"engine, warm pass {single_s:.3f} s; the main path's bf16 warm "
+        f"pass {main_seconds:.3f} s")
+    log(f"sharded predict: merged final_stats.csv {len(got_rows) - 1} rows, "
+        f"names and order equal {same_names}; "
+        f"{differ} rows differ in bytes from the single process's; dual "
+        f"masks agree on {agree / total:.6f} of pixels (floor "
+        f"{SHARD_AGREE_FLOOR}; the float32 engine against the per-image "
+        f"reference {f32_agreement:.6f}); artifacts {counts}; shard files "
+        f"left {leftovers}")
+    if not same_names or leftovers \
+            or counts != {"combined_images": N_IMAGES, "outputs": N_IMAGES}:
+        raise AssertionError("sharded predict: the merged CSV's rows or the "
+                             "artifacts differ from the single process's")
+    if agree / total < SHARD_AGREE_FLOOR:
+        raise AssertionError(f"sharded predict: masks agree on "
+                             f"{agree / total:.6f} < {SHARD_AGREE_FLOOR}")
+    if min(launches) == 0 or any(
+            sh["launches"]["fused_dropout_matmul_fwd"]
+            or sh["launches"]["fused_dropout_matmul_bwd"] for sh in shards):
+        raise AssertionError(f"sharded predict launches: "
+                             f"{[sh['launches'] for sh in shards]}")
+    return launches
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def recorded_train_run(torch, argv: list[str], env: dict,
+                       backend: str | None = None, nudge: bool = False
+                       ) -> dict:
+    """cli/train.main on ARGV with ENV added to the environment and every
+    launch count set to 0 just before and read just after. Records the
+    flattened parameters before the first step and the gradients of the
+    first; after each step the loss, the flattened parameters and the
+    BatchNorms' running statistics; each fused_dropout_matmul call's
+    (seed, element offset, shape); the collectives issued; the
+    device-clock step times and the peak memory.
+    BACKEND, when given, is the process group's backend in place of
+    initialize_distributed's choice. NUDGE moves every weight one float32
+    ulp up after recording them, before the first step: the same step from
+    weights float32 cannot tell apart."""
+    import functools
+
+    import torch.distributed as dist
+
+    from neuralbarkcalculator_tpu_torch.cli.train import (build_parser,
+                                                          main as train_main)
+    from neuralbarkcalculator_tpu_torch.models import heads
+    from neuralbarkcalculator_tpu_torch.parallel import distributed
+    from neuralbarkcalculator_tpu_torch.parallel.sync_bn import (
+        CrossRankBatchNorm2d)
+    from neuralbarkcalculator_tpu_torch.train import loop
+
+    real = (loop.train_step, heads.fused_dropout_matmul, dist.all_gather,
+            dist.all_reduce, distributed.initialize_distributed)
+    rec = {"params": [], "bn": [], "losses": [], "masks": [],
+           "backend": None, "collectives": {"all_gather": 0,
+                                            "all_reduce": 0}}
+
+    def flat(tensors):
+        return torch.cat([t.detach().flatten().float() for t in tensors])
+
+    def step(*args, **kwargs):
+        model = args[0]
+        first = not rec["params"]
+        if first:
+            rec["before"] = flat(model.parameters())
+            rec["names"] = [n for n, _ in model.named_parameters()]
+            rec["sizes"] = [p.numel() for p in model.parameters()]
+            if nudge:
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.copy_(torch.nextafter(p, torch.full_like(
+                            p, float("inf"))))
+        metrics = real[0](*args, **kwargs)
+        if first:
+            rec["grads"] = flat(p.grad for p in model.parameters())
+        rec["params"].append(flat(model.parameters()))
+        rec["bn"].append(flat(v for k, v in model.state_dict().items()
+                              if ".running_" in k))
+        rec["losses"].append(metrics["loss"].clone())
+        if dist.is_initialized():
+            rec["backend"] = dist.get_backend()
+        return metrics
+
+    def fdm(h, w, b, dseed, rate, offset=0):
+        rec["masks"].append((dseed, offset, tuple(h.shape)))
+        return real[1](h, w, b, dseed, rate, offset)
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            rec["collectives"][name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    loop.train_step, heads.fused_dropout_matmul = step, fdm
+    dist.all_gather = counted("all_gather", real[2])
+    dist.all_reduce = counted("all_reduce", real[3])
+    if backend is not None:
+        distributed.initialize_distributed = functools.partial(
+            real[4], backend=backend)
+    os.environ.update(env)
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    try:
+        exp = train_main(build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+    finally:
+        for k in env:
+            del os.environ[k]
+        (loop.train_step, heads.fused_dropout_matmul, dist.all_gather,
+         dist.all_reduce, distributed.initialize_distributed) = real
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = {name: c.count for name, c in counters.items()}
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["steps"] = exp.step_count
+    rec["step_s"] = exp.step_seconds
+    rec["epoch"] = exp.history[0].as_dict()
+    rec["cross_rank_bn"] = sum(isinstance(m, CrossRankBatchNorm2d)
+                               for m in exp.model.modules())
+    return rec
+
+
+def torchrun_env(rank: int, size: int, port: int) -> dict:
+    """torchrun's variables for rank RANK of SIZE on this machine's one
+    card, with the env:// rendezvous at localhost:PORT."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(size), "LOCAL_RANK": "0",
+            "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+
+def train_argv(workdir: str, label: str, seed: int, *extra: str
+               ) -> list[str]:
+    """cli/train's arguments for one epoch on the train phase's dataset,
+    without the report, into WORKDIR/train_LABEL."""
+    return [os.path.join(workdir, f"train_{label}"), "--data_dir",
+            os.path.join(workdir, "train_root", "Images", "1024_with_jedi"),
+            "--seed", str(seed), "--epochs", "1", "--no_report", *extra]
+
+
+def phase_train_nccl(torch, seed: int, workdir: str, train_step_ms: float,
+                     card: str) -> dict:
+    """Data-parallel training at world size 1 over NCCL: cli/train.main
+    under torchrun's environment (RANK 0, WORLD_SIZE 1, LOCAL_RANK 0, a
+    free MASTER_PORT) with --distributed, so the model's BatchNorms are
+    cross-rank, the loss's inputs are gathered and the gradients
+    all-reduced through NCCL on the card; then the same run without it.
+    Phase 4's dataset, the full-width fcn_resnet50, batch 5 at crop 512,
+    one epoch (24 train images / 5 = 4 steps), no report, cuDNN's
+    deterministic algorithms on for both. The two runs' losses, parameters
+    after each step and dropout masks (the kernel's seed, element offset
+    and shape) must be equal bit for bit, fused_dropout_matmul forward and
+    backward launched once a step in each, and the NCCL run must have
+    issued its collectives. At one rank the cross-rank BatchNorm is torch's
+    own and the collectives copy: the two-rank phase runs their arithmetic
+    on the card."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {
+            "nccl": recorded_train_run(
+                torch, train_argv(workdir, "nccl", seed, "--samples_factor",
+                                  "1", "--distributed"),
+                torchrun_env(0, 1, free_port())),
+            "plain": recorded_train_run(
+                torch, train_argv(workdir, "plain", seed, "--samples_factor",
+                                  "1"), {})}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    a, b = runs["nccl"], runs["plain"]
+    steps = a["steps"]
+    loss_diff = max(float((x - y).abs()) for x, y in zip(a["losses"],
+                                                         b["losses"]))
+    param_diff = max(float((x - y).abs().max()) for x, y in zip(a["params"],
+                                                                b["params"]))
+    bitwise = (len(a["params"]) == len(b["params"]) == steps
+               and all(torch.equal(x, y) for x, y in zip(a["params"],
+                                                        b["params"]))
+               and all(torch.equal(x, y) for x, y in zip(a["losses"],
+                                                        b["losses"])))
+    warm = {k: statistics.median(r["step_s"][1:]) * 1e3
+            for k, r in runs.items()}
+    log(f"train NCCL world size 1 ({card}): backend {a['backend']}, "
+        f"{a['cross_rank_bn']} cross-rank BatchNorms, collectives "
+        f"{a['collectives']}; {steps} steps; losses "
+        f"{[round(float(x), 6) for x in a['losses']]}; against the run "
+        f"without a process group: losses and parameters after each step "
+        f"bit for bit {bitwise} (largest differences: loss {loss_diff:.3g}, "
+        f"parameter {param_diff:.3g}); masks (seed, element offset, shape) "
+        f"equal {a['masks'] == b['masks']}; launches NCCL {a['launches']}, "
+        f"plain {b['launches']}")
+    log(f"train NCCL world size 1 ({card}): warm step (device clock, steps "
+        f"2..{steps}) {warm['nccl']:.3f} ms with NCCL, {warm['plain']:.3f} ms "
+        f"without; phase 4's {train_step_ms:.3f} ms; whole CLI runs "
+        f"{a['seconds']:.3f} s / {b['seconds']:.3f} s")
+    if a["backend"] != "nccl" or not a["cross_rank_bn"] \
+            or not a["collectives"]["all_gather"] \
+            or not a["collectives"]["all_reduce"] or b["cross_rank_bn"]:
+        raise AssertionError("the NCCL run did not run the data-parallel "
+                             "path through NCCL")
+    if not bitwise or a["masks"] != b["masks"]:
+        raise AssertionError("the world-size-1 NCCL step differs from the "
+                             "single-process step")
+    for r in runs.values():
+        if r["launches"]["fused_dropout_matmul_fwd"] != steps \
+                or r["launches"]["fused_dropout_matmul_bwd"] != steps:
+            raise AssertionError(f"fused_dropout_matmul launches "
+                                 f"{r['launches']} in {steps} steps")
+    return {"launches": a["launches"], "step_ms": warm["nccl"]}
+
+
+def cross_rank_bn_check(torch, world, seed: int) -> dict:
+    """This rank's CrossRankBatchNorm2d over WORLD on its rows of a global
+    BN_CHECK_SHAPE batch from SEED, in float32 and under bf16 autocast
+    (its input bf16, as a conv's output is there): two train-mode forwards
+    and the backward of the second, against the same on the whole batch
+    in float64 (torch's own BN kernel) from the same values, the bf16 ones
+    rounded as the cross-rank module receives them; and nn.BatchNorm2d
+    (cuDNN) on the whole batch against the float64 one too. Returns per
+    type each quantity's largest difference over the float64 one's
+    largest value for both, and the peak memory above the input of the
+    cross-rank module and of nn.BatchNorm2d on the same rows."""
+    from neuralbarkcalculator_tpu_torch.parallel.sync_bn import (
+        CrossRankBatchNorm2d)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    channels = BN_CHECK_SHAPE[1]
+    x = torch.randn(BN_CHECK_SHAPE, generator=gen, device="cuda") * 2 + 1.5
+    gy = torch.randn(BN_CHECK_SHAPE, generator=gen, device="cuda")
+    weight = torch.rand(channels, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(channels, generator=gen, device="cuda") * 0.1
+    rows = world.rank_slice(BN_CHECK_SHAPE[0])
+
+    def run(bn, xs, gys, bf16: bool) -> dict:
+        bn = bn.cuda().train()
+        with torch.no_grad():
+            bn.weight.copy_(weight)
+            bn.bias.copy_(bias)
+        xin = xs.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+            with torch.no_grad():
+                bn(xin)
+            y = bn(xin)
+        y.backward(gys.to(y.dtype))
+        if isinstance(bn, CrossRankBatchNorm2d):
+            world.all_reduce_grads(bn.parameters())
+        torch.cuda.synchronize()
+        return {"y": y.detach(), "dx": xin.grad, "dw": bn.weight.grad,
+                "db": bn.bias.grad, "mean": bn.running_mean,
+                "var": bn.running_var,
+                "peak_gib": (torch.cuda.max_memory_allocated() - base)
+                / 2 ** 30}
+
+    def errors(got, want, mine) -> dict:
+        return {k: float((got[k].double() - (want[k][rows] if mine and k in
+                                             ("y", "dx") else want[k])
+                          ).abs().max() / want[k].abs().max())
+                for k in ("y", "dx", "dw", "db", "mean", "var")}
+
+    out = {}
+    for label, bf16 in (("float32", False), ("bf16", True)):
+        xs, gys = (x.bfloat16(), gy.bfloat16()) if bf16 else (x, gy)
+        exact = run(torch.nn.BatchNorm2d(channels).double(), xs.double(),
+                    gys.double(), False)
+        got = run(CrossRankBatchNorm2d(channels, world), xs[rows], gys[rows],
+                  bf16)
+        cudnn = run(torch.nn.BatchNorm2d(channels), xs, gys, bf16)
+        plain_rows = run(torch.nn.BatchNorm2d(channels), xs[rows], gys[rows],
+                         bf16)
+        out[label] = {"cross_rank": errors(got, exact, True),
+                      "cudnn": errors(cudnn, exact, False),
+                      "peak_gib": got["peak_gib"],
+                      "plain_peak_gib": plain_rows["peak_gib"]}
+    return out
+
+
+def train_rank_child(torch, rank: int, port: int, workdir: str, seed: int
+                     ) -> dict:
+    """The two-rank phase's child (``--train-rank``): rank RANK of
+    TWO_RANKS on the one card, cli/train.main --distributed over gloo
+    (NCCL refuses two ranks on one device), the recorded run saved to
+    WORKDIR for the parent; returns its summary. First the cross-rank
+    BatchNorm alone (cross_rank_bn_check), in the same process group."""
+    from neuralbarkcalculator_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+
+    env = torchrun_env(rank, TWO_RANKS, port)
+    os.environ.update(env)
+    try:
+        bn_check = cross_rank_bn_check(
+            torch, initialize_distributed(backend="gloo"), seed)
+    finally:
+        for k in env:
+            del os.environ[k]
+    torch.cuda.empty_cache()
+    rec = recorded_train_run(
+        torch, train_argv(workdir, "two_ranks", seed, *TWO_RANK_ARGS,
+                          "--distributed"),
+        env, backend="gloo")
+    torch.save({k: v for k, v in rec.items() if k != "step_s"},
+               os.path.join(workdir, f"two_ranks-{rank}.pt"))
+    return {"bn_check": bn_check,
+            **{k: rec[k] for k in ("launches", "collectives", "backend",
+                                   "cross_rank_bn", "peak_gib", "steps",
+                                   "step_s", "seconds", "epoch")}}
+
+
+def worst_tensor(ref: dict, got, want) -> tuple[float, float, str]:
+    """Over REF's parameter tensors, the lowest cosine between GOT's and
+    WANT's flattened values and the largest L2 norm of their difference
+    over WANT's, with the name of the tensor of the lowest cosine."""
+    worst = (1.0, 0.0, "")
+    for name, u, v in zip(ref["names"], got.double().split(ref["sizes"]),
+                          want.double().split(ref["sizes"])):
+        nv = float(v.norm())
+        if nv == 0.0:
+            continue
+        cos = float(u @ v) / max(float(u.norm()) * nv, 1e-300)
+        worst = (min(worst[0], cos), max(worst[1], float((u - v).norm()) / nv),
+                 name if cos < worst[0] else worst[2])
+    return worst
+
+
+def stage_errors(ref: dict, got, want) -> dict[str, float]:
+    """The L2 norm of GOT - WANT over WANT's per stage of the network
+    (the first two parts of a parameter's name: backbone.layer1, ...,
+    classifier.1), from the output back to the input."""
+    sums: dict[str, list[float]] = {}
+    for name, u, v in zip(ref["names"], got.double().split(ref["sizes"]),
+                          want.double().split(ref["sizes"])):
+        part = sums.setdefault(".".join(name.split(".")[:2]), [0.0, 0.0])
+        part[0] += float((u - v).norm()) ** 2
+        part[1] += float(v.norm()) ** 2
+    return {k: round((d / w) ** 0.5, 9)
+            for k, (d, w) in reversed(sums.items()) if w}
+
+
+def first_update(r: dict):
+    """The first step's change of the flattened parameters."""
+    return r["params"][0] - r["before"]
+
+
+def phase_train_two_ranks(torch, seed: int, workdir: str,
+                          train_step_ms: float, card: str) -> list[dict]:
+    """The cross-rank arithmetic on the card: two ranks of cli/train
+    --distributed as child processes of this script sharing the one card
+    over gloo (its collectives take CUDA tensors; NCCL refuses two ranks on
+    one device), against cli/train without a process group at the same
+    global batch. Phase 4's dataset, the full-width fcn_resnet50, float32,
+    global batch TWO_RANK_BATCH at crop 512 (each rank the main path's
+    [5, 512, 64, 64] head input), one epoch of 4 steps and its padded
+    validation. The cross-rank BatchNorms take their statistics through two
+    all-reduces each, the loss's inputs are gathered and the gradients
+    summed. A third run, one process from weights moved one ulp (NUDGE),
+    gives float32's reach. Held: the ranks' losses and parameters after each step equal bit for
+    bit; each rank's masks the global batch's rows (the same seed, the
+    element offset rank x 5 x 512 x 64 x 64); the first step, from equal
+    weights, against the one-process step as the CPU tests hold two ranks
+    to one process, its gradients within TWO_RANK_FLOOR_FACTOR of the
+    nudged run's by stage (TWO_RANK_*); the cross-rank BN alone
+    (cross_rank_bn_check, each rank) within BN_CHECK_TOL; the epoch's mean
+    loss within
+    TWO_RANK_EPOCH_LOSS_TOL; fused_dropout_matmul forward and backward once
+    a step on each rank. Prints the first step's gradient error by stage
+    and its Adam updates, and both runs' warm step times and peak memory.
+    Returns each rank's launches."""
+    import math
+
+    port = free_port()
+    ref = recorded_train_run(
+        torch, train_argv(workdir, "one_process", seed, *TWO_RANK_ARGS), {})
+    floor = recorded_train_run(
+        torch, train_argv(workdir, "one_process_nudged", seed,
+                          *TWO_RANK_ARGS), {}, nudge=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-rank",
+         str(rank), str(port), workdir, str(seed)], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(TWO_RANKS)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    summaries = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {rank}/{TWO_RANKS} exited "
+                               f"{p.returncode}: {err[-3000:]}")
+        summaries.append(json.loads(out.strip().splitlines()[-1]))
+    ranks = [torch.load(os.path.join(workdir, f"two_ranks-{rank}.pt"),
+                        map_location="cuda") for rank in range(TWO_RANKS)]
+    steps = ref["steps"]
+    r0 = ranks[0]
+    ranks_equal = all(
+        len(r["params"]) == steps
+        and all(torch.equal(x, y) for x, y in zip(r["params"], r0["params"]))
+        and all(torch.equal(x, y) for x, y in zip(r["losses"], r0["losses"]))
+        for r in ranks)
+    rows = ref["masks"][0][2][0] // TWO_RANKS
+    masks_ok = all(
+        len(r["masks"]) == len(ref["masks"]) == steps
+        and all(m[0] == g[0] and m[1] == rank * rows * math.prod(g[2][1:])
+                and m[2] == (rows, *g[2][1:])
+                for m, g in zip(r["masks"], ref["masks"]))
+        for rank, r in enumerate(ranks))
+
+    def loss_rel(r):
+        return [abs(float(a) - float(b)) / abs(float(b))
+                for a, b in zip(r["losses"], ref["losses"])]
+
+    def bn_beyond(r):
+        diff = (r["bn"][0] - ref["bn"][0]).abs()
+        bound = TWO_RANK_BN_RTOL * ref["bn"][0].abs() + TWO_RANK_BN_ATOL
+        return float(diff.max()), int((diff > bound).sum())
+
+    epoch_rel = abs(r0["epoch"]["loss"] - ref["epoch"]["loss"]) \
+        / abs(ref["epoch"]["loss"])
+    grads = worst_tensor(ref, r0["grads"], ref["grads"])
+    update = worst_tensor(ref, first_update(r0), first_update(ref))
+    stages = stage_errors(ref, r0["grads"], ref["grads"])
+    floor_stages = stage_errors(ref, floor["grads"], ref["grads"])
+    over = [k for k, e in stages.items()
+            if e > TWO_RANK_FLOOR_FACTOR * floor_stages[k]]
+    bn_checks = [s["bn_check"] for s in summaries]
+    bn_fails = [(rank, label, k) for rank, c in enumerate(bn_checks)
+                for label, tols in BN_CHECK_TOL.items()
+                for k, tol in tols.items()
+                if not c[label]["cross_rank"][k] <= tol]
+    warm = [statistics.median(s["step_s"][1:]) * 1e3 for s in summaries]
+    log(f"train two ranks on one card ({card}): backend "
+        f"{[s['backend'] for s in summaries]}, "
+        f"{summaries[0]['cross_rank_bn']} cross-rank BatchNorms, collectives "
+        f"{summaries[0]['collectives']}; {steps} steps of global batch "
+        f"{TWO_RANK_BATCH}; ranks bit for bit {ranks_equal}; masks the "
+        f"global batch's rows {masks_ok}; launches "
+        f"{[s['launches'] for s in summaries]}")
+    log(f"train two ranks against one process: losses "
+        f"{[round(float(x), 6) for x in r0['losses']]} / "
+        f"{[round(float(x), 6) for x in ref['losses']]}, relative "
+        f"differences {[f'{x:.3g}' for x in loss_rel(r0)]} (step 1 <= "
+        f"{TWO_RANK_LOSS_TOL}); the epoch's mean loss {epoch_rel:.3g} (<= "
+        f"{TWO_RANK_EPOCH_LOSS_TOL}); BN running statistics after step 1: "
+        f"largest difference and count beyond rtol {TWO_RANK_BN_RTOL} / "
+        f"atol {TWO_RANK_BN_ATOL} of {ref['bn'][0].numel()}: "
+        f"{bn_beyond(r0)}")
+    log(f"train two ranks against one process, step 1: gradients' relative "
+        f"L2 by stage, output first, {stages}; the nudged one-process run's "
+        f"{floor_stages} (stages beyond {TWO_RANK_FLOOR_FACTOR} x: {over}); "
+        f"worst tensor (cosine, relative L2, tensor) {grads}, nudged "
+        f"{worst_tensor(ref, floor['grads'], ref['grads'])}; Adam updates "
+        f"{update}, nudged "
+        f"{worst_tensor(ref, first_update(floor), first_update(ref))}; "
+        f"nudged loss {loss_rel(floor)[0]:.3g}, BN {bn_beyond(floor)}")
+    log(f"cross-rank BN alone on the card ({card}), "
+        f"{list(BN_CHECK_SHAPE)} over {TWO_RANKS} ranks, and cuDNN's on the "
+        f"whole batch, against float64 on the whole batch (largest "
+        f"difference over the largest value), with the peak memory above "
+        f"the input of the cross-rank module and of nn.BatchNorm2d on the "
+        f"same rows in GiB: {bn_checks} (bounds {BN_CHECK_TOL}; beyond: "
+        f"{bn_fails})")
+    log(f"train two ranks ({card}): warm step (device clock, steps "
+        f"2..{steps}, two ranks sharing one card over gloo) "
+        f"{[round(w, 3) for w in warm]} ms, peak memory "
+        f"{[round(s['peak_gib'], 3) for s in summaries]} GiB; one process at "
+        f"batch {TWO_RANK_BATCH}: "
+        f"{statistics.median(ref['step_s'][1:]) * 1e3:.3f} ms, "
+        f"{ref['peak_gib']:.3f} GiB; phase 4's step at batch 5 "
+        f"{train_step_ms:.3f} ms; wall from launch to both exits "
+        f"{wall:.3f} s, the ranks' own CLI runs "
+        f"{[round(s['seconds'], 3) for s in summaries]} s")
+    if any(s["backend"] != "gloo" or not s["cross_rank_bn"]
+           or not s["collectives"]["all_gather"]
+           or not s["collectives"]["all_reduce"] for s in summaries) \
+            or ref["cross_rank_bn"]:
+        raise AssertionError("the two-rank run did not run the "
+                             "data-parallel path")
+    if not ranks_equal or not masks_ok:
+        raise AssertionError("the two ranks' steps differ, or their masks "
+                             "are not the global batch's rows")
+    if loss_rel(r0)[0] > TWO_RANK_LOSS_TOL \
+            or epoch_rel > TWO_RANK_EPOCH_LOSS_TOL or bn_beyond(r0)[1] \
+            or over or bn_fails:
+        raise AssertionError("the two-rank step differs from the "
+                             "one-process step")
+    for s in (*summaries, ref):
+        if s["launches"]["fused_dropout_matmul_fwd"] != steps \
+                or s["launches"]["fused_dropout_matmul_bwd"] != steps:
+            raise AssertionError(f"fused_dropout_matmul launches "
+                                 f"{s['launches']} in {steps} steps")
+    return [s["launches"] for s in summaries]
 
 
 def phase_zoo_train(torch, seed: int, workdir: str) -> dict:
@@ -2985,6 +3770,13 @@ def main() -> int:
     parser.add_argument("--zoo-train", dest="zoo_train", nargs=2,
                         metavar=("TRAIN_ROOT", "WORKDIR"), default=None,
                         help=argparse.SUPPRESS)  # the zoo train phase's child
+    parser.add_argument("--predict-shard", dest="predict_shard",
+                        nargs=argparse.REMAINDER, default=None,
+                        help=argparse.SUPPRESS)  # a sharded-predict child
+    parser.add_argument("--train-rank", dest="train_rank", nargs=4,
+                        metavar=("RANK", "PORT", "WORKDIR", "SEED"),
+                        default=None,
+                        help=argparse.SUPPRESS)  # a two-rank phase child
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(REPO, "neuralbarkcalculator_tpu_torch")):
         print("chip_smoke: the neuralbarkcalculator_tpu_torch package is not "
@@ -2999,6 +3791,15 @@ def main() -> int:
     if args.zoo_train:
         result = zoo_train(torch, args.seed, *args.zoo_train)
         print(json.dumps(result), flush=True)
+        return 0
+    if args.predict_shard:
+        print(json.dumps(predict_shard_child(torch, args.predict_shard)),
+              flush=True)
+        return 0
+    if args.train_rank:
+        rank, port, workdir, seed = args.train_rank
+        print(json.dumps(train_rank_child(torch, int(rank), int(port),
+                                          workdir, int(seed))), flush=True)
         return 0
 
     def timed(label: str, fn, *fn_args):
@@ -3017,10 +3818,15 @@ def main() -> int:
                           workdir)
         kernel["launches"] = main_path["launches"]
         timed("profile", phase_profile, torch, main_path)
-        timed("reference", phase_reference, torch, main_path["engine"],
-              main_path["ckpt"], folder_items(main_path["root"], range(4)))
+        f32_agreement = timed(
+            "reference", phase_reference, torch, main_path["engine"],
+            main_path["ckpt"], folder_items(main_path["root"], range(4)))
         ckpt, main_root = main_path["ckpt"], main_path["root"]
+        main_seconds = main_path["seconds"]
         del main_path
+        kernel["shard_launches"] = timed(
+            "sharded predict", phase_sharded_predict, torch, workdir,
+            main_root, ckpt, main_seconds, f32_agreement, card)
         scans = timed("preprocess", phase_preprocess, torch, args.seed,
                       workdir, card)
         timed("cli resume", phase_cli_resume, torch, scans["root"], ckpt,
@@ -3037,6 +3843,10 @@ def main() -> int:
         kernel["int8_launches"] = {name: int8[name]["launches"]
                                    for name in INT8_MODELS}
         train = timed("train", phase_train, torch, args.seed, workdir)
+        nccl = timed("train nccl", phase_train_nccl, torch, args.seed,
+                     workdir, train["step_ms"], card)
+        two_ranks = timed("train two ranks", phase_train_two_ranks, torch,
+                          args.seed, workdir, train["step_ms"], card)
         zoo_train_runs = timed("zoo train", phase_zoo_train, torch,
                                args.seed, workdir)
         for row in fdm:
@@ -3045,6 +3855,12 @@ def main() -> int:
                       else zoo_train_runs[FDM_EFFNET_MODELS[
                           tuple(row["shape"])]]["launches"])
             row["launches"] = counts[f"fused_dropout_matmul_{direction}"]
+            if tuple(row["shape"]) == FDM_SHAPE:
+                row["nccl_launches"] = nccl["launches"][
+                    f"fused_dropout_matmul_{direction}"]
+                row["two_rank_launches"] = [
+                    r[f"fused_dropout_matmul_{direction}"]
+                    for r in two_ranks]
     timed("train vs cpu", phase_train_vs_cpu, torch, args.seed)
     print(json.dumps({"kernels": [kernel, *fdm]}), flush=True)
     print(card, flush=True)

@@ -3,7 +3,8 @@ parity).
 
 Usage: ``python -m neuralbarkcalculator_tpu_torch.cli.predict ROOT_DIR
 [--device {cuda,cpu}] [--exclude_nodes] [--only_preprocess] [--resume]
-[--preprocess_backend {auto,device,host}] [--watch SECS] [--int8]``
+[--preprocess_backend {auto,device,host}] [--watch SECS] [--int8]
+[--shard K/N]``
 
 Runs on the card by default (``--device cuda``) and raises when there is
 none; ``--device cpu`` runs the same path on the CPU. It creates the
@@ -14,6 +15,14 @@ sequentially. ``--resume`` skips images already processed and predicted;
 images, until interrupted. ``--int8`` quantizes the model on the first
 batch (models/quantize.py); an offline int8 checkpoint as
 ``--model_path`` runs int8 without it.
+
+``--shard K/N`` predicts manifest indices i % N == K on this process's
+card (``cuda:LOCAL_RANK``) and writes a per-shard CSV; shard 0 owns the
+preprocess, the others wait for its PNGs, and shard 0 merges the N CSVs
+into the final_stats.csv a single process writes (pipeline/multihost.py).
+Run one process per card (N shells, or ``torchrun --nproc_per_node N``
+with ``--shard $RANK/$WORLD_SIZE`` in a wrapper) or per host over a
+shared filesystem: the shards never talk to each other.
 """
 from __future__ import annotations
 
@@ -78,7 +87,26 @@ def build_parser() -> argparse.ArgumentParser:
                         help="rescan ROOT every SECS seconds, preprocessing "
                              "and predicting only new images (incremental "
                              "resume); Ctrl-C to stop")
+    parser.add_argument("--shard", type=str, default=None, metavar="K/N",
+                        help="sharded folder prediction: this process "
+                             "computes manifest indices i%%N==K and writes "
+                             "a per-shard CSV; the K=0 process waits for "
+                             "the others and merges final_stats.csv "
+                             "(pipeline/multihost.py). Launch one process "
+                             "per card or host with K=0..N-1 over a shared "
+                             "filesystem")
     return parser
+
+
+def parse_shard(text: str) -> tuple[int, int]:
+    """``K/N`` -> (K, N); exits with a message unless 0 <= K < N."""
+    try:
+        k, n = (int(x) for x in text.split("/"))
+    except ValueError:
+        raise SystemExit(f"--shard must look like K/N, got {text!r}")
+    if not 0 <= k < n:
+        raise SystemExit(f"--shard {text}: need 0 <= K < N")
+    return k, n
 
 
 def main(args: argparse.Namespace) -> None:
@@ -86,7 +114,10 @@ def main(args: argparse.Namespace) -> None:
 
     from ..config import PredictConfig
     from ..data.dataset import make_dataset
+    from ..parallel.distributed import local_device
     from ..pipeline.folders import generate_folders
+    from ..pipeline.multihost import (predict_folder_multihost,
+                                      wait_for_processed)
     from ..pipeline.predict import NeuralBarkCalculator
     from ..pipeline.preprocess import Preprocessor
 
@@ -99,6 +130,8 @@ def main(args: argparse.Namespace) -> None:
         config.use_bfloat16 = False
     if args.int8:
         config.quantize_int8 = True
+    shard = None if args.shard is None else parse_shard(args.shard)
+    device = local_device(args.device)
 
     model = None
 
@@ -107,13 +140,31 @@ def main(args: argparse.Namespace) -> None:
         if model is None:
             model = NeuralBarkCalculator(args.model_path, config=config,
                                          model_name=args.model,
-                                         device=args.device)
+                                         device=device)
         return model
 
+    def run_shard(resume: bool) -> None:
+        # PNG writes are not atomic, so shard 0 alone preprocesses; the
+        # others wait for every processed PNG, which also gives every
+        # shard the same manifest to take its indices from
+        if shard[0] == 0:
+            generate_folders(args.root_path, args.only_preprocess)
+            Preprocessor(backend=args.preprocess_backend,
+                         device=device).preprocess_images(args.root_path,
+                                                          resume=True)
+        else:
+            wait_for_processed(args.root_path)
+        if not args.only_preprocess:
+            predict_folder_multihost(
+                engine(), args.root_path, args.exclude_nodes,
+                process_id=shard[0], num_processes=shard[1], resume=resume)
+
     def run_once(resume: bool) -> None:
+        if shard is not None:
+            run_shard(resume)
+            return
         generate_folders(args.root_path, args.only_preprocess)
-        pre = Preprocessor(backend=args.preprocess_backend,
-                           device=args.device)
+        pre = Preprocessor(backend=args.preprocess_backend, device=device)
         if args.only_preprocess:
             pre.preprocess_images(args.root_path, resume=resume)
         elif resume:

@@ -12,6 +12,14 @@ epochs, the test split, then the evaluation report. The sizing flags
 shrink a run; their defaults are the reference recipe's. Every option of
 the JAX package's CLI is here but ``--mpl`` (the matplotlib renderer is
 not ported).
+
+Several cards: one process per card, ``torchrun --nproc_per_node N -m
+neuralbarkcalculator_tpu_torch.cli.train ROOT_DIR ...``. Under torchrun
+(``WORLD_SIZE`` > 1), or with ``--distributed``, each process joins the
+process group (parallel/distributed.py: NCCL on ``cuda:LOCAL_RANK``, gloo
+with ``--device cpu``) and trains data-parallel: ``--batch_size`` is the
+global batch, split evenly over the ranks, and each step equals the
+single-process step on it. Rank 0 writes the checkpoints and the report.
 """
 from __future__ import annotations
 
@@ -84,12 +92,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_report", action="store_true", default=False,
                         help="skip the per-image evaluation report")
     parser.add_argument("--report_dpi", type=int, default=200)
+    parser.add_argument("--distributed", action="store_true", default=False,
+                        help="join the process group from torchrun's "
+                             "environment (RANK, WORLD_SIZE, LOCAL_RANK, "
+                             "MASTER_ADDR, MASTER_PORT) even at WORLD_SIZE "
+                             "1; implied when WORLD_SIZE > 1")
     return parser
 
 
 def main(args: argparse.Namespace):
     """Train, test and report; returns the Experiment."""
     from ..config import TrainConfig
+    from ..parallel.distributed import (initialize_distributed,
+                                        shutdown_distributed)
     from ..train.evaluate import evaluation_report
     from ..train.loop import Experiment
 
@@ -110,16 +125,24 @@ def main(args: argparse.Namespace):
 
     data_dir = args.data_dir or os.path.join(args.root_dir, "Images",
                                              "1024_with_jedi")
-    exp = Experiment(data_dir, os.path.join(args.root_dir, "moar"),
-                     config=config, model_name=args.model,
-                     loss_name=loss_name, monitor=args.monitor,
-                     device=args.device)
-    exp.train(resume=args.resume)
-    exp.test()
-    if exp.ckpts.best_epoch is not None:
-        exp.load_best()
-    if not args.no_report:
-        evaluation_report(exp, args.root_dir, dpi=args.report_dpi)
+    distributed = (args.distributed
+                   or int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    world = initialize_distributed(device=args.device) if distributed \
+        else None
+    try:
+        exp = Experiment(data_dir, os.path.join(args.root_dir, "moar"),
+                         config=config, model_name=args.model,
+                         loss_name=loss_name, monitor=args.monitor,
+                         device=args.device, world=world)
+        exp.train(resume=args.resume)
+        exp.test()
+        if exp.ckpts.best_epoch is not None:
+            exp.load_best()
+        if not args.no_report:
+            evaluation_report(exp, args.root_dir, dpi=args.report_dpi)
+    finally:
+        if distributed:
+            shutdown_distributed()
     return exp
 
 

@@ -16,12 +16,16 @@
 //
 // with m in {0, scale}, scale = 1/keep. No mask is stored: both directions
 // regenerate it. Element i = (b*C + c)*P + p (its linear index in h) draws
-// its 32 random bits as word i & 3 of Philox4x32-10 with counter i >> 2
-// (64 bits, in the counter's first two words) and key = the 64-bit seed,
-// and is kept iff bits < thresh (thresh = 2^32 keeps everything: rate 0 is
-// the exact identity). The mask depends only on the seed and the element's
-// position, not on the tiling, and the port's plain version
-// (ops/fused_dropout_matmul.py) computes the same bits.
+// its 32 random bits as word (offset + i) & 3 of Philox4x32-10 with counter
+// (offset + i) >> 2 (64 bits, in the counter's first two words) and key =
+// the 64-bit seed, and is kept iff bits < thresh (thresh = 2^32 keeps
+// everything: rate 0 is the exact identity). The mask depends only on the
+// seed and the element's position, not on the tiling, and the port's plain
+// version (ops/fused_dropout_matmul.py) computes the same bits. The element
+// offset, a multiple of 4, places h inside a larger tensor: a data-parallel
+// rank whose rows start at row r of the global batch passes r * C * P, and
+// draws exactly those rows of the global batch's mask. It adds one 64-bit
+// constant to each lane's first counter and nothing to the step loops.
 //
 // Bounds at the training path's shapes (h [5, 512, 64, 64], K = 3), on an
 // H100 SXM (3.35 TB/s, 132 SMs):
@@ -117,17 +121,21 @@ constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;  // Philox4x32
 constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
 
 // The mask's parameters: the 10 round keys of Philox4x32-10 under the
-// 64-bit seed, and the keep rule (bits < thresh as a 32-bit compare, with
-// thresh = 2^32, rate 0, as "keep all").
+// 64-bit seed, the counter of element 0 (offset / 4), and the keep rule
+// (bits < thresh as a 32-bit compare, with thresh = 2^32, rate 0, as "keep
+// all").
 struct Mask {
   uint32_t k0[10], k1[10];
+  uint64_t ctr0;
   uint32_t thresh;
   int all;
   float scale;
 };
 
-Mask make_mask(uint64_t seed, uint64_t thresh, float scale) {
+Mask make_mask(uint64_t seed, uint64_t offset, uint64_t thresh,
+               float scale) {
   Mask m;
+  m.ctr0 = offset >> 2;
   uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
   for (int r = 0; r < 10; ++r) {
     m.k0[r] = k0;
@@ -251,7 +259,7 @@ fdm_forward_kernel(const float* __restrict__ h, const float* __restrict__ w,
 #pragma unroll
   for (int k = 0; k < K; ++k)
     acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.f;
-  uint64_t ctr = e0 >> 2;           // Philox counter of step i: += dctr
+  uint64_t ctr = mask.ctr0 + (e0 >> 2);  // counter of step i: += dctr
   const uint64_t dctr = de >> 2;
   const float4* wrow = w_s + c0;    // w of step i: += kDc
 
@@ -367,7 +375,8 @@ fdm_backward_kernel(const float* __restrict__ h, const float* __restrict__ w,
     dw_acc[k] = db_acc[k] = 0.f;
   }
   const bool do_db = blockIdx.x == 0 && warp == 0;
-  uint64_t ctr = e0 >> 2;  // Philox counter of step i: += kStepPix / 4
+  // Philox counter of step i: += kStepPix / 4
+  uint64_t ctr = mask.ctr0 + (e0 >> 2);
 
   for (int i0 = 0; i0 < steps; i0 += kStages) {
 #pragma unroll
@@ -491,13 +500,15 @@ int fdm_max_classes() { return kMaxK; }
 
 // h [B, C, P] contiguous and 16-byte aligned, P % 4 == 0; w [C, K] with
 // element strides (wsc, wsk), so a transposed view needs no copy; bias [K]
-// contiguous; float32; 1 <= K <= kMaxK; y [B, K, P] out. Launches on
-// `stream`; returns cudaGetLastError() (0 on success); no synchronise.
+// contiguous; float32; 1 <= K <= kMaxK; y [B, K, P] out; offset (the mask's
+// element offset) a multiple of 4. Launches on `stream`; returns
+// cudaGetLastError() (0 on success); no synchronise.
 int fdm_forward_launch(const float* h, const float* w, const float* bias,
                        float* y, int B, int C, int P, int K, int wsc, int wsk,
-                       uint64_t seed, uint64_t thresh, float scale,
-                       void* stream) {
-  const Mask mask = make_mask(seed, thresh, scale);
+                       uint64_t seed, uint64_t offset, uint64_t thresh,
+                       float scale, void* stream) {
+  if (offset & 3) return (int)cudaErrorInvalidValue;
+  const Mask mask = make_mask(seed, offset, thresh, scale);
   cudaStream_t s = (cudaStream_t)stream;
   switch (K) {
     case 1: return launch_forward<1>(h, w, bias, y, B, C, P, wsc, wsk,
@@ -519,9 +530,10 @@ int fdm_forward_launch(const float* h, const float* w, const float* bias,
 int fdm_backward_launch(const float* h, const float* w, const float* g,
                         float* dh, float* dw_part, float* db_part, float* dw,
                         float* db, int B, int C, int P, int K, int wsc,
-                        int wsk, uint64_t seed, uint64_t thresh, float scale,
-                        void* stream) {
-  const Mask mask = make_mask(seed, thresh, scale);
+                        int wsk, uint64_t seed, uint64_t offset,
+                        uint64_t thresh, float scale, void* stream) {
+  if (offset & 3) return (int)cudaErrorInvalidValue;
+  const Mask mask = make_mask(seed, offset, thresh, scale);
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   switch (K) {

@@ -155,15 +155,26 @@ def color_jitter(img: torch.Tensor, fb: torch.Tensor, fs: torch.Tensor,
 def gather_augment_batch(images_u8: torch.Tensor, labels_u8: torch.Tensor,
                          idx: torch.Tensor, crop: int, mean: torch.Tensor,
                          std: torch.Tensor, generator: torch.Generator,
-                         brightness: float = 0.1, saturation: float = 0.2
+                         brightness: float = 0.1, saturation: float = 0.2,
+                         batch_rows: tuple[int, int] | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training batch for dataset rows idx [B] of the device-resident
     uint8 images [N, H, W, 3] and labels [N, H, W]: random crop + flips,
     colour jitter, Normalize. Returns (float32 [B, crop, crop, 3], int64
-    labels [B, crop, crop])."""
-    p = draw_augment_params(idx.shape[0], images_u8.shape[1],
+    labels [B, crop, crop]).
+
+    ``batch_rows = (start, n_global)``: idx holds rows [start, start + B)
+    of a global batch of n_global (a data-parallel rank's). The global
+    batch's parameters are drawn, the same on every rank, and the rank
+    keeps its rows of them, so each sample is augmented as in the
+    single-process step (JAX ``gather_augment_batch`` draws per-sample
+    keys from the global key and shape, augment.py:205)."""
+    start, n_global = batch_rows or (0, idx.shape[0])
+    p = draw_augment_params(n_global, images_u8.shape[1],
                             images_u8.shape[2], crop, brightness,
                             saturation, generator)
+    if n_global != idx.shape[0]:
+        p = {k: v[start:start + idx.shape[0]] for k, v in p.items()}
     img, lab = gather_crops(images_u8, labels_u8, idx, p["oy"], p["ox"],
                             p["flip_h"], p["flip_v"], crop)
     img = color_jitter(img.float() / 255.0, p["fb"], p["fs"],

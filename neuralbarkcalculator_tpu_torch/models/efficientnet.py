@@ -143,7 +143,9 @@ class MBConvBlock(nn.Module):
         self._bn2 = _norm(out_ch, folded)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+        """``shard``: (rank, size) of a data-parallel batch."""
         h = x
         if self._expand_conv is not None:
             h = F.silu(self._bn0(self._expand_conv(h)))
@@ -156,7 +158,7 @@ class MBConvBlock(nn.Module):
         if not self.skip:
             return h
         if self.training and self.drop_rate > 0:
-            h = drop_path(h, self.drop_rate, generator)
+            h = drop_path(h, self.drop_rate, generator, shard)
         return h + x
 
 
@@ -186,10 +188,11 @@ class EfficientNetFeatures(nn.Module):
         self._bn1 = _norm(EFFICIENTNET_INPLANES[variant], folded)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
         x = F.silu(self._bn0(self._conv_stem(x)))
         for block in self._blocks:
-            x = block(x, generator)
+            x = block(x, generator, shard)
         return F.silu(self._bn1(self._conv_head(x)))
 
 
@@ -212,10 +215,10 @@ class EfficientNetBackbone(nn.Module):
         """The same backbone with BN folded (models/fold.py)."""
         return EfficientNetBackbone(self.variant, folded=True)
 
-    def forward(self, x: torch.Tensor, dropout_seed: int | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_seed: int | None = None,
+                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
         """In train mode ``dropout_seed`` (the step's) keys the stochastic
-        depth."""
+        depth; ``shard``: (rank, size) of a data-parallel batch."""
         generator = None
         if self.training and any(b.drop_rate > 0 for b in self.model._blocks):
             if dropout_seed is None:
@@ -224,7 +227,7 @@ class EfficientNetBackbone(nn.Module):
                                  "depth")
             generator = layer_generator(dropout_seed, BACKBONE_STREAM,
                                         x.device)
-        return self.model(x, generator)
+        return self.model(x, generator, shard)
 
     def valid_feature_height(self, valid_h):
         raise NotImplementedError(

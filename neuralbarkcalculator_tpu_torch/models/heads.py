@@ -24,11 +24,12 @@ divided by ``valid_h * W``, broadcast to every row.
 In train mode with ``dropout > 0``, the FCN head's ``classifier.3`` +
 ``classifier.4`` (dropout, then the 1x1 conv) run as one op,
 ``ops/fused_dropout_matmul``, on the 1x1 conv's own weight and bias; the
-step's ``dropout_seed`` keys its mask. Eval mode, and dropout 0, run the
-modules one by one. In train mode the DeepLab head's BatchNorms use batch
-statistics and update their running ones, and the ASPP's Dropout(0.5) is
-an inverted dropout drawn from the step's head generator
-(models/seeding.py).
+step's ``dropout_seed`` keys its mask; in a data-parallel run the rank's
+element offset in the global batch places its mask (models/seeding.py).
+Eval mode, and dropout 0, run the modules one by one. In train mode the
+DeepLab head's BatchNorms use batch statistics and update their running
+ones, and the ASPP's Dropout(0.5) is an inverted dropout drawn from the
+step's head generator (models/seeding.py).
 """
 from __future__ import annotations
 
@@ -79,7 +80,9 @@ class FCNHead(nn.Sequential):
         return QuantizedFCNHead(self.in_channels, self.channels)
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
-                dropout_seed: int | None = None) -> torch.Tensor:
+                dropout_seed: int | None = None,
+                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+        """``shard``: (rank, size) of a data-parallel batch."""
         x = apply_row_mask(x, valid_h)
         if not (self.training and self.dropout > 0):
             for layer in self:
@@ -96,8 +99,10 @@ class FCNHead(nn.Sequential):
         x = x.float().contiguous()
         conv = self[4]
         w = conv.weight.view(conv.out_channels, conv.in_channels).t()
+        # this rank's rows start at row rank * B of the global batch
         return fused_dropout_matmul(x, w, conv.bias, dropout_seed,
-                                    self.dropout)
+                                    self.dropout,
+                                    offset=shard[0] * x.numel())
 
 
 class AtrousConv2d(nn.Conv2d):
@@ -186,8 +191,10 @@ class ASPP(nn.Module):
             _norm(c, folded), nn.ReLU(), nn.Dropout(0.5))
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """``generator`` draws the dropout's mask in train mode."""
+                generator: torch.Generator | None = None,
+                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+        """``generator`` draws the dropout's mask in train mode; ``shard``:
+        (rank, size) of a data-parallel batch."""
         x = apply_row_mask(x, valid_h)  # the atrous branches mix rows
         branches = [conv(x) for conv in self.convs[:-1]]
         branches.append(self.convs[-1](x, valid_h))
@@ -199,7 +206,7 @@ class ASPP(nn.Module):
         if generator is None:
             raise ValueError("the ASPP in train mode needs the step's "
                              "generator for its dropout")
-        return inverted_dropout(y, self.project[3].p, generator)
+        return inverted_dropout(y, self.project[3].p, generator, shard)
 
 
 class DeepLabHead(nn.Sequential):
@@ -232,14 +239,15 @@ class DeepLabHead(nn.Sequential):
         return QuantizedDeepLabHead(self.in_channels, self.channels)
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
-                dropout_seed: int | None = None) -> torch.Tensor:
+                dropout_seed: int | None = None,
+                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
         generator = None
         if self.training:
             if dropout_seed is None:
                 raise ValueError("DeepLabHead in train mode needs the step's "
                                  "dropout_seed")
             generator = layer_generator(dropout_seed, HEAD_STREAM, x.device)
-        x = self[0](x, valid_h, generator)
+        x = self[0](x, valid_h, generator, shard)
         x = apply_row_mask(x, valid_h)
         for layer in list(self)[1:]:
             x = layer(x)

@@ -200,10 +200,11 @@ class DilatedResNet(_ResNetLayers):
                                self.replace_stride_with_dilation)
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
-                dropout_seed: int | None = None) -> torch.Tensor:
+                dropout_seed: int | None = None,
+                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
         """NCHW input (zero below valid_h) -> NCHW layer4 features. The
-        ResNet has no random layer: ``dropout_seed`` is taken, as every
-        backbone takes it, and ignored."""
+        ResNet has no random layer: ``dropout_seed`` and ``shard`` are
+        taken, as every backbone takes them, and ignored."""
         x = F.relu(self.bn1(self.conv1(x)))
         h = None if valid_h is None else conv_out_size(valid_h, 7, 2, 3)
         # masked zeros equal max_pool2d's -inf padding here because the

@@ -51,11 +51,14 @@ class SegmentationModel(nn.Module):
 
     def head_logits(self, x: torch.Tensor,
                     valid_h: torch.Tensor | None = None,
-                    dropout_seed: int | None = None) -> torch.Tensor:
+                    dropout_seed: int | None = None,
+                    shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
         """NHWC images [B, H, W, 3] -> float32 head logits at the feature
         stride, NHWC [B, F, Wf, classes], without the upsample.
         ``dropout_seed`` keys every random layer in train mode: the head's
-        dropout and a backbone's stochastic depth (models/seeding.py)."""
+        dropout and a backbone's stochastic depth (models/seeding.py);
+        ``shard``, (rank, size), places a data-parallel rank's rows in the
+        global batch's draws."""
         x = x.permute(0, 3, 1, 2)
         if self.training:
             if self.backbone.folded or self.classifier.folded:
@@ -64,14 +67,15 @@ class SegmentationModel(nn.Module):
             # head's activations reach fused_dropout_matmul without a copy
             x = x.contiguous()
         if valid_h is None:
-            feat = self.backbone(x, dropout_seed=dropout_seed)
+            feat = self.backbone(x, dropout_seed=dropout_seed, shard=shard)
             feat_h = None
         else:
             # raises for a backbone without ragged support
             feat_h = self.backbone.valid_feature_height(valid_h)
             feat = self.backbone(x, valid_h=valid_h)
         logits = self.classifier(feat, valid_h=feat_h,
-                                 dropout_seed=dropout_seed).float()
+                                 dropout_seed=dropout_seed,
+                                 shard=shard).float()
         out = logits.permute(0, 2, 3, 1)
         if logits.is_contiguous(memory_format=torch.channels_last):
             # a channels_last [B, C, F, Wf] viewed as NHWC is contiguous
@@ -81,12 +85,13 @@ class SegmentationModel(nn.Module):
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 row_upsample: torch.Tensor | None = None,
-                dropout_seed: int | None = None) -> torch.Tensor:
+                dropout_seed: int | None = None,
+                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
         """NHWC images -> NHWC float32 logits at the input resolution. The
         upsample runs in float32 also under autocast (the loss and the
         metrics take float32 logits)."""
         in_h, in_w = x.shape[1], x.shape[2]
-        logits = self.head_logits(x, valid_h, dropout_seed)
+        logits = self.head_logits(x, valid_h, dropout_seed, shard)
         if row_upsample is None:
             rows = torch.as_tensor(
                 bicubic_resize_matrix(logits.shape[1], in_h).astype(
@@ -106,7 +111,8 @@ class QuantizedSegmentationModel(SegmentationModel):
 
     def head_logits(self, x: torch.Tensor,
                     valid_h: torch.Tensor | None = None,
-                    dropout_seed: int | None = None) -> torch.Tensor:
+                    dropout_seed: int | None = None,
+                    shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
         if self.training:
             raise ValueError("an int8 model is inference-only")
         feat_h = (None if valid_h is None

@@ -1,7 +1,7 @@
 """Fused dropout + 1x1 conv, forward and backward: the CUDA kernels and
 their plain version.
 
-``fused_dropout_matmul(h, w, b, seed, rate)`` computes the FCN head's
+``fused_dropout_matmul(h, w, b, seed, rate, offset)`` computes the FCN head's
 ``Dropout(rate) -> Conv2d(C, K, 1)`` on NCHW float32 activations ``h [B,
 C, H, W]`` with ``w [C, K]`` and ``b [K]``, giving ``y [B, K, H, W]``. It
 replaces the Pallas TPU kernel
@@ -12,9 +12,13 @@ VJP, the autograd function saves ``h``, ``w`` and the seed, and no mask:
 the backward regenerates it.
 
 The mask: element ``i`` of ``h`` (its linear NCHW index) takes word
-``i & 3`` of Philox4x32-10 at counter ``i >> 2`` under the 64-bit key
-``seed``, and is kept, scaled by ``1/keep``, iff those 32 bits are below
-``keep_threshold(rate)``. The threshold is the Pallas kernel's
+``(offset + i) & 3`` of Philox4x32-10 at counter ``(offset + i) >> 2``
+under the 64-bit key ``seed``, and is kept, scaled by ``1/keep``, iff
+those 32 bits are below ``keep_threshold(rate)``. The element offset, a
+multiple of 4 (0 by default), places ``h`` inside a larger tensor: a
+data-parallel rank whose rows start at row ``r`` of the global batch
+passes ``r * C * H * W`` and draws exactly those rows of the global
+batch's mask, as a sharded flax dropout does. The threshold is the Pallas kernel's
 ``min(int(keep * 2**32), 2**32 - 1)``, except that rate 0 keeps every
 element (the exact identity, as ``nn.Dropout(0)`` is). The plain version
 computes the same bits with int64 torch ops, so the kernel can be held
@@ -73,6 +77,14 @@ def _check_seed(seed: int) -> int:
     return seed
 
 
+def _check_offset(offset: int) -> int:
+    offset = int(offset)
+    if not 0 <= offset < 2 ** 62 or offset % 4:
+        raise ValueError(f"dropout element offset must be a multiple of 4 "
+                         f"in [0, 2**62), got {offset}")
+    return offset
+
+
 def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
     """High and low 32 bits of a * m for int64 tensors a < 2**32 and a
     32-bit constant m, from 16-bit halves so no product overflows int64."""
@@ -100,14 +112,16 @@ def philox4x32_10(counter: torch.Tensor, seed: int) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3], dim=-1)
 
 
-def dropout_mask(shape, seed: int, rate: float,
+def dropout_mask(shape, seed: int, rate: float, offset: int = 0,
                  device: torch.device | str = "cpu") -> torch.Tensor:
     """The float32 mask in {0, 1/keep} that the kernels apply to a tensor
-    of ``shape`` (NCHW order of the linear index)."""
+    of ``shape`` (NCHW order of the linear index) at element ``offset``."""
     seed = _check_seed(seed)
+    offset = _check_offset(offset)
     thresh = keep_threshold(rate)
     n = math.prod(shape)
-    counters = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    counters = torch.arange(offset // 4, offset // 4 + (n + 3) // 4,
+                            dtype=torch.int64, device=device)
     bits = philox4x32_10(counters, seed).reshape(-1)[:n]
     scale = torch.tensor(keep_scale(rate), dtype=torch.float32,
                          device=device)
@@ -117,20 +131,21 @@ def dropout_mask(shape, seed: int, rate: float,
 
 
 def fused_dropout_matmul_plain(h: torch.Tensor, w: torch.Tensor,
-                               b: torch.Tensor, seed: int, rate: float
-                               ) -> torch.Tensor:
+                               b: torch.Tensor, seed: int, rate: float,
+                               offset: int = 0) -> torch.Tensor:
     """The forward as plain torch ops: materialize the mask, then the 1x1
     conv as an einsum (run with TF32 off on a card)."""
-    hm = h * dropout_mask(h.shape, seed, rate, h.device)
+    hm = h * dropout_mask(h.shape, seed, rate, offset, h.device)
     return torch.einsum("bchw,ck->bkhw", hm, w) + b.view(1, -1, 1, 1)
 
 
 def fused_dropout_matmul_backward_plain(
         h: torch.Tensor, w: torch.Tensor, g: torch.Tensor, seed: int,
-        rate: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        rate: float, offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dh, dw, db) for the upstream gradient g [B, K, H, W], as plain
     torch ops on a regenerated mask."""
-    m = dropout_mask(h.shape, seed, rate, h.device)
+    m = dropout_mask(h.shape, seed, rate, offset, h.device)
     dh = torch.einsum("bkhw,ck->bchw", g, w) * m
     dw = torch.einsum("bchw,bkhw->ck", h * m, g)
     return dh, dw, g.sum(dim=(0, 2, 3))
@@ -166,7 +181,8 @@ def _check_aligned(**tensors: torch.Tensor) -> None:
                              f"aligned")
 
 
-def _kernel_args(h: torch.Tensor, w: torch.Tensor, seed: int, rate: float):
+def _kernel_args(h: torch.Tensor, w: torch.Tensor, seed: int, rate: float,
+                 offset: int = 0):
     """Shape checks of the kernels, and their common arguments."""
     bsz, c, hh, ww = h.shape
     p, k = hh * ww, w.shape[1]
@@ -180,23 +196,24 @@ def _kernel_args(h: torch.Tensor, w: torch.Tensor, seed: int, rate: float):
     if k > lib.fdm_max_classes():
         raise ValueError(f"fused_dropout_matmul: the kernels take 1 to "
                          f"{lib.fdm_max_classes()} output channels, got {k}")
-    return lib, (bsz, c, p, k, _check_seed(seed), keep_threshold(rate),
-                 keep_scale(rate))
+    return lib, (bsz, c, p, k, _check_seed(seed), _check_offset(offset),
+                 keep_threshold(rate), keep_scale(rate))
 
 
 def fused_dropout_matmul_forward(h: torch.Tensor, w: torch.Tensor,
-                                 b: torch.Tensor, seed: int, rate: float
-                                 ) -> torch.Tensor:
+                                 b: torch.Tensor, seed: int, rate: float,
+                                 offset: int = 0) -> torch.Tensor:
     """y [B, K, H, W] (no autograd): the kernel on a CUDA tensor, the plain
     version on a CPU tensor."""
     _check(h, w, b, (w.shape[1],), "b")
     if h.device.type == "cpu":
-        return fused_dropout_matmul_plain(h, w, b, seed, rate)
+        return fused_dropout_matmul_plain(h, w, b, seed, rate, offset)
     if h.device.type != "cuda":
         raise ValueError(f"fused_dropout_matmul: no kernel for device "
                          f"{h.device}")
     _check_aligned(h=h)
-    lib, (bsz, c, p, k, seed, thresh, scale) = _kernel_args(h, w, seed, rate)
+    lib, (bsz, c, p, k, seed, offset, thresh, scale) = _kernel_args(
+        h, w, seed, rate, offset)
     b = b.contiguous()
     y = torch.empty((bsz, k, h.shape[2], h.shape[3]), dtype=torch.float32,
                     device=h.device)
@@ -204,7 +221,7 @@ def fused_dropout_matmul_forward(h: torch.Tensor, w: torch.Tensor,
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = lib.fdm_forward_launch(
             h.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, c,
-            p, k, *w.stride(), seed, thresh, scale, stream)
+            p, k, *w.stride(), seed, offset, thresh, scale, stream)
     check_launch("fused_dropout_matmul forward", rc)
     FWD_LAUNCHES.add()
     return y
@@ -212,7 +229,8 @@ def fused_dropout_matmul_forward(h: torch.Tensor, w: torch.Tensor,
 
 def fused_dropout_matmul_backward(
         h: torch.Tensor, w: torch.Tensor, g: torch.Tensor, seed: int,
-        rate: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        rate: float, offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dh, dw, db) for g [B, K, H, W]: the kernels on CUDA tensors (the
     library sums the per-block dw and db partials itself, in order), the
     plain version on CPU tensors."""
@@ -220,12 +238,14 @@ def fused_dropout_matmul_backward(
     g = g.contiguous()
     _check(h, w, g, (bsz, w.shape[1], hh, ww), "g")
     if h.device.type == "cpu":
-        return fused_dropout_matmul_backward_plain(h, w, g, seed, rate)
+        return fused_dropout_matmul_backward_plain(h, w, g, seed, rate,
+                                                   offset)
     if h.device.type != "cuda":
         raise ValueError(f"fused_dropout_matmul: no kernel for device "
                          f"{h.device}")
     _check_aligned(h=h, g=g)
-    lib, (bsz, c, p, k, seed, thresh, scale) = _kernel_args(h, w, seed, rate)
+    lib, (bsz, c, p, k, seed, offset, thresh, scale) = _kernel_args(
+        h, w, seed, rate, offset)
     dh = torch.empty_like(h)
     dw = torch.empty((c, k), dtype=torch.float32, device=h.device)
     db = torch.empty(k, dtype=torch.float32, device=h.device)
@@ -237,8 +257,8 @@ def fused_dropout_matmul_backward(
         rc = lib.fdm_backward_launch(
             h.data_ptr(), w.data_ptr(), g.data_ptr(), dh.data_ptr(),
             dw_part.data_ptr(), db_part.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), bsz, c, p, k, *w.stride(), seed, thresh, scale,
-            stream)
+            db.data_ptr(), bsz, c, p, k, *w.stride(), seed, offset, thresh,
+            scale, stream)
     check_launch("fused_dropout_matmul backward", rc)
     BWD_LAUNCHES.add()
     return dh, dw, db
@@ -246,25 +266,29 @@ def fused_dropout_matmul_backward(
 
 class _FusedDropoutMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, w, b, seed, rate):
+    def forward(ctx, h, w, b, seed, rate, offset):
         ctx.save_for_backward(h, w)
-        ctx.seed, ctx.rate = seed, rate
-        return fused_dropout_matmul_forward(h, w, b, seed, rate)
+        ctx.seed, ctx.rate, ctx.offset = seed, rate, offset
+        return fused_dropout_matmul_forward(h, w, b, seed, rate, offset)
 
     @staticmethod
     def backward(ctx, g):
         h, w = ctx.saved_tensors
         dh, dw, db = fused_dropout_matmul_backward(h, w, g, ctx.seed,
-                                                   ctx.rate)
-        return dh, dw, db, None, None
+                                                   ctx.rate, ctx.offset)
+        return dh, dw, db, None, None, None
 
 
 def fused_dropout_matmul(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                         seed: int, rate: float) -> torch.Tensor:
+                         seed: int, rate: float, offset: int = 0
+                         ) -> torch.Tensor:
     """y = dropout(h, rate) 1x1-conv w + b, differentiable in h, w and b.
 
     h: [B, C, H, W] float32 contiguous (the head's post-ReLU activations);
     w: [C, K]; b: [K]; seed: the step's dropout seed, 0 <= seed < 2**64;
-    rate: in [0, 1). Returns [B, K, H, W] float32.
+    rate: in [0, 1); offset: the mask's element offset, a multiple of 4
+    (``h``'s first element in the global batch). Returns [B, K, H, W]
+    float32.
     """
-    return _FusedDropoutMatmul.apply(h, w, b, _check_seed(seed), rate)
+    return _FusedDropoutMatmul.apply(h, w, b, _check_seed(seed), rate,
+                                     _check_offset(offset))

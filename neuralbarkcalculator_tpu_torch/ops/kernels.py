@@ -32,6 +32,7 @@ class LaunchCounter:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_uint64
 _SIGNATURES = {
     "upsample_argmax": {
         "upsample_argmax_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -40,10 +41,9 @@ _SIGNATURES = {
     },
     "fused_dropout_matmul": {
         "fdm_forward_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                ctypes.c_uint64, ctypes.c_uint64,
-                                ctypes.c_float, _P], _I),
+                                _U64, _U64, _U64, ctypes.c_float, _P], _I),
         "fdm_backward_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _I, ctypes.c_uint64, ctypes.c_uint64,
+                                 _I, _I, _I, _I, _U64, _U64, _U64,
                                  ctypes.c_float, _P], _I),
         "fdm_partial_rows": ([_I, _I], _I),
         "fdm_max_classes": ([], _I),

@@ -66,6 +66,7 @@ from ..models.resnet import row_mask
 from ..models.segmentation import MODEL_FACTORIES
 from ..ops.resize import column_operator_t, embedded_bicubic_rows
 from ..ops.upsample_argmax import column_windows, upsample_argmax
+from ..parallel.distributed import pad_to_multiple
 from ..utils.device import resolve_device, set_float32_exact
 from ..utils.profiling import stage_timer
 from .preprocess import ProcessedImage
@@ -76,11 +77,6 @@ from .report import PredictReporter
 PREFETCH = 2
 # images of the first chunk that the lazy int8 calibration runs on
 CALIBRATION_IMAGES = 4
-
-
-def pad_to_multiple(n: int, m: int) -> int:
-    """Smallest multiple of m that is >= n (and >= m)."""
-    return max(m, ((n + m - 1) // m) * m)
 
 
 class NeuralBarkCalculator:
@@ -192,11 +188,18 @@ class NeuralBarkCalculator:
         ``resume``: images whose dual PNG and combined figure already
         exist are not predicted again; their CSV row is rebuilt from the
         dual mask on disk, so an interrupted run finishes with a complete
-        final_stats.csv. ``shard`` is not ported yet and raises.
+        final_stats.csv.
+
+        ``shard=(k, n)``: predict only the manifest indices i with
+        i % n == k (round-robin, so every shard gets its share of each
+        height bucket) and write the per-shard CSV instead
+        (``PredictReporter.finalize``); returns its path. A resumed shard
+        rebuilds only its own rows. pipeline/multihost.py runs the shards
+        and merges them.
         """
-        if shard is not None:
-            raise NotImplementedError("sharded folder runs are not ported "
-                                      "yet")
+        if shard is not None and not 0 <= shard[0] < shard[1]:
+            raise ValueError(f"shard {shard[0]}/{shard[1]}: need "
+                             f"0 <= k < n")
         processed_path = os.path.join(root_path, "processed")
         reporter = self._reporter(root_path)
         if images is None:
@@ -219,9 +222,11 @@ class NeuralBarkCalculator:
             def decode_chunk(idxs):
                 return [images[i] for i in idxs]
 
-        done = self._scan_resume(names, reporter) if resume else set()
-        chunks = self._plan_chunks([(i, *size_of(i))
-                                    for i in range(len(names))
+        mine = (range(len(names)) if shard is None
+                else range(shard[0], len(names), shard[1]))
+        done = (self._scan_resume(names, reporter, only=mine) if resume
+                else set())
+        chunks = self._plan_chunks([(i, *size_of(i)) for i in mine
                                     if i not in done])
         bar = _progress_bar(progress, sum(len(c[1]) for c in chunks))
         for idx, item, cmap, counts3 in self._run_chunks(
@@ -232,7 +237,7 @@ class NeuralBarkCalculator:
                 bar.update(1)
         if bar is not None:
             bar.close()
-        return reporter.finalize()
+        return reporter.finalize(shard=shard)
 
     def predict_images(self, images: Sequence[ProcessedImage],
                        exclude_nodes: bool = False,
@@ -342,11 +347,15 @@ class NeuralBarkCalculator:
                                mm_per_pix=self.config.mm_per_pix)
 
     def _scan_resume(self, names: list[tuple[str, str]],
-                     reporter: PredictReporter) -> set[int]:
+                     reporter: PredictReporter,
+                     only: Sequence[int] | None = None) -> set[int]:
         """Rebuild the CSV rows of images whose dual PNG and combined
-        figure already exist; returns their indices (to skip)."""
+        figure already exist; returns their indices (to skip). ``only``
+        restricts the scan to these indices (a shard's: a resumed shard
+        must not take other shards' rows into its CSV)."""
         done: set[int] = set()
-        for i, (fname, wood_type) in enumerate(names):
+        for i in range(len(names)) if only is None else only:
+            fname, wood_type = names[i]
             dual_path = os.path.join(reporter.results_dir, "outputs",
                                      wood_type, fname)
             fig_path = os.path.join(reporter.results_dir, "combined_images",

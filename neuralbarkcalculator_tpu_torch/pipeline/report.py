@@ -77,6 +77,11 @@ def write_final_stats(rows: list[list[str]], out_path: str) -> None:
         writer.writerows(rows)
 
 
+def shard_stats_name(k: int, n: int) -> str:
+    """Per-shard CSV file name of shard k of n (sharded folder runs)."""
+    return f"final_stats.shard-{k:04d}-of-{n:04d}.csv"
+
+
 class PredictReporter:
     """Collects per-image results and writes all three artifact kinds,
     offloading figure/PNG encoding to a thread pool."""
@@ -129,12 +134,29 @@ class PredictReporter:
         self._order += 1
         return percents
 
-    def finalize(self) -> str:
+    def finalize(self, shard: tuple[int, int] | None = None) -> str:
         """Write the CSV (and surface any render-worker exception);
-        returns its path."""
+        returns its path.
+
+        With ``shard=(k, n)`` the rows go to the per-shard file
+        ``shard_stats_name(k, n)``, without a header, each row led by its
+        manifest order (the merge key), written to a temporary file and
+        renamed into place so a merging process never reads a partial
+        one. pipeline/multihost.merge_shard_stats turns the n shard files
+        into the final_stats.csv a single-process run writes, byte for
+        byte."""
         for fut in self._futures:
             fut.result()  # surface any worker exception
         self._pool.shutdown()
-        out = os.path.join(self.results_dir, "final_stats.csv")
-        write_final_stats([r for _, r in sorted(self._rows)], out)
+        if shard is None:
+            out = os.path.join(self.results_dir, "final_stats.csv")
+            write_final_stats([r for _, r in sorted(self._rows)], out)
+            return out
+        out = os.path.join(self.results_dir, shard_stats_name(*shard))
+        tmp = out + ".tmp"
+        with open(tmp, "w") as f:
+            writer = csv.writer(f, delimiter="\t")
+            for order, row in sorted(self._rows):
+                writer.writerow([order] + row)
+        os.replace(tmp, out)
         return out

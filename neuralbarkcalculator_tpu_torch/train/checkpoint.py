@@ -8,6 +8,10 @@ mode max; every epoch's metrics and lr, which a resumed run replays
 through its plateau and early-stop controllers), ``load_checkpoint(n)`` /
 best restore, and ``best_model.pt``, a plain torchvision-named state dict
 that the port's predict CLI loads.
+
+In a data-parallel run every rank keeps the same bookkeeping in memory,
+and only rank 0 (``writer``) writes files; the caller makes the other
+ranks wait until they are written before any reads them.
 """
 from __future__ import annotations
 
@@ -31,14 +35,16 @@ def _to_cpu(tree):
 
 class ExperimentCheckpoints:
     """Per-epoch checkpoints under ``directory`` with monitor-metric
-    bookkeeping (Poutyne Experiment parity)."""
+    bookkeeping (Poutyne Experiment parity). ``writer=False`` keeps the
+    bookkeeping and writes nothing (a data-parallel rank other than 0)."""
 
     def __init__(self, directory: str, monitor: str = "val_miou",
-                 mode: str = "max"):
+                 mode: str = "max", writer: bool = True):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
+        self.writer = writer
         self._log_path = os.path.join(self.directory, "experiment_log.json")
         self.log: dict[str, Any] = {"epochs": [], "best_epoch": None}
         if os.path.isfile(self._log_path):
@@ -54,15 +60,17 @@ class ExperimentCheckpoints:
 
     def save_epoch(self, epoch: int, state: dict, metrics: dict) -> bool:
         """Save one epoch's checkpoint and its metrics; returns is_best."""
-        torch.save(_to_cpu(state), self.epoch_path(epoch))
+        if self.writer:
+            torch.save(_to_cpu(state), self.epoch_path(epoch))
         entry = {**{k: float(v) for k, v in metrics.items()},
                  "epoch": int(epoch)}
         self.log["epochs"].append(entry)
         is_best = self._is_best(entry)
         if is_best:
             self.log["best_epoch"] = epoch
-        with open(self._log_path, "w") as f:
-            json.dump(self.log, f, indent=1)
+        if self.writer:
+            with open(self._log_path, "w") as f:
+                json.dump(self.log, f, indent=1)
         return is_best
 
     def _is_best(self, entry: dict) -> bool:
@@ -102,5 +110,6 @@ class ExperimentCheckpoints:
     def export_best_model(self, model: torch.nn.Module) -> str:
         """Write ``best_model.pt``, the model's state dict on the CPU: the
         artifact the predict engine loads (reference ./best_model.pt)."""
-        torch.save(_to_cpu(model.state_dict()), self.best_model_path)
+        if self.writer:
+            torch.save(_to_cpu(model.state_dict()), self.best_model_path)
         return self.best_model_path

@@ -11,6 +11,11 @@ port's compositor.
 Reference quirk kept: the eval loop calls remove_small_zones on the
 *logits* (__main__.py:324), which is a no-op on float logits, so metrics
 and figures use the raw argmax; PixelWiseF1 still postprocesses inside.
+
+In a data-parallel run each batch of 8 is padded to a multiple of the
+world size with repeats of its last image, every rank runs the forward of
+its rows, and rank 0 gathers the logits and writes the report, once; the
+other ranks wait for it.
 """
 from __future__ import annotations
 
@@ -96,11 +101,13 @@ def evaluation_report(experiment, root_dir: str, dpi: int = 200,
                       workers: int = 8) -> str:
     """Render the report over all splits with the experiment's current
     weights, from its (pad_resized) dataset: forwards of 8 images in eval
-    mode (under bf16 autocast when the experiment trains so), metrics per
-    image, figures on a thread pool.
-    Returns the CSV's path."""
+    mode (under bf16 autocast when the experiment trains so; split across
+    the ranks of a data-parallel run), metrics per image, figures on a
+    thread pool. Returns the CSV's path."""
     batch = 8
+    world = experiment.world
     results_dir = generate_output_folders(root_dir)
+    csv_file = os.path.join(results_dir, "final_stats.csv")
     split_of = {}
     for idxs, name in [(experiment.train_split, "train"),
                        (experiment.valid_split, "valid"),
@@ -114,13 +121,19 @@ def evaluation_report(experiment, root_dir: str, dpi: int = 200,
         futures = []
         for start in range(0, n, batch):
             rows = np.arange(start, min(n, start + batch))
-            images, labels, idx = experiment.batch_inputs(rows)
+            padded = world.pad_rows(rows)
+            images, labels, idx = experiment.batch_inputs(
+                padded[world.rank_slice(len(padded))])
             with torch.no_grad(), torch.autocast(
                     experiment.device.type, dtype=torch.bfloat16,
                     enabled=experiment.config.use_bfloat16):
                 x = ((images[idx].float() / 255.0
                       - experiment._mean) / experiment._std)
-                logits = model(x)
+                logits = world.gather_rows(model(x))
+            if not world.is_main:
+                continue
+            if world.size > 1:  # the images of every rank's rows
+                images, labels, idx = experiment.batch_inputs(rows)
             for k, i in enumerate(rows.tolist()):
                 target = labels[idx[k]].long()
                 m = eval_image_metrics(logits[k], target)
@@ -132,9 +145,10 @@ def evaluation_report(experiment, root_dir: str, dpi: int = 200,
                     split_of[i], m["iou"], m["f1"], results_dir, dpi))
         rows = [f.result() for f in futures]
 
-    csv_file = os.path.join(results_dir, "final_stats.csv")
-    with open(csv_file, "w") as f:
-        writer = csv.writer(f, delimiter="\t")
-        writer.writerow(EVAL_CSV_HEADER)
-        writer.writerows(rows)
+    if world.is_main:
+        with open(csv_file, "w") as f:
+            writer = csv.writer(f, delimiter="\t")
+            writer.writerow(EVAL_CSV_HEADER)
+            writer.writerows(rows)
+    world.barrier()
     return csv_file

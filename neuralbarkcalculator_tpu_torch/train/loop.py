@@ -30,6 +30,22 @@ layer of the model (models/seeding.py). A resumed run seeds both
 generators from (seed, first epoch), as the JAX package folds the first
 epoch into its key. Weights start from a torchvision-style random init
 drawn from the seed.
+
+Data-parallel runs (``world``, one process per card, parallel/): every
+rank builds the same model, splits and generators, draws the same global
+batches from the same RandomState, the same augmentation parameters and
+the same dropout seed, and takes its contiguous rows of each batch
+(``World.rank_slice``); a global batch that does not divide across the
+ranks raises ``ValueError``. The model's BatchNorms become cross-rank
+(parallel/sync_bn.py) and its random layers draw for the global batch
+(models/seeding.py), so a step is the single-process step on the global
+batch (train/step.py). The prioritized sampler is updated with the
+global batch's miou, so every rank's sampler, and so its RandomState,
+stays in lockstep. ``evaluate`` pads each batch to a multiple of the
+world size with repeats of the last sample, weighted 0 (JAX
+train/loop.py:316-340), so its results do not depend on the world size.
+Only rank 0 writes checkpoints, ``best_model.pt``, the log and the
+console output; every rank waits for each write.
 """
 from __future__ import annotations
 
@@ -49,6 +65,8 @@ from ..data.sampling import (PrioritizedSampler, get_splits,
 from ..models.convert import load_backbone_checkpoint, merge_backbone
 from ..models.seeding import fold_seed
 from ..models.segmentation import MODEL_FACTORIES, SegmentationModel
+from ..parallel.distributed import World, single_process
+from ..parallel.sync_bn import convert_batchnorm
 from ..utils.device import resolve_device, set_float32_exact
 from .checkpoint import ExperimentCheckpoints
 from .optim import (EarlyStopping, ReduceLROnPlateau, adam,
@@ -136,16 +154,20 @@ class _StepClock:
 
 class Experiment:
     """Training harness over a reference-layout dataset directory
-    (root/samples/<wood_type>/*.png|bmp + root/duals/...)."""
+    (root/samples/<wood_type>/*.png|bmp + root/duals/...). ``world``: this
+    process's rank of a data-parallel run (its device replaces
+    ``device``); None for a single process."""
 
     def __init__(self, data_root: str, directory: str,
                  config: TrainConfig | None = None,
                  model_name: str = "fcn_resnet50",
                  loss_name: str = "lovasz", monitor: str | None = None,
                  sampler: str = "weighted",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 world: World | None = None):
         self.config = cfg = config or TrainConfig()
-        self.device = resolve_device(device)
+        self.device = resolve_device(world.device if world else device)
+        self.world = world or single_process(self.device)
         if sampler not in ("weighted", "prioritized"):
             raise ValueError(f"unknown sampler {sampler!r}")
         self.sampler_kind = sampler
@@ -160,8 +182,11 @@ class Experiment:
             # the reference fine-tunes an ImageNet backbone
             # (pretrained=True, models.py:127-130 via __main__.py:231)
             merge_backbone(model, load_backbone_checkpoint(cfg.backbone_ckpt))
+        if self.world.group is not None:
+            convert_batchnorm(model, self.world)
         self.ckpts = ExperimentCheckpoints(directory, monitor=self.monitor,
-                                           mode=cfg.monitor_mode)
+                                           mode=cfg.monitor_mode,
+                                           writer=self.world.is_main)
 
         # ---- host data: statistics from the raw images (the reference's
         # compute_mean_std / compute_pos_weight run on the untransformed
@@ -193,9 +218,9 @@ class Experiment:
         self.std = np.mean(stds, axis=0).tolist()
         total = class_counts.sum()
         self.pos_weight = (total / (3.0 * class_counts)).tolist()
-        print(self.mean)
-        print(self.std)
-        print(self.pos_weight)
+        self._print(self.mean)
+        self._print(self.std)
+        self._print(self.pos_weight)
         # RandomState(seed) is the MT19937 stream the reference's seeded
         # global np.random gives get_splits (utils.py:195-198)
         self._rng = np.random.RandomState(cfg.seed)
@@ -242,6 +267,8 @@ class Experiment:
         generators seeded from (seed, first epoch)."""
         cfg = self.config
         epochs = epochs or cfg.epochs
+        world = self.world
+        world.rank_slice(cfg.batch_size)  # raises for an uneven split
         # the run's controllers, kept on the experiment for inspection
         self.plateau = plateau = ReduceLROnPlateau(
             mode=cfg.monitor_mode, factor=cfg.plateau_factor,
@@ -249,7 +276,7 @@ class Experiment:
             threshold_mode="abs")
         self.early_stopping = early = EarlyStopping(
             mode=cfg.monitor_mode, min_delta=cfg.early_stop_min_delta,
-            patience=cfg.early_stop_patience)
+            patience=cfg.early_stop_patience, verbose=world.is_main)
         start_epoch = 1
         if resume and self.ckpts.last_epoch > 0:
             start_epoch = self.ckpts.last_epoch + 1
@@ -284,14 +311,17 @@ class Experiment:
                            cfg.samples_per_epoch_factor))
             clock.mark()
             for batch_pos in batches:
+                # every rank draws the same global batch and takes its rows
                 images, labels, idx = self.batch_inputs(
-                    self.train_split[batch_pos])
+                    self.train_split[batch_pos[world.rank_slice(
+                        len(batch_pos))]])
                 metrics = train_step(
                     self.model, self.opt, images, labels, idx,
                     self.augment_gen, _draw_seed(self.dropout_gen),
                     cfg.crop_size, self._mean, self._std,
                     cfg.jitter_brightness, cfg.jitter_saturation,
-                    self.loss_fn, cfg.use_bfloat16, cfg.train_f1_postprocess)
+                    self.loss_fn, cfg.use_bfloat16, cfg.train_f1_postprocess,
+                    world=world)
                 clock.mark()
                 self.step_count += 1
                 if prioritized is not None:
@@ -324,17 +354,18 @@ class Experiment:
                 log.as_dict())
             if is_best:
                 self.ckpts.export_best_model(self.model)
+            world.barrier()  # rank 0's files are complete for every rank
             new_lr = plateau.step(monitored, lr)
             if new_lr != lr:
-                print(f"Epoch {epoch}: reducing learning rate to "
-                      f"{new_lr:.2e}")
+                self._print(f"Epoch {epoch}: reducing learning rate to "
+                            f"{new_lr:.2e}")
                 set_learning_rate(self.opt, new_lr)
             if early.step(monitored, epoch):
                 break
         if prioritized is not None:  # the train-end summary, utils.py:414-456
             self.sampler_stats = prioritized.stats()
             for k, v in self.sampler_stats.items():
-                print(f"{k}: {v}")
+                self._print(f"{k}: {v}")
         return self.history
 
     def batch_inputs(self, idx: np.ndarray):
@@ -353,17 +384,24 @@ class Experiment:
 
     def evaluate(self, split: np.ndarray, batch_size: int = 8) -> dict:
         """Poutyne-style evaluation: per-batch metrics averaged, weighted by
-        batch size."""
+        batch size. Each batch is padded to a multiple of the world size
+        with repeats of its last sample, which the step weights 0, and
+        each rank runs its rows of it: the results are the same for every
+        world size."""
+        world = self.world
         sums: dict[str, float] = {}
         count = 0
         for start in range(0, len(split), batch_size):
-            images, labels, idx = self.batch_inputs(
-                split[start:start + batch_size])
-            b = idx.shape[0]
-            valid = torch.ones(b, device=self.device)
-            out = eval_step(self.model, images, labels, idx, valid,
+            rows = np.asarray(split[start:start + batch_size])
+            b = len(rows)
+            rows = world.pad_rows(rows)
+            valid = (np.arange(len(rows)) < b).astype(np.float32)
+            mine = world.rank_slice(len(rows))
+            images, labels, idx = self.batch_inputs(rows[mine])
+            out = eval_step(self.model, images, labels, idx,
+                            torch.as_tensor(valid[mine], device=self.device),
                             self._mean, self._std, self.loss_fn,
-                            self.config.use_bfloat16)
+                            self.config.use_bfloat16, world)
             for k, v in out.items():
                 if v.dim() == 0:
                     sums[k] = sums.get(k, 0.0) + float(v) * b
@@ -380,8 +418,8 @@ class Experiment:
         if use_best and self.ckpts.best_epoch is not None:
             self.load_best()
         metrics = self.evaluate(self.test_split)
-        print("Test:", ", ".join(f"{k}: {v:g}" for k, v in
-                                 sorted(metrics.items())))
+        self._print("Test:", ", ".join(f"{k}: {v:g}" for k, v in
+                                       sorted(metrics.items())))
         return metrics
 
     def load_checkpoint(self, epoch: int) -> None:
@@ -400,9 +438,15 @@ class Experiment:
 
     # ------------------------------------------------------------- logging
 
+    def _print(self, *args) -> None:
+        """Console output, from rank 0 only."""
+        if self.world.is_main:
+            print(*args, flush=True)
+
     def _log_epoch(self, log: EpochLog, total_epochs: int) -> None:
-        print(f"Epoch {log.epoch}/{total_epochs} {log.time_s:.2f}s "
-              f"lr: {log.lr:.2e} loss: {log.loss:.6g} "
-              f"miou: {log.miou:.6g} f1: {log.f1:.6g} "
-              f"val_loss: {log.val_loss:.6g} val_miou: {log.val_miou:.6g} "
-              f"val_f1: {log.val_f1:.6g}", flush=True)
+        self._print(f"Epoch {log.epoch}/{total_epochs} {log.time_s:.2f}s "
+                    f"lr: {log.lr:.2e} loss: {log.loss:.6g} "
+                    f"miou: {log.miou:.6g} f1: {log.f1:.6g} "
+                    f"val_loss: {log.val_loss:.6g} "
+                    f"val_miou: {log.val_miou:.6g} "
+                    f"val_f1: {log.val_f1:.6g}")

@@ -14,6 +14,20 @@ sync inside a step) unless the F1 postprocess is asked for.
 package's ``use_bfloat16`` runs its conv stack in bf16: parameters and
 Adam state stay float32, and the model returns float32 logits, on which
 the loss and the metrics are computed.
+
+Data-parallel steps (``world``, parallel/distributed.py): each rank runs
+the forward on its rows of the global batch (the model's BatchNorms take
+global statistics, parallel/sync_bn.py; its random layers draw the global
+batch's values, models/seeding.py). The logits, labels and pixel weights
+are then gathered into the global batch, where every rank computes the
+same loss and metrics: the Lovász-Softmax loss (``per_image=False``) sorts
+the errors of the whole batch and does not split across ranks. The
+gather's backward keeps each rank's own rows, so a rank's parameter
+gradients are its rows' share of the global gradient; one all-reduce sums
+them before the optimizer step (the JAX step's psum under GSPMD). The
+step is then the single-process step on the global batch, on every rank.
+Without a world, or with one of one rank and no process group, no
+collective runs.
 """
 from __future__ import annotations
 
@@ -25,6 +39,7 @@ import torch
 from ..config import CLASS_WEIGHTS, NUM_CLASSES
 from ..data.augment import gather_augment_batch
 from ..ops import losses as L
+from ..parallel.distributed import World
 from ..ops.metrics import confusion_matrix, iou_from_confusion, pixelwise_f1
 
 LossFn = Callable[..., torch.Tensor]
@@ -78,19 +93,27 @@ def _autocast(device: torch.device, bf16: bool):
 def step_on_batch(model: torch.nn.Module, opt: torch.optim.Optimizer,
                   imgs: torch.Tensor, labs: torch.Tensor, seed: int,
                   loss_fn: LossFn | None = None, bf16: bool = False,
-                  f1_postprocess: bool = False) -> dict[str, torch.Tensor]:
+                  f1_postprocess: bool = False, world: World | None = None
+                  ) -> dict[str, torch.Tensor]:
     """One optimizer step on an augmented batch (imgs [B, H, W, 3]
-    normalized, labs [B, H, W]); ``seed`` keys the model's random layers.
-    Returns 0-d device tensors: loss, miou and the F1, without the
-    connected-component postprocess unless ``f1_postprocess`` (the JAX
-    step's default for train batches)."""
+    normalized, labs [B, H, W]: this rank's rows of the global batch under
+    ``world``); ``seed`` keys the model's random layers. Returns 0-d
+    device tensors of the global batch: loss, miou and the F1, without
+    the connected-component postprocess unless ``f1_postprocess`` (the
+    JAX step's default for train batches)."""
     loss_fn = loss_fn or make_loss_fn("lovasz")
     model.train()
     with _autocast(imgs.device, bf16):
-        logits = model(imgs, dropout_seed=seed)
+        logits = model(imgs, dropout_seed=seed,
+                       shard=(0, 1) if world is None else (world.rank,
+                                                           world.size))
+    if world is not None:
+        logits, labs = world.gather_rows(logits), world.gather_rows(labs)
     loss = loss_fn(logits, labs)
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    if world is not None:
+        world.all_reduce_grads(model.parameters())
     opt.step()
     with torch.no_grad():
         cm = confusion_matrix(logits.argmax(dim=-1), labs, NUM_CLASSES)
@@ -106,23 +129,30 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                crop: int, mean: torch.Tensor, std: torch.Tensor,
                brightness: float = 0.1, saturation: float = 0.2,
                loss_fn: LossFn | None = None, bf16: bool = False,
-               f1_postprocess: bool = False) -> dict[str, torch.Tensor]:
-    """Gather + augment the dataset rows idx, then ``step_on_batch``."""
+               f1_postprocess: bool = False, world: World | None = None
+               ) -> dict[str, torch.Tensor]:
+    """Gather + augment the dataset rows idx (under ``world``, this rank's
+    rows of the global batch: the augmentation draws the global batch's
+    parameters), then ``step_on_batch``."""
+    b = idx.shape[0]
+    rows = None if world is None else (world.rank * b, world.size * b)
     imgs, labs = gather_augment_batch(images_u8, labels_u8, idx, crop, mean,
-                                      std, generator, brightness, saturation)
+                                      std, generator, brightness, saturation,
+                                      batch_rows=rows)
     return step_on_batch(model, opt, imgs, labs, seed, loss_fn, bf16,
-                         f1_postprocess)
+                         f1_postprocess, world)
 
 
 def eval_step(model: torch.nn.Module, images_u8: torch.Tensor,
               labels_u8: torch.Tensor, idx: torch.Tensor,
               valid: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
-              loss_fn: LossFn | None = None, bf16: bool = False
-              ) -> dict[str, torch.Tensor]:
+              loss_fn: LossFn | None = None, bf16: bool = False,
+              world: World | None = None) -> dict[str, torch.Tensor]:
     """Validation/test step over the dataset: gather by idx, normalize,
     forward in eval mode, loss and metrics. ``valid`` ([B] {0, 1}) marks
     real samples: padded entries still run through the forward but count
-    in neither the loss nor the metrics."""
+    in neither the loss nor the metrics. Under ``world`` idx and valid are
+    this rank's rows, and the loss and metrics are the global batch's."""
     loss_fn = loss_fn or make_loss_fn("lovasz")
     model.eval()
     with torch.no_grad():
@@ -131,6 +161,9 @@ def eval_step(model: torch.nn.Module, images_u8: torch.Tensor,
         pw = valid.float()[:, None, None]
         with _autocast(imgs.device, bf16):
             logits = model(imgs)
+        if world is not None:
+            logits, labs = world.gather_rows(logits), world.gather_rows(labs)
+            pw = world.gather_rows(pw)
         cm = confusion_matrix(logits.argmax(dim=-1), labs, NUM_CLASSES,
                               weights=pw)
         iou = iou_from_confusion(cm)

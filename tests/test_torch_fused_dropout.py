@@ -148,6 +148,53 @@ def test_mask_does_not_depend_on_the_tiling():
     assert torch.equal(small, big[:small.numel()])
 
 
+@pytest.mark.parametrize("rows", [0, 1, 2, 4])
+def test_offset_mask_is_the_global_masks_rows(rows):
+    """A data-parallel rank's mask: at element offset rows * C * H * W,
+    the mask of its rows [rows, 5) equals those rows of the offset-0 mask
+    of the global [5, C, H, W] tensor, bit for bit."""
+    shape = (5, 6, 4, 6)
+    full = fdm.dropout_mask(shape, SEED, 0.8)
+    chw = shape[1] * shape[2] * shape[3]
+    got = fdm.dropout_mask((5 - rows, *shape[1:]), SEED, 0.8,
+                           offset=rows * chw)
+    assert torch.equal(got, full[rows:])
+
+
+@pytest.mark.parametrize("offset", [4, 8, 1000, 2 ** 40])
+def test_offset_mask_is_a_window_of_the_linear_mask(offset):
+    """Any offset that is a multiple of 4 selects the window [offset,
+    offset + n) of the linear mask; others are refused."""
+    n = 96
+    whole = fdm.dropout_mask((offset % 4096 + n,), SEED, 0.5,
+                             offset=offset - offset % 4096)
+    got = fdm.dropout_mask((n,), SEED, 0.5, offset=offset)
+    assert torch.equal(got, whole[offset % 4096:])
+    for bad in (offset + 2, -4):
+        with pytest.raises(ValueError, match="offset"):
+            fdm.dropout_mask((n,), SEED, 0.5, offset=bad)
+
+
+def test_op_at_an_offset_is_the_global_ops_rows():
+    """Forward and gradients of a rank's rows at its element offset equal
+    the rows of the global batch's."""
+    rng = np.random.default_rng(6)
+    h, w, b = (torch.from_numpy(a) for a in _inputs(rng, (4, 8, 8, 16)))
+    h = h.permute(0, 3, 1, 2).contiguous()
+    g = torch.from_numpy(rng.standard_normal((4, 3, 8, 8)).astype(
+        np.float32))
+    y = fdm.fused_dropout_matmul_plain(h, w, b, SEED, 0.8)
+    dh, _, _ = fdm.fused_dropout_matmul_backward_plain(h, w, g, SEED, 0.8)
+    offset = 2 * h[0].numel()
+    y2 = fdm.fused_dropout_matmul(h[2:].contiguous(), w, b, SEED, 0.8,
+                                  offset=offset)
+    dh2, _, _ = fdm.fused_dropout_matmul_backward(h[2:].contiguous(), w,
+                                                  g[2:], SEED, 0.8, offset)
+    torch.testing.assert_close(y2, y[2:], rtol=1e-6, atol=1e-6)
+    assert torch.equal(dh2 == 0, dh[2:] == 0)
+    torch.testing.assert_close(dh2, dh[2:], rtol=1e-6, atol=1e-6)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     h = torch.zeros(1, 8, 4, 4)
     w, b = torch.zeros(8, 3), torch.zeros(3)
@@ -180,9 +227,9 @@ def test_head_runs_the_op_only_in_train_mode(monkeypatch):
 
     calls = []
 
-    def spy(*args):
-        calls.append(args[3:])
-        return fdm.fused_dropout_matmul(*args)
+    def spy(*args, offset):
+        calls.append((*args[3:], offset))
+        return fdm.fused_dropout_matmul(*args, offset=offset)
 
     monkeypatch.setattr(heads, "fused_dropout_matmul", spy)
     torch.manual_seed(0)
@@ -196,7 +243,7 @@ def test_head_runs_the_op_only_in_train_mode(monkeypatch):
     with pytest.raises(ValueError, match="dropout_seed"):
         head(x)
     y = head(x, dropout_seed=SEED)
-    assert calls == [(SEED, 0.8)]
+    assert calls == [(SEED, 0.8, 0)]  # one process: the mask at element 0
     with torch.no_grad():
         a = head[2](head[1](head[0](x)))
         want = fdm.fused_dropout_matmul_plain(
@@ -206,6 +253,33 @@ def test_head_runs_the_op_only_in_train_mode(monkeypatch):
     assert set(head.state_dict()) == {
         "0.weight", "1.weight", "1.bias", "1.running_mean", "1.running_var",
         "1.num_batches_tracked", "4.weight", "4.bias"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2])
+def test_kernels_take_the_offset_on_card(rows):
+    """The kernels at a rank's element offset equal the plain versions
+    there, and their mask is those rows of the global batch's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode "
+                    "(chip_smoke.py runs them at the training path's "
+                    "shapes and offsets)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    h, w, b = (torch.from_numpy(a).cuda() for a in _inputs(
+        rng, (3, 16, 64, 64), 3))
+    h = h.permute(0, 3, 1, 2).contiguous()
+    g = torch.from_numpy(rng.standard_normal((3, 3, 16, 64)).astype(
+        np.float32)).cuda()
+    offset = rows * h[0].numel()
+    part, g_part = h[rows:].contiguous(), g[rows:].contiguous()
+    y = fdm.fused_dropout_matmul_forward(part, w, b, SEED, 0.8, offset)
+    torch.testing.assert_close(y, fdm.fused_dropout_matmul_plain(
+        part, w, b, SEED, 0.8, offset), rtol=1e-5, atol=1e-5)
+    dh, _, _ = fdm.fused_dropout_matmul_backward(part, w, g_part, SEED, 0.8,
+                                                 offset)
+    full = fdm.dropout_mask(h.shape, SEED, 0.8, device="cuda")
+    assert torch.equal(dh == 0, full[rows:] == 0)
 
 
 @pytest.mark.cuda

@@ -49,7 +49,9 @@ def test_port_imports_no_jax():
                  "models.efficientnet", "models.heads", "models.resnet",
                  "models.fold", "models.segmentation", "models.seeding",
                  "models.qops", "models.quantize",
-                 "cli.quantize_checkpoint"):
+                 "cli.quantize_checkpoint", "parallel",
+                 "parallel.distributed", "parallel.sync_bn",
+                 "pipeline.multihost"):
         assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
 
 
@@ -119,8 +121,10 @@ def test_cli_defaults_to_cuda_and_drops_unported_flags():
     # --int8 is ported (tests/test_torch_quantize_engine.py drives it)
     assert parser.parse_args(["root", "--int8"]).int8
     assert not parser.parse_args(["root"]).int8
-    for flag in (["--shard", "0/2"], ["--mpl"],
-                 ["--preprocess_backend", "tpu"]):
+    # --shard is ported (tests/test_torch_multihost.py drives it)
+    assert parser.parse_args(["root", "--shard", "0/2"]).shard == "0/2"
+    assert parser.parse_args(["root"]).shard is None
+    for flag in (["--mpl"], ["--preprocess_backend", "tpu"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["root", *flag])
 

@@ -213,9 +213,9 @@ def test_dropout_step_runs_the_op_with_the_step_seed(monkeypatch):
     seeds = []
     real = heads.fused_dropout_matmul
     monkeypatch.setattr(heads, "fused_dropout_matmul",
-                        lambda h, w, b, seed, rate: (seeds.append(seed),
-                                                     real(h, w, b, seed,
-                                                          rate))[1])
+                        lambda h, w, b, seed, rate, offset: (
+                            seeds.append(seed),
+                            real(h, w, b, seed, rate, offset))[1])
     variables = tiny_variables(seed=0)
     x, labels = _batch(np.random.default_rng(3))
     losses = []

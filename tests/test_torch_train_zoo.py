@@ -367,9 +367,9 @@ def test_fcn_head_upcasts_bf16_for_the_kernel(monkeypatch):
     seen = []
     real = heads.fused_dropout_matmul
     monkeypatch.setattr(heads, "fused_dropout_matmul",
-                        lambda h, w, b, seed, rate: (
+                        lambda h, w, b, seed, rate, offset: (
                             seen.append((h.dtype, h.is_contiguous())),
-                            real(h, w, b, seed, rate))[1])
+                            real(h, w, b, seed, rate, offset))[1])
     model = tiny_torch_model(dropout=0.8).train()
     with torch.autocast("cpu", dtype=torch.bfloat16):
         out = model(torch.randn(2, 32, 32, 3), dropout_seed=3)
@@ -614,7 +614,8 @@ def test_train_f1_postprocess_matches_jax(data_root, tmp_path, monkeypatch):
     seen = []
     real = loop.train_step
     monkeypatch.setattr(loop, "train_step",
-                        lambda *a: (seen.append(a[-1]), real(*a))[1])
+                        lambda *a, **kw: (seen.append(a[-1]),
+                                          real(*a, **kw))[1])
     exp = loop.Experiment(data_root, str(tmp_path / "moar"),
                           config=_config(train_f1_postprocess=True),
                           device="cpu")
@@ -705,7 +706,8 @@ def test_cli_recipe_flags(data_root, tmp_path, monkeypatch):
 
     class Spy:
         def __init__(self, data_dir, directory, config, model_name,
-                     loss_name, monitor, device):
+                     loss_name, monitor, device, world):
+            assert world is None  # one process: no process group
             seen.append((config.use_bfloat16, config.backbone_ckpt,
                          loss_name, model_name))
             self.ckpts = type("C", (), {"best_epoch": None})()
