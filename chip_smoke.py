@@ -31,6 +31,19 @@ rows 2-4 of the offset-0 mask, the kernels on rows 2-4 alone equal to the
 offset-0 run's rows bit for bit, and its time beside offset 0's, which it
 must match within the phase's spread.
 
+The ccl phase, after phase 2, holds the union-find kernels
+(csrc/ccl.cu) against their plain version bit for bit: label_components,
+component_areas and remove_small_zones on the eval batch of phase 4's
+1024² images ([8, 1024, 1024] int64) and on a train step's crops ([5,
+512, 512]), remove_small_zones_ragged on the engine's chunk ([8, 1024,
+1024] uint8, valid_h 896/960/1024 and 0), each batch holding random maps
+at class-0 shares 0.3/0.5/0.7 or 0.5, blob maps and all-class-0 and
+all-bark images; the 1024² spiral against scipy.ndimage.label and the
+native union-find, with the plain version's sweeps printed. The kernels
+are timed by device time (3 rounds), the plain version by CUDA events,
+beside the native union-find as the port ran it before (the maps copied
+to the host, remove_small_zones_batch, the upload) and the byte bound.
+
 Phase 3 drives the predict path, folder prediction, through the engine a
 user calls: a synthetic folder of 16 processed 1024-wide images at trimmed
 heights 896/960/1024, a full-width fcn_resnet50 with random weights drawn
@@ -43,14 +56,25 @@ this script on the one card over the same folder and checkpoint (shard 0
 merges), against the single-process float32 engine: every artifact once,
 the merged CSV's names and order equal, the rows whose bytes differ
 counted, the dual masks >= 99.9 % equal, each shard's upsample_argmax
-launches, the wall time against phase 3's.
+launches, the wall time against phase 3's. Then the no-library predict:
+cli/predict --float32 --preprocess_backend host over the same folder in
+a child process of this script (``--no-native-predict``, internal) that
+makes the native runtime's build fail before anything loads it: PIL
+codecs, the scipy preprocess, the engine's postprocess through
+ops/ccl.remove_small_zones_ragged on the card. It must warn, launch ccl
+and upsample_argmax, write final_stats.csv byte for byte as the native
+single-process float32 run did, and equal dual masks; its wall time is
+printed beside that run's.
 
 Phase 4 drives the training path through cli/train.main: a synthetic
 30-image 1024x1024 dataset with duals, the full-width, full-depth
 fcn_resnet50 at the recipe's batch 5 and crop 512, one epoch of 9 steps,
 validation, test and the report. It checks the checkpoint, best_model.pt,
-the report's 15 columns, finite losses and that the fused dropout kernels
-ran, and prints the warm step time and the peak memory. Then one training
+the report's 15 columns, finite losses, that the fused dropout kernels
+ran and that the ccl kernels ran (validation, test and the report's
+PixelWiseF1), and prints the warm step time, the epoch's time outside its
+steps and the peak memory; one validation image's F1 on the card equals
+the CPU's bit for bit. Then one training
 step on the card is held against the same step on the CPU. Then the NCCL
 phase: cli/train --distributed under torchrun's environment at world size
 1 (a NCCL process group on the card: cross-rank BatchNorms, the loss's
@@ -356,6 +380,18 @@ BN_CHECK_TOL = {"float32": {"y": 1e-5, "dx": 1e-5, "dw": 1e-4, "db": 1e-4,
 SERVE_WAIT_MS = 25
 SERVE_CLIENTS = 8
 SERVE_PER_CLIENT = 4
+# The ccl phase: PixelWiseF1's eval batch of phase 4's 1024² images (its
+# argmax, int64), a train step's crops, and the predict engine's ragged
+# chunk of uint8 maps (valid_h as the folder's heights, one image 0). Each
+# batch mixes the class-map kinds of CCL_KINDS; the spiral of arm spacing 2
+# is the sweep labelling's worst case.
+CCL_EVAL = (8, 1024, 1024)
+CCL_TRAIN = (5, 512, 512)
+CCL_RAGGED_H = (896, 960, 1024, 0, 1024, 896, 960, 1024)
+CCL_KINDS = {8: ("random 0.3", "random 0.5", "random 0.7", "blobs", "blobs",
+                 "blobs", "all class 0", "all bark"),
+             5: ("random 0.5", "blobs", "blobs", "all class 0", "all bark")}
+CCL_SPIRAL = 1024
 
 
 def log(msg: str) -> None:
@@ -372,12 +408,13 @@ def card_clocks() -> str:
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
-    from neuralbarkcalculator_tpu_torch.ops import fused_dropout_matmul
+    from neuralbarkcalculator_tpu_torch.ops import ccl, fused_dropout_matmul
     from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import LAUNCHES
 
     return {"upsample_argmax": LAUNCHES,
             "fused_dropout_matmul_fwd": fused_dropout_matmul.FWD_LAUNCHES,
-            "fused_dropout_matmul_bwd": fused_dropout_matmul.BWD_LAUNCHES}
+            "fused_dropout_matmul_bwd": fused_dropout_matmul.BWD_LAUNCHES,
+            "ccl": ccl.LAUNCHES}
 
 
 def reset_counters() -> dict:
@@ -497,8 +534,8 @@ def same_counts(name: str, counts_by_round: list[list[dict[str, int]]]
 def kernel_label(mangled: str) -> str:
     """`fdm_forward_kernel<3>` from a kernel's name, mangled or not (the
     name itself where no port kernel is found in it)."""
-    m = re.search(r"((?:fdm|upsample)_[a-z_]*?kernel)(?:ILi(\d+)E|<(\d+)>)?",
-                  mangled)
+    m = re.search(r"((?:fdm|upsample|ccl)_[a-z_]*?kernel)"
+                  r"(?:ILi(\d+)E|<(\d+)>)?", mangled)
     if not m:
         return mangled
     k = m.group(2) or m.group(3)
@@ -1131,6 +1168,224 @@ def check_fdm_offset(torch, inputs, first: dict, rate: float) -> int:
     return offset
 
 
+def ccl_maps(np, rng, shape: tuple) -> "np.ndarray":
+    """int64 class maps {0, 1, 2} of `shape`, one kind of CCL_KINDS an
+    image: random pixels with that share of class 0 (the rest bark, a
+    fifth of it node), blob maps shaped like real masks (regions of a
+    64-pixel scale with 8-pixel detail and pixel noise, so zones of every
+    size down to single pixels), an all-class-0 and an all-bark image."""
+    b, h, w = shape
+    out = np.empty(shape, np.int64)
+    for i, kind in enumerate(CCL_KINDS[b]):
+        if kind.startswith("random"):
+            p0 = float(kind.split()[1])
+            out[i] = rng.choice(3, size=(h, w),
+                                p=[p0, 0.8 * (1 - p0), 0.2 * (1 - p0)])
+        elif kind == "blobs":
+            field = (np.kron(rng.random((h // 64, w // 64)), np.ones((64, 64)))
+                     + 0.5 * np.kron(rng.random((h // 8, w // 8)),
+                                     np.ones((8, 8)))
+                     + 0.25 * rng.random((h, w)))
+            out[i] = np.where(field < 0.85, 0,
+                              np.where(rng.random((h, w)) < 0.05, 2, 1))
+        else:
+            out[i] = 0 if kind == "all class 0" else 1
+    return out
+
+
+def spiral(np, n: int):
+    """One spiral of arm spacing 2 over an n x n bool grid (the JAX
+    package's worst case for its sweep labelling, tests/test_ccl.py)."""
+    grid = np.zeros((n, n), bool)
+    top, bottom, left, right = 0, n - 1, 0, n - 1
+    while left <= right and top <= bottom:
+        grid[top, left:right + 1] = True
+        grid[top:bottom + 1, right] = True
+        grid[bottom, left:right + 1] = True
+        if left + 2 <= right:
+            grid[top:bottom + 1, left] = False
+            grid[top + 2:bottom + 1, left + 2] = True
+        top += 2
+        bottom -= 2
+        left += 2
+        right -= 2
+    return grid
+
+
+def ccl_expect(kind: str) -> dict[str, int]:
+    """The device kernels one ccl wrapper call launches, by label."""
+    one = {"ccl_init_kernel": 1, "ccl_merge_kernel": 1,
+           "ccl_compress_kernel": 1}
+    if kind == "labels":
+        return one
+    return {"ccl_init_kernel": 1, "ccl_merge_kernel": 2,
+            "ccl_compress_kernel": 2, "ccl_count_kernel": 2,
+            "ccl_init_filled_kernel": 1, "ccl_writeback_kernel": 1}
+
+
+def check_exact(torch, label: str, got, want) -> int:
+    """Raise unless `got` equals `want` bit for bit (dtype too); returns
+    the largest absolute difference, 0."""
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        n = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"ccl {label}: the kernels differ from the "
+                             f"plain version ({got.dtype} vs {want.dtype}, "
+                             f"{n} elements differ)")
+    return 0
+
+
+def phase_ccl(torch, seed: int, card: str) -> dict:
+    """The ccl kernels on the card against their plain version, bit for
+    bit: label_components and component_areas on the class-0 masks and
+    remove_small_zones at the eval batch (int64) and a train step's crops,
+    remove_small_zones_ragged on the engine's chunk (uint8, valid_h with a
+    0); the 1024² spiral against scipy.ndimage.label and the native
+    union-find, with the plain version's sweeps. Then the kernels timed by
+    device time in FDM_TIMING_ROUNDS rounds, the plain version by CUDA
+    events around one call (seconds a call), beside the native union-find
+    as the port ran it before (device-to-host copy,
+    remove_small_zones_batch, upload; wall clock) and the byte bound."""
+    import numpy as np
+    from scipy import ndimage
+
+    from neuralbarkcalculator_tpu_torch.io.native import (
+        remove_small_zones_batch)
+    from neuralbarkcalculator_tpu_torch.ops import ccl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    maps = torch.from_numpy(ccl_maps(np, rng, CCL_EVAL)).to(dev)
+    crops = torch.from_numpy(ccl_maps(np, rng, CCL_TRAIN)).to(dev)
+    chunk = maps.to(torch.uint8)
+    vh = torch.tensor(CCL_RAGGED_H, dtype=torch.int32, device=dev)
+    errors = []
+    t0 = time.perf_counter()
+    for label, x in (("eval batch", maps), ("train crops", crops)):
+        mask = x == 0
+        before = ccl.LAUNCHES.count
+        lab, areas, zones = (ccl.label_components(mask),
+                             ccl.component_areas(mask),
+                             ccl.remove_small_zones(x))
+        torch.cuda.synchronize()
+        launched = ccl.LAUNCHES.count - before
+        lab_p = ccl.label_components_plain(mask)
+        errors += [check_exact(torch, f"{label} labels", lab, lab_p),
+                   check_exact(torch, f"{label} areas", areas,
+                               ccl.component_areas_plain(mask, lab_p)),
+                   check_exact(torch, f"{label} remove_small_zones", zones,
+                               ccl.remove_small_zones_plain(x, None))]
+        changed = (zones != x).flatten(1).sum(1).tolist()
+        kinds = ", ".join(CCL_KINDS[x.shape[0]])
+        log(f"ccl {label} {list(x.shape)} {x.dtype} ({kinds}): "
+            f"labels, areas and remove_small_zones equal to the plain "
+            f"version; {launched} wrapper calls launched; pixels changed "
+            f"per image {changed}")
+    before = ccl.LAUNCHES.count
+    ragged = ccl.remove_small_zones_ragged(chunk, vh)
+    torch.cuda.synchronize()
+    launched = ccl.LAUNCHES.count - before
+    errors.append(check_exact(torch, "ragged chunk", ragged,
+                              ccl.remove_small_zones_plain(chunk, vh)))
+    for i, h in enumerate(CCL_RAGGED_H):
+        if bool(ragged[i, h:].any()):
+            raise AssertionError(f"ccl ragged: padded rows of image {i} "
+                                 f"are not 0")
+    log(f"ccl ragged chunk {list(chunk.shape)} uint8, valid_h "
+        f"{list(CCL_RAGGED_H)}: equal to the plain version, padded rows 0; "
+        f"{launched} wrapper call launched; checks {time.perf_counter() - t0:.3f} s")
+
+    # the spiral: one component; the union-find is exact, the sweeps may
+    # stop at their bound
+    grid_np = spiral(np, CCL_SPIRAL)
+    grid = torch.from_numpy(grid_np).to(dev)
+    lab = ccl.label_components(grid)
+    want, n_comp = ndimage.label(grid_np, structure=np.ones((3, 3), bool))
+    lab_np = lab.cpu().numpy()
+    first = int(np.flatnonzero(grid_np.ravel())[0])
+    if n_comp != 1 or set(np.unique(lab_np[grid_np]).tolist()) != {first} \
+            or (lab_np[~grid_np] != CCL_SPIRAL ** 2).any():
+        raise AssertionError("ccl spiral: the labels are not scipy's single "
+                             "component at its smallest index")
+    spiral_map = np.where(grid_np, 0, 1).astype(np.uint8)[None]
+    native_zones = remove_small_zones_batch(spiral_map)
+    card_zones = ccl.remove_small_zones(
+        torch.from_numpy(spiral_map).to(dev)).cpu().numpy()
+    if not np.array_equal(card_zones, native_zones):
+        raise AssertionError("ccl spiral: remove_small_zones differs from "
+                             "the native union-find")
+    t0 = time.perf_counter()
+    lab_p, sweeps = ccl.label_components_plain(grid[None],
+                                               return_sweeps=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    log(f"ccl spiral {CCL_SPIRAL}² (arm spacing 2, {int(grid_np.sum())} "
+        f"pixels, one component): kernel labels equal scipy.ndimage.label's "
+        f"partition and the smallest index; remove_small_zones equal to the "
+        f"native union-find; the plain version ran {sweeps} sweeps "
+        f"(bound {ccl._MAX_SWEEPS}) in {plain_s:.3f} s, its labels "
+        f"{'equal to' if torch.equal(lab_p[0], lab) else 'NOT equal to'} the "
+        f"kernels' (not held: the sweeps may stop unconverged)")
+
+    # timing
+    mask = maps == 0
+    fns = (lambda: ccl.remove_small_zones(maps),
+           lambda: ccl.remove_small_zones_ragged(chunk, vh),
+           lambda: ccl.remove_small_zones(crops),
+           lambda: ccl.label_components(mask))
+    expect = (ccl_expect("zones"), ccl_expect("zones"), ccl_expect("zones"),
+              ccl_expect("labels"))
+    rounds, counts = [], []
+    for r in range(FDM_TIMING_ROUNDS):
+        times, n = device_times(torch, fns, expect)
+        rounds.append([sum(t.values()) for t in times])
+        counts.append(n)
+        log(f"ccl timing round {r + 1} (device ms per call): eval batch "
+            f"{rounds[-1][0]:.4f}, ragged chunk {rounds[-1][1]:.4f}, train "
+            f"crops {rounds[-1][2]:.4f}, labels alone {rounds[-1][3]:.4f}; "
+            f"by kernel (eval batch) "
+            f"{ {k: round(v, 4) for k, v in times[0].items()} }; clocks.sm, "
+            f"clocks.mem, power.draw after it: {card_clocks()}")
+    same_counts("ccl", counts)
+    ms, ragged_ms, crops_ms, labels_ms = (statistics.median(col)
+                                          for col in zip(*rounds))
+    # the plain version (~10^5 small kernels and a host sync a sweep) by
+    # CUDA events around one call: a profiler session of its events took
+    # minutes to read on an H100
+    plain_ms = time_ms(torch, lambda: ccl.remove_small_zones_plain(maps, None),
+                       warmup=0, reps=1, runs=1)
+    native_s = []
+    for _ in range(FDM_TIMING_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = remove_small_zones_batch(maps.to(torch.uint8).cpu().numpy())
+        torch.from_numpy(out).to(dev)
+        torch.cuda.synchronize()
+        native_s.append(time.perf_counter() - t0)
+    native_ms = statistics.median(native_s) * 1e3
+    nbytes = 2 * maps.numel() * maps.element_size()
+    bound = nbytes / H100_HBM_BYTES * 1e3
+    chunk_bound = 2 * chunk.numel() / H100_HBM_BYTES * 1e3
+    log(f"ccl ({card}): remove_small_zones at the eval batch "
+        f"{list(maps.shape)} int64: kernels {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms (one call, CUDA events), native union-find as before (copy to the host, "
+        f"remove_small_zones_batch, upload; wall clock, median of "
+        f"{FDM_TIMING_ROUNDS}) {native_ms:.4f} ms, byte bound {bound:.4f} ms "
+        f"({nbytes / 1e6:.3f} MB: the map read once, the result written "
+        f"once; {bound / ms:.4f} of it); ragged chunk uint8 {ragged_ms:.4f} "
+        f"ms (bound {chunk_bound:.4f}); train crops {crops_ms:.4f} ms; "
+        f"labels alone {labels_ms:.4f} ms")
+    return {
+        "name": "ccl", "route": "cuda",
+        "source": "neuralbarkcalculator_tpu_torch/csrc/ccl.cu",
+        "replaces": "neuralbarkcalculator_tpu/ops/ccl.py:206",
+        "launches": 0, "max_abs_err": max(errors), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+        "library_ms": None, "native_ms": native_ms,
+        "ragged_ms": ragged_ms, "train_crops_ms": crops_ms,
+        "labels_ms": labels_ms, "spiral_plain_sweeps": sweeps,
+    }
+
+
 def make_train_root(data_dir: str, seed: int) -> None:
     """TRAIN_PER_TYPE 1024x1024 samples per wood type with their duals, in
     the reference layout (samples/<wood>/, duals/<wood>/), written with the
@@ -1194,7 +1449,8 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
         raise AssertionError(f"the training run took {steps} steps, < 6")
     if not all(math.isfinite(x) for x in exp.step_losses):
         raise AssertionError(f"non-finite train losses {exp.step_losses}")
-    for name in ("fused_dropout_matmul_fwd", "fused_dropout_matmul_bwd"):
+    for name in ("fused_dropout_matmul_fwd", "fused_dropout_matmul_bwd",
+                 "ccl"):
         if launches[name] == 0:
             raise AssertionError(f"the training path never launched {name}")
     moar = os.path.join(root, "moar")
@@ -1224,8 +1480,43 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
         f"memory allocated {peak / 2 ** 30:.3f} GiB")
     log(f"train path: losses {[round(x, 6) for x in exp.step_losses]}; "
         f"epoch log {exp.history[0].as_dict()}")
+    log(f"train path: epoch minus steps (validation and the loop's host "
+        f"work) {exp.history[0].time_s - sum(exp.step_seconds):.3f} s; ccl "
+        f"launched {launches['ccl']} times (validation, test and the "
+        f"report's PixelWiseF1)")
+    eval_f1_card_vs_cpu(torch, exp)
     profile_train_step(torch, exp)
     return {"launches": launches, "step_ms": statistics.median(warm) * 1e3}
+
+
+def eval_f1_card_vs_cpu(torch, exp) -> None:
+    """PixelWiseF1 of one validation image of the trained model on the
+    card (the ccl kernels) against the same logits' on the CPU (the plain
+    version), equal bit for bit: the CCL is exact and the counts are
+    integers."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.ops import ccl
+    from neuralbarkcalculator_tpu_torch.ops.metrics import pixelwise_f1
+
+    rows = np.asarray(exp.valid_split[:1])
+    images, labels, idx = exp.batch_inputs(rows)
+    exp.model.eval()
+    with torch.no_grad():
+        x = (images[idx].float() / 255.0 - exp._mean) / exp._std
+        logits, labs = exp.model(x), labels[idx].long()
+        before = ccl.LAUNCHES.count
+        f1 = pixelwise_f1(logits, labs).cpu()
+        launched = ccl.LAUNCHES.count - before
+        t0 = time.perf_counter()
+        f1_cpu = pixelwise_f1(logits.cpu(), labs.cpu())
+    log(f"train path: eval F1 of validation image {int(rows[0])} "
+        f"{list(logits.shape)}: card {f1.tolist()} ({launched} ccl call), "
+        f"CPU {f1_cpu.tolist()} (plain version, "
+        f"{time.perf_counter() - t0:.3f} s)")
+    if launched != 1 or not torch.equal(f1, f1_cpu):
+        raise AssertionError("the eval F1 on the card differs from the "
+                             "CPU's, or the card did not run the ccl kernels")
 
 
 # device kernels of a train step, grouped by name (first match wins)
@@ -1630,7 +1921,7 @@ def copy_folder(src_root: str, dst_root: str, as_sources: bool) -> None:
 
 def phase_sharded_predict(torch, workdir: str, main_root: str, ckpt: str,
                           main_seconds: float, f32_agreement: float,
-                          card: str) -> list[int]:
+                          card: str) -> dict:
     """Sharded folder prediction on the card: `cli/predict --shard k/N
     --float32` for k < SHARDS as concurrent child processes over the main
     path's folder and checkpoint (shard 0 owns the preprocess, which finds
@@ -1641,13 +1932,16 @@ def phase_sharded_predict(torch, workdir: str, main_root: str, ckpt: str,
     (cuDNN may take other algorithms for other batch compositions: byte
     identity is held in the CPU tests). Each shard's launch counts are set
     to 0 before its run and read after; each must launch upsample_argmax.
-    Returns the shards' upsample_argmax launches."""
+    Returns the shards' upsample_argmax launches, and the single process's
+    warm pass: its seconds, its native postprocess's seconds and its
+    folder."""
     import numpy as np
 
     from neuralbarkcalculator_tpu_torch.config import PredictConfig
     from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
+    from neuralbarkcalculator_tpu_torch.utils import profiling
 
     single_root = os.path.join(workdir, "single_f32")
     shard_root = os.path.join(workdir, "sharded")
@@ -1657,10 +1951,12 @@ def phase_sharded_predict(torch, workdir: str, main_root: str, ckpt: str,
         ckpt, config=PredictConfig(model_path=ckpt, use_bfloat16=False,
                                    figure_dpi=DPI))
     f32.predict(single_root, progress=False)  # warm-up
+    profiling.report(reset=True)
     t0 = time.perf_counter()
     with open(f32.predict(single_root, progress=False), "rb") as f:
         single = f.read()
     single_s = time.perf_counter() - t0
+    post_s = postprocess_seconds(profiling.report(reset=True))
     del f32
 
     argv = [shard_root, "--model_path", ckpt, "--float32", "--dpi", str(DPI),
@@ -1738,7 +2034,117 @@ def phase_sharded_predict(torch, workdir: str, main_root: str, ckpt: str,
             or sh["launches"]["fused_dropout_matmul_bwd"] for sh in shards):
         raise AssertionError(f"sharded predict launches: "
                              f"{[sh['launches'] for sh in shards]}")
-    return launches
+    return {"launches": launches, "single_s": single_s,
+            "single_postprocess_s": post_s, "single_root": single_root}
+
+
+def postprocess_seconds(stages: dict) -> float:
+    """The predict postprocess's seconds in a profiling.report()."""
+    return sum(row["total_s"] for name, row in stages.items()
+               if name.startswith("predict/postprocess"))
+
+
+def no_native_child(torch, argv: list[str]) -> dict:
+    """The no-library predict child (``--no-native-predict ARGV``): the
+    native runtime's build is made to fail here, before anything loads
+    the library, then cli/predict.main runs on ARGV with every launch
+    count set to 0 just before and read just after, and the warnings it
+    issued recorded. Returns the counts, the warnings, the run's seconds
+    and its postprocess's."""
+    import warnings
+
+    from neuralbarkcalculator_tpu_torch.utils import build, profiling
+
+    def fail():
+        raise RuntimeError("chip_smoke: the native build is made to fail "
+                           "in this process")
+
+    build.build_native = fail
+    from neuralbarkcalculator_tpu_torch.cli.predict import build_parser, main
+    from neuralbarkcalculator_tpu_torch.io import native
+
+    counters = reset_counters()
+    with warnings.catch_warnings(record=True) as record:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        main(build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if native.get_lib() is not None:
+        raise AssertionError("the native library loaded in the no-library "
+                             "child")
+    return {"launches": {name: c.count for name, c in counters.items()},
+            "seconds": seconds,
+            "postprocess_s": postprocess_seconds(profiling.report()),
+            "warnings": [str(w.message) for w in record
+                         if issubclass(w.category, RuntimeWarning)]}
+
+
+def phase_no_native_predict(torch, workdir: str, main_root: str, ckpt: str,
+                            sharded: dict, card: str) -> int:
+    """cli/predict --float32 over the main path's folder (as sources, with
+    the host preprocess) in a child process of this script whose native
+    build fails: PIL codecs, the scipy preprocess, the maps postprocessed
+    by ops/ccl.remove_small_zones_ragged on the card. It must warn, launch
+    ccl and upsample_argmax, write final_stats.csv byte for byte as the
+    native single-process float32 run of the sharded-predict phase did,
+    and dual masks equal to its as decoded arrays. Returns its ccl
+    launches."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+
+    root = os.path.join(workdir, "no_native")
+    copy_folder(main_root, root, True)
+    argv = [root, "--model_path", ckpt, "--float32", "--dpi", str(DPI),
+            "--preprocess_backend", "host", "--pipeline", "sequential"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--no-native-predict",
+         *argv], cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the no-library predict child exited "
+                           f"{proc.returncode}: {proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    single_root = sharded["single_root"]
+    with open(os.path.join(root, "results", "final_stats.csv"), "rb") as f:
+        got = f.read()
+    with open(os.path.join(single_root, "results", "final_stats.csv"),
+              "rb") as f:
+        want = f.read()
+    masks_equal = True
+    for row in want.decode().splitlines()[1:]:
+        fname, wood = row.split("\t")[:2]
+        a, b = (load_image_u8(os.path.join(r, "results", "outputs", wood,
+                                           fname), grayscale=True)
+                for r in (root, single_root))
+        masks_equal &= bool(np.array_equal(a, b))
+        if not os.path.isfile(os.path.join(root, "results",
+                                           "combined_images", wood, fname)):
+            raise AssertionError(f"no-library predict: missing {fname}'s "
+                                 f"figure")
+    warned_build = any("could not be built" in w for w in child["warnings"])
+    warned_post = any("make -C native" in w for w in child["warnings"])
+    log(f"no-library predict ({card}): cli/predict --float32 "
+        f"--preprocess_backend host over the {N_IMAGES}-image folder in a "
+        f"child whose native build fails: wall {wall:.3f} s from launch to "
+        f"exit, its CLI run {child['seconds']:.3f} s, its postprocess "
+        f"(unpack, ccl on the card, remap) {child['postprocess_s']:.3f} s; "
+        f"the native single-process float32 engine's warm pass "
+        f"{sharded['single_s']:.3f} s, its postprocess "
+        f"{sharded['single_postprocess_s']:.3f} s; launches "
+        f"{child['launches']}; warnings: build {warned_build}, postprocess "
+        f"{warned_post} ({len(child['warnings'])} RuntimeWarnings); "
+        f"final_stats.csv byte-identical {got == want}; dual masks equal "
+        f"{masks_equal}")
+    if not (warned_build and warned_post) or got != want or not masks_equal \
+            or child["launches"]["ccl"] == 0 \
+            or child["launches"]["upsample_argmax"] == 0:
+        raise AssertionError("no-library predict: no warning, no ccl or "
+                             "upsample_argmax launch, or artifacts that "
+                             "differ from the native run's")
+    return child["launches"]["ccl"]
 
 
 def free_port() -> int:
@@ -3773,6 +4179,9 @@ def main() -> int:
     parser.add_argument("--predict-shard", dest="predict_shard",
                         nargs=argparse.REMAINDER, default=None,
                         help=argparse.SUPPRESS)  # a sharded-predict child
+    parser.add_argument("--no-native-predict", dest="no_native_predict",
+                        nargs=argparse.REMAINDER, default=None,
+                        help=argparse.SUPPRESS)  # the no-library child
     parser.add_argument("--train-rank", dest="train_rank", nargs=4,
                         metavar=("RANK", "PORT", "WORKDIR", "SEED"),
                         default=None,
@@ -3796,6 +4205,10 @@ def main() -> int:
         print(json.dumps(predict_shard_child(torch, args.predict_shard)),
               flush=True)
         return 0
+    if args.no_native_predict:
+        print(json.dumps(no_native_child(torch, args.no_native_predict)),
+              flush=True)
+        return 0
     if args.train_rank:
         rank, port, workdir, seed = args.train_rank
         print(json.dumps(train_rank_child(torch, int(rank), int(port),
@@ -3813,6 +4226,7 @@ def main() -> int:
     kernel.update(timed("upsample_argmax stride 32", phase_kernel_stride32,
                         torch, args.seed))
     fdm = timed("fused_dropout_matmul", phase_fdm_kernel, torch, args.seed)
+    ccl_row = timed("ccl", phase_ccl, torch, args.seed, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         main_path = timed("main path", phase_main_path, torch, args.seed,
                           workdir)
@@ -3824,9 +4238,13 @@ def main() -> int:
         ckpt, main_root = main_path["ckpt"], main_path["root"]
         main_seconds = main_path["seconds"]
         del main_path
-        kernel["shard_launches"] = timed(
+        sharded = timed(
             "sharded predict", phase_sharded_predict, torch, workdir,
             main_root, ckpt, main_seconds, f32_agreement, card)
+        kernel["shard_launches"] = sharded["launches"]
+        ccl_row["no_native_launches"] = timed(
+            "no-library predict", phase_no_native_predict, torch, workdir,
+            main_root, ckpt, sharded, card)
         scans = timed("preprocess", phase_preprocess, torch, args.seed,
                       workdir, card)
         timed("cli resume", phase_cli_resume, torch, scans["root"], ckpt,
@@ -3843,6 +4261,7 @@ def main() -> int:
         kernel["int8_launches"] = {name: int8[name]["launches"]
                                    for name in INT8_MODELS}
         train = timed("train", phase_train, torch, args.seed, workdir)
+        ccl_row["launches"] = train["launches"]["ccl"]
         nccl = timed("train nccl", phase_train_nccl, torch, args.seed,
                      workdir, train["step_ms"], card)
         two_ranks = timed("train two ranks", phase_train_two_ranks, torch,
@@ -3862,7 +4281,7 @@ def main() -> int:
                     r[f"fused_dropout_matmul_{direction}"]
                     for r in two_ranks]
     timed("train vs cpu", phase_train_vs_cpu, torch, args.seed)
-    print(json.dumps({"kernels": [kernel, *fdm]}), flush=True)
+    print(json.dumps({"kernels": [kernel, *fdm, ccl_row]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,34 @@
 """ctypes binding to the native IO runtime (native/barkio.cc).
 
 The library is compiled from the checkout at first use, into build/
-(utils/build.py); a failed build raises with the compiler's message. It
-provides the BMP/PNG codecs, the threaded resize+trim preprocess and the
-fused union-find postprocess. Formats it does not decode (JPEG, TIFF, ...)
-go through PIL, imported only then.
+(utils/build.py). It provides the BMP/PNG codecs, the threaded
+resize+trim preprocess and the fused union-find postprocess. Formats it
+does not decode (JPEG, TIFF, ...) go through PIL, imported only then.
+
+Without the library the port still runs, as the JAX package does: when
+the build fails (no g++, no zlib), ``get_lib()`` issues one RuntimeWarning
+for the process, carrying the compiler's message, and returns None from
+then on, without building again. Every function here then behaves as its
+JAX counterpart: ``image_info``, ``preprocess_image_native``,
+``remove_small_zones_batch`` and ``remove_small_zones_host2`` return None
+(their callers take the scipy resize and the device CCL instead), and
+``load_image_u8`` / ``save_image_u8`` go through PIL. This holds for the
+host runtime only: a CUDA kernel whose build fails still raises
+(ops/kernels.py).
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import threading
+import warnings
 
 import numpy as np
 
-from ..utils.build import build_native
+from ..utils import build
 
 _lib = None
+_tried = False  # a build was attempted in this process (it may have failed)
 _lib_lock = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -24,39 +36,53 @@ _I32 = ctypes.c_int32
 _PI32 = ctypes.POINTER(ctypes.c_int32)
 
 
-def get_lib() -> ctypes.CDLL:
-    """The loaded library (built on first call)."""
-    global _lib
+def get_lib() -> ctypes.CDLL | None:
+    """The loaded library (built on the first call), or None when it
+    cannot be built."""
+    global _lib, _tried
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_native())
-            sigs = {
-                "bmp_info": [ctypes.c_char_p, _PI32, _PI32],
-                "bmp_decode_rgb": [ctypes.c_char_p, _P, ctypes.c_int64],
-                "png_info": [ctypes.c_char_p, _PI32, _PI32, _PI32],
-                "png_decode": [ctypes.c_char_p, _P, ctypes.c_int64],
-                "png_encode": [ctypes.c_char_p, _P, _I32, _I32, _I32, _I32],
-                "remove_small_zones_batch": [
-                    _P, _I32, _I32, _I32, _P, _I32, _P, _I32],
-                "remove_small_zones_batch2": [
-                    _P, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P, _P,
-                    _I32],
-                "preprocess_image_u8": [
-                    _P, _I32, _I32, _I32, ctypes.c_double, ctypes.c_double,
-                    _P, _PI32, _PI32, _I32],
-            }
-            for name, argtypes in sigs.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        try:
+            lib = ctypes.CDLL(build.build_native())
+        except (RuntimeError, OSError) as e:
+            warnings.warn(
+                f"the native IO runtime (native/barkio.cc) could not be "
+                f"built or loaded; images decode and encode through PIL, "
+                f"the host preprocess runs in scipy and the predict "
+                f"postprocess in ops/ccl instead:\n{e}", RuntimeWarning,
+                stacklevel=3)
+            return None
+        sigs = {
+            "bmp_info": [ctypes.c_char_p, _PI32, _PI32],
+            "bmp_decode_rgb": [ctypes.c_char_p, _P, ctypes.c_int64],
+            "png_info": [ctypes.c_char_p, _PI32, _PI32, _PI32],
+            "png_decode": [ctypes.c_char_p, _P, ctypes.c_int64],
+            "png_encode": [ctypes.c_char_p, _P, _I32, _I32, _I32, _I32],
+            "remove_small_zones_batch": [
+                _P, _I32, _I32, _I32, _P, _I32, _P, _I32],
+            "remove_small_zones_batch2": [
+                _P, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P, _P,
+                _I32],
+            "preprocess_image_u8": [
+                _P, _I32, _I32, _I32, ctypes.c_double, ctypes.c_double,
+                _P, _PI32, _PI32, _I32],
+        }
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
         return _lib
 
 
 def image_info(path: str) -> tuple[int, int, int] | None:
     """(height, width, channels) of a BMP/PNG from its header, or None for
-    other formats or an unreadable header."""
+    other formats, an unreadable header or no library."""
     lib = get_lib()
+    if lib is None:
+        return None
     w, h, c = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
     lower = path.lower()
     if lower.endswith(".bmp"):
@@ -86,7 +112,7 @@ def _convert_mode(img: np.ndarray, grayscale: bool) -> np.ndarray:
 
 def load_image_u8(path: str, grayscale: bool = False) -> np.ndarray:
     """Decode to uint8 ([H,W,3] RGB or [H,W] L): native BMP/PNG, PIL for
-    other formats."""
+    other formats and without the library."""
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
     info = image_info(path)
@@ -106,18 +132,18 @@ def load_image_u8(path: str, grayscale: bool = False) -> np.ndarray:
 
 def save_image_u8(path: str, img: np.ndarray, zlevel: int = 6) -> None:
     """Native PNG encode of a uint8 HW / HWC array (float [0,1] arrays are
-    quantized first); PIL for other extensions."""
+    quantized first); PIL for other extensions and without the library."""
     if img.dtype != np.uint8:
         img = np.rint(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
-    if not path.lower().endswith(".png"):
+    lib = get_lib()
+    if lib is None or not path.lower().endswith(".png"):
         from ..data.dataset import save_image_u8_pil
         save_image_u8_pil(path, img)
         return
     c = 1 if img.ndim == 2 else img.shape[2]
     img = np.ascontiguousarray(img)
-    rc = get_lib().png_encode(path.encode(),
-                              img.ctypes.data_as(ctypes.c_void_p),
-                              img.shape[1], img.shape[0], c, zlevel)
+    rc = lib.png_encode(path.encode(), img.ctypes.data_as(ctypes.c_void_p),
+                        img.shape[1], img.shape[0], c, zlevel)
     if rc != 0:
         raise OSError(f"native PNG encode of {path!r} failed (barkio "
                       f"rc={rc})")
@@ -125,24 +151,28 @@ def save_image_u8(path: str, img: np.ndarray, zlevel: int = 6) -> None:
 
 def preprocess_image_native(img: np.ndarray, target: int, trim_thr: float,
                             trim_frac: float, threads: int = 1
-                            ) -> tuple[np.ndarray, int, int]:
+                            ) -> tuple[np.ndarray, int, int] | None:
     """Native resize+trim+quantize of one decoded uint8 [H, W, 3] image
     (reference models.py:191-203 semantics).
 
     Returns (out_u8, first, last): out_u8 is [target, target, 3] when the
     image was resized (max(H, W) > target) else [H, W, 3]; (first, last)
-    is the kept row range when the trim applied, else (-1, -1).
+    is the kept row range when the trim applied, else (-1, -1). None
+    without the library.
     """
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected uint8 [h, w, 3], got {img.dtype} "
                          f"{img.shape}")
+    lib = get_lib()
+    if lib is None:
+        return None
     img = np.ascontiguousarray(img)
     h, w = img.shape[:2]
     do_resize = max(h, w) > target
     out = np.empty((target, target, 3) if do_resize else (h, w, 3),
                    np.uint8)
     first, last = ctypes.c_int32(), ctypes.c_int32()
-    rc = get_lib().preprocess_image_u8(
+    rc = lib.preprocess_image_u8(
         img.ctypes.data_as(ctypes.c_void_p), h, w, target, float(trim_thr),
         float(trim_frac), out.ctypes.data_as(ctypes.c_void_p),
         ctypes.byref(first), ctypes.byref(last), threads)
@@ -154,11 +184,15 @@ def preprocess_image_native(img: np.ndarray, target: int, trim_thr: float,
 def remove_small_zones_batch(class_maps: np.ndarray,
                              valid_h: np.ndarray | None = None,
                              min_size: int = 150, threads: int = 8
-                             ) -> np.ndarray:
+                             ) -> np.ndarray | None:
     """Union-find remove_small_zones (reference utils.py:135-148:
     8-connectivity, strict < threshold, islands -> bark, holes -> 0) on a
     uint8 class-map batch [B, H, W], each image on its own. ``valid_h``
-    restricts each image to its first rows; padded rows come back 0."""
+    restricts each image to its first rows; padded rows come back 0. None
+    without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
     class_maps = np.ascontiguousarray(class_maps, dtype=np.uint8)
     if class_maps.ndim != 3:
         raise ValueError(f"expected [B, H, W] class maps, got "
@@ -169,7 +203,7 @@ def remove_small_zones_batch(class_maps: np.ndarray,
     if valid_h is not None:
         valid_h = np.ascontiguousarray(valid_h, dtype=np.int32)
         vh_ptr = valid_h.ctypes.data_as(ctypes.c_void_p)
-    rc = get_lib().remove_small_zones_batch(
+    rc = lib.remove_small_zones_batch(
         class_maps.ctypes.data_as(ctypes.c_void_p), b, h, w, vh_ptr,
         min_size, out.ctypes.data_as(ctypes.c_void_p), threads)
     if rc != 0:
@@ -184,15 +218,19 @@ def remove_small_zones_host2(class_maps: np.ndarray, w: int,
                              packed: bool = False,
                              exclude_nodes: bool = False,
                              min_size: int = 150, threads: int = 8
-                             ) -> tuple[np.ndarray, np.ndarray]:
+                             ) -> tuple[np.ndarray, np.ndarray] | None:
     """The predict engine's whole postprocess in one native pass: optional
     2-bit-packed input ([B, H, W/4], w % 4 == 0), union-find
     remove_small_zones (reference utils.py:135-148: 8-connectivity, strict
     < threshold, islands -> bark), the exclude_nodes 2->1 remap
     (models.py:273-276) and per-image class counts over the valid rows.
 
-    Returns (cleaned [B, H, W] uint8, counts [B, 3] int64).
+    Returns (cleaned [B, H, W] uint8, counts [B, 3] int64), or None
+    without the library.
     """
+    lib = get_lib()
+    if lib is None:
+        return None
     class_maps = np.ascontiguousarray(class_maps, dtype=np.uint8)
     b, h = class_maps.shape[:2]
     if class_maps.shape[2] != (w // 4 if packed else w) or \
@@ -205,7 +243,7 @@ def remove_small_zones_host2(class_maps: np.ndarray, w: int,
     if valid_h is not None:
         valid_h = np.ascontiguousarray(valid_h, dtype=np.int32)
         vh_ptr = valid_h.ctypes.data_as(ctypes.c_void_p)
-    rc = get_lib().remove_small_zones_batch2(
+    rc = lib.remove_small_zones_batch2(
         class_maps.ctypes.data_as(ctypes.c_void_p), int(packed), b, h, w,
         vh_ptr, min_size, int(exclude_nodes),
         out.ctypes.data_as(ctypes.c_void_p),

@@ -9,15 +9,17 @@ PyTorch.
   class order on the running vector, as the reference's in-place loop does.
 
 Counts are exact integers (scatter-add); the scores are float32 in the JAX
-package's order of operations. The postprocess is the native union-find
-(io/native.remove_small_zones_batch) on the host.
+package's order of operations. The postprocess is ops/ccl.remove_small_zones
+on the tensor's device (the union-find kernels on a card, the plain version
+on the CPU), as the JAX package's metrics.py runs its ops/ccl: the class
+maps never leave the device.
 """
 from __future__ import annotations
 
 import torch
 
 from ..config import NUM_CLASSES
-from ..io.native import remove_small_zones_batch
+from .ccl import remove_small_zones
 
 
 def confusion_matrix(preds: torch.Tensor, labels: torch.Tensor,
@@ -70,15 +72,6 @@ def _absent_class_fixup(scores: torch.Tensor, cm: torch.Tensor
         others = torch.cat([scores[:i], scores[i + 1:]])
         scores[i] = torch.where(absent[i], others.mean(), scores[i])
     return scores
-
-
-def remove_small_zones(class_maps: torch.Tensor) -> torch.Tensor:
-    """Reference utils.py:135-148 on [H, W] or [B, H, W] class maps (each
-    image labelled on its own), through the native union-find."""
-    maps = class_maps if class_maps.dim() == 3 else class_maps[None]
-    out = remove_small_zones_batch(maps.to(torch.uint8).cpu().numpy())
-    out = torch.from_numpy(out).to(class_maps.device)
-    return out if class_maps.dim() == 3 else out[0]
 
 
 def pixelwise_f1(logits: torch.Tensor, labels: torch.Tensor,

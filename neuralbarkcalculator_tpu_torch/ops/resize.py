@@ -9,7 +9,9 @@ hold identical operators) and applied as two matrix products:
   mode='reflect', anti_aliasing=False)`` (reference models.py:194-198):
   scipy's prefiltered cubic B-spline with the 'mirror' boundary, output
   pixel *i* sampled at input coordinate ``(i + 0.5) * in/out - 0.5``
-  (``bspline_resize_matrix``, ``spline_resize``);
+  (``bspline_resize_matrix``, ``spline_resize``), and its host twin for
+  a runtime without the native library (``spline_resize_host``: scipy's
+  IIR prefilter and the 4 B-spline taps, in numpy);
 - the model head's ``F.interpolate(mode='bicubic', align_corners=False)``
   (reference models.py:38-41): Keys cubic convolution with a = -0.75,
   half-pixel sampling, edge-clamped taps, no prefilter. Ragged batches
@@ -129,6 +131,54 @@ def spline_resize(batch: torch.Tensor, out_h: int, out_w: int
     lo = x.amin(dim=(1, 2, 3)).view(b, 1, 1, 1)
     hi = x.amax(dim=(1, 2, 3)).view(b, 1, 1, 1)
     return torch.clamp(out, lo, hi).contiguous()
+
+
+def _bspline_taps(in_size: int,
+                  out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Evaluation taps of the cubic B-spline resize: ([4, out] mirror
+    indices, [4, out] float32 weights). Summing ``w_k * coef[idx_k]`` over
+    k is ``S @ coef``, the interpolation half of bspline_resize_matrix."""
+    scale = in_size / out_size
+    x = (np.arange(out_size) + 0.5) * scale - 0.5
+    base = np.floor(x).astype(np.int64)
+    idxs, ws = [], []
+    for k in range(-1, 3):
+        idxs.append(_mirror_index(base + k, in_size))
+        ws.append(_bspline3(x - (base + k)).astype(np.float32))
+    return np.stack(idxs), np.stack(ws)
+
+
+def spline_resize_host(img: np.ndarray, out_h: int,
+                       out_w: int) -> np.ndarray:
+    """The B-spline resize on the host, for a runtime without the native
+    library (pipeline/preprocess.py): scipy's IIR spline prefilter along
+    each axis, then the 4-tap B-spline evaluation, in float32 as the
+    reference resizes its float32 image (models.py:192-198). The same
+    function as ``spline_resize`` (S @ B^-1 per axis), summed in another
+    order.
+
+    img: [H, W, C] or [H, W] float; returns float32 clipped to the input's
+    range (skimage's clip=True).
+    """
+    from scipy.ndimage import spline_filter1d
+
+    img = np.ascontiguousarray(img, dtype=np.float32)
+    lo, hi = float(img.min()), float(img.max())
+    coef = spline_filter1d(img, order=3, axis=0, mode="mirror",
+                           output=np.float32)
+    coef = spline_filter1d(coef, order=3, axis=1, mode="mirror",
+                           output=np.float32)
+    trail = (1,) * (img.ndim - 1)
+    ridx, rw = _bspline_taps(img.shape[0], out_h)
+    out = rw[0].reshape(-1, *trail) * coef[ridx[0]]
+    for k in range(1, 4):
+        out += rw[k].reshape(-1, *trail) * coef[ridx[k]]
+    cidx, cw = _bspline_taps(img.shape[1], out_w)
+    trail = (1,) * (img.ndim - 2)
+    out2 = cw[0].reshape(1, -1, *trail) * out[:, cidx[0]]
+    for k in range(1, 4):
+        out2 += cw[k].reshape(1, -1, *trail) * out[:, cidx[k]]
+    return np.clip(out2, lo, hi)
 
 
 def _keys_cubic(s: np.ndarray, a: float) -> np.ndarray:

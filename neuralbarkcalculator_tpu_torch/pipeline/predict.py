@@ -26,7 +26,10 @@ batched:
   pad -> upload -> device step -> pull; the caller's thread runs the
   native union-find postprocess (remove_small_zones + exclude_nodes remap
   + class counts, io/native.py) and hands the maps to the artifact writer
-  (pipeline/report.py).
+  (pipeline/report.py). Without the native library (io/native.py) it
+  unpacks the maps in numpy, runs ops/ccl.remove_small_zones_ragged on the
+  engine's device and the remap in numpy, and the report counts the
+  classes itself, as the JAX package does.
 
 Checkpoints: a reference ``best_model.pt`` (torchvision-named state dict)
 or weights carried across from the JAX package with
@@ -46,6 +49,7 @@ from __future__ import annotations
 import itertools
 import os
 import threading
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
@@ -64,6 +68,7 @@ from ..models.quantize import (check_quantizable,
                                quantize_model)
 from ..models.resnet import row_mask
 from ..models.segmentation import MODEL_FACTORIES
+from ..ops.ccl import remove_small_zones_ragged
 from ..ops.resize import column_operator_t, embedded_bicubic_rows
 from ..ops.upsample_argmax import column_windows, upsample_argmax
 from ..parallel.distributed import pad_to_multiple
@@ -245,13 +250,19 @@ class NeuralBarkCalculator:
         """Yield (ProcessedImage, class_map[h, w] uint8) for each image, in
         batched bucket order. ``with_counts=True`` yields (item,
         class_map, counts3) instead, counts3 being the int64 [3] per-class
-        pixel count the native postprocess already produced."""
+        pixel count the native postprocess already produced (counted here
+        without the native library)."""
         chunks = self._plan_chunks(
             [(i, *im.image.shape[:2]) for i, im in enumerate(images)])
         for _, item, cmap, counts in self._run_chunks(
                 chunks, lambda idxs: [images[i] for i in idxs],
                 exclude_nodes):
-            yield (item, cmap, counts) if with_counts else (item, cmap)
+            if not with_counts:
+                yield item, cmap
+                continue
+            if counts is None:
+                counts = np.bincount(cmap.ravel(), minlength=3)
+            yield item, cmap, counts
 
     def predict_streaming(self, root_path: str, stream,
                           exclude_nodes: bool = False,
@@ -490,10 +501,33 @@ class NeuralBarkCalculator:
         with stage_timer(f"predict/postprocess_h{pad_h}"):
             # one native pass: unpack + remove_small_zones + exclude_nodes
             # remap + per-class counts
-            out, counts = remove_small_zones_host2(
+            res = remove_small_zones_host2(
                 out, w, valid_h, packed=packed, exclude_nodes=exclude_nodes)
+            if res is not None:
+                out, counts = res
+            else:  # no native library: numpy unpack + the device CCL
+                if packed:
+                    out = _UNPACK2[out].reshape(out.shape[0], out.shape[1],
+                                                -1)
+                out = self._postprocess(out, valid_h, exclude_nodes)
+                counts = None
         for i, (idx, item) in enumerate(zip(chunk_idxs, items)):
-            yield idx, item, out[i, :item.image.shape[0]], counts[i]
+            yield (idx, item, out[i, :item.image.shape[0]],
+                   None if counts is None else counts[i])
+
+    def _postprocess(self, preds_u8: np.ndarray, valid_h: np.ndarray,
+                     exclude_nodes: bool) -> np.ndarray:
+        """remove_small_zones + exclude_nodes remap (models.py:270-276)
+        without the native library: ops/ccl.remove_small_zones_ragged on
+        the engine's device over each image's valid rows, the remap in
+        numpy."""
+        _warn_no_native()
+        cleaned = remove_small_zones_ragged(
+            torch.from_numpy(preds_u8).to(self.device),
+            torch.from_numpy(np.asarray(valid_h, np.int32))).cpu().numpy()
+        if exclude_nodes:  # node class 2 -> 1 (models.py:273-276)
+            cleaned = np.where(cleaned == 2, 1, cleaned).astype(np.uint8)
+        return cleaned
 
     # ------------------------------------------------------------ internal
 
@@ -639,6 +673,30 @@ class NeuralBarkCalculator:
             x = x * row_mask(valid_h, x.shape[1], x.dtype).view(
                 x.shape[0], x.shape[1], 1, 1)
         return x
+
+
+# the host's inverse of pack2bit: byte -> its 4 pixels (JAX
+# pipeline/predict.py's _UNPACK2)
+_UNPACK2 = np.stack([(np.arange(256, dtype=np.uint8) >> (2 * k)) & 3
+                     for k in range(4)], axis=1)
+
+_no_native_lock = threading.Lock()
+_no_native_warned = False
+
+
+def _warn_no_native() -> None:
+    """The JAX package's warning for the postprocess without the native
+    library, once a process."""
+    global _no_native_warned
+    with _no_native_lock:
+        if _no_native_warned:
+            return
+        _no_native_warned = True
+    warnings.warn(
+        "native/libbarkio.so is not built: remove_small_zones is falling "
+        "back to the device CCL (ops/ccl), and the class counts to numpy. "
+        "Run `make -C native` to build the C++ runtime.", RuntimeWarning,
+        stacklevel=3)
 
 
 def pack2bit(m: torch.Tensor) -> torch.Tensor:

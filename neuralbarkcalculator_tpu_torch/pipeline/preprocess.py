@@ -9,6 +9,8 @@ Two backends compute it:
 
 - ``host``: the native pass (io/native.preprocess_image_native, bit-equal
   to scipy), one image per worker of a thread pool (it releases the GIL);
+  without the native library the same steps in scipy and numpy
+  (ops/resize.spline_resize_host), as the JAX package's host path;
 - ``device``: sources decoded on host threads and batched by input shape,
   uploaded as uint8 (a quarter of float32's bytes), then on the device
   uint8 -> float / 255 -> the B-spline resize as two float32 matrix
@@ -36,7 +38,7 @@ from ..config import (PREPROCESS_TARGET_SIZE, TRIM_PIXEL_THRESHOLD,
                       TRIM_ROW_FRACTION)
 from ..data.dataset import make_dataset
 from ..io.native import load_image_u8, preprocess_image_native, save_image_u8
-from ..ops.resize import spline_resize
+from ..ops.resize import spline_resize, spline_resize_host
 from ..ops.trim import trim_bounds_batch
 from ..utils.device import resolve_device
 
@@ -133,8 +135,9 @@ class Preprocessor:
     def _calibrate_backend(self, src: int = 4096) -> str:
         """Predict each path's cost for one src x src source and pick the
         cheaper. device: the uint8 upload over the measured link, plus 0.1
-        s of dispatch and pull; host: the native pass on a quarter-size
-        probe, scaled by 16 and divided by the cores the pool can use."""
+        s of dispatch and pull; host: the native pass (the scipy twin
+        without the library) on a quarter-size probe, scaled by 16 and
+        divided by the cores the pool can use."""
         bw = measure_transfer_bandwidth(self.device)
         device_s = (src * src * 3) / bw + 0.1
         probe_src = src // 4
@@ -142,9 +145,11 @@ class Preprocessor:
         probe_u8 = (rng.random((probe_src, probe_src, 3))
                     * 255).astype(np.uint8)
         t0 = time.perf_counter()
-        preprocess_image_native(probe_u8, probe_src // 4,
-                                TRIM_PIXEL_THRESHOLD, TRIM_ROW_FRACTION,
-                                threads=1)
+        if preprocess_image_native(probe_u8, probe_src // 4,
+                                   TRIM_PIXEL_THRESHOLD, TRIM_ROW_FRACTION,
+                                   threads=1) is None:
+            spline_resize_host(probe_u8.astype(np.float32), probe_src // 4,
+                               probe_src // 4)
         probe_s = time.perf_counter() - t0
         cores = max(1, min(self.io_workers, os.cpu_count() or 1))
         host_s = probe_s * 16 / cores
@@ -302,11 +307,27 @@ class Preprocessor:
     def _preprocess_host_one(self, img: np.ndarray,
                              threads: int = 1) -> np.ndarray:
         """Resize decision, spline resize, trim and uint8 quantization in
-        the native pass, then the ragged crop."""
-        out, first, last = preprocess_image_native(
+        the native pass, then the ragged crop; without the library the
+        same steps in scipy and numpy (the JAX package's host path)."""
+        res = preprocess_image_native(
             img, self.target_size, TRIM_PIXEL_THRESHOLD, TRIM_ROW_FRACTION,
             threads=threads)
-        return out[first:last] if first >= 0 else out
+        if res is not None:
+            out, first, last = res
+            return out[first:last] if first >= 0 else out
+        h, w = img.shape[:2]
+        do_resize = max(h, w) > self.target_size
+        imgf = img.astype(np.float32) / 255.0
+        if do_resize:
+            imgf = spline_resize_host(imgf, self.target_size,
+                                      self.target_size)
+        if do_resize or h == w:  # "still square": trim (models.py:200)
+            nonblack = imgf.sum(axis=-1) > TRIM_PIXEL_THRESHOLD
+            keep = nonblack.mean(axis=-1) > TRIM_ROW_FRACTION
+            first = int(np.argmax(keep))  # all-False -> 0: no trim
+            last = len(keep) - int(np.argmax(keep[::-1]))
+            imgf = imgf[first:last]
+        return np.rint(np.clip(imgf, 0.0, 1.0) * 255.0).astype(np.uint8)
 
     def _launch_shape_batch(self, imgs: tuple[np.ndarray, ...],
                             dev: torch.device):

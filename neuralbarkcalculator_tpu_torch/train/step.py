@@ -7,8 +7,9 @@ forward in train mode (every random layer keyed by the step's seed:
 the FCN head's dropout + 1x1 conv through ops/fused_dropout_matmul, the
 DeepLab head's ASPP dropout, EfficientNet's stochastic depth;
 models/seeding.py) -> loss -> backward -> Adam, with BatchNorm's running
-statistics updated by the forward. Metrics stay on the device (no host
-sync inside a step) unless the F1 postprocess is asked for.
+statistics updated by the forward. Metrics stay on the device, the F1
+postprocess included (ops/ccl's union-find kernels on a card): no host
+sync inside a step.
 
 ``bf16`` runs the forward under ``torch.autocast(bfloat16)``, as the JAX
 package's ``use_bfloat16`` runs its conv stack in bf16: parameters and

@@ -51,7 +51,7 @@ def test_port_imports_no_jax():
                  "models.qops", "models.quantize",
                  "cli.quantize_checkpoint", "parallel",
                  "parallel.distributed", "parallel.sync_bn",
-                 "pipeline.multihost"):
+                 "pipeline.multihost", "ops.ccl"):
         assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
 
 

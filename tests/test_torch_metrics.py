@@ -3,10 +3,10 @@ package's ``ops/metrics.py``.
 
 Confusion counts, IoU and F1 are equal, bit for bit: the counts are exact
 integers and the scores take the same float32 operations in the same
-order. The F1 postprocess runs through the native union-find in the port
-and through the JAX package's scan-based labelling there; both are the
-reference's remove_small_zones, so the class maps and the scores agree
-exactly too. Cases: blobby maps with islands under the 150-pixel
+order. The F1 postprocess runs through ops/ccl on the tensor's device in
+the port (its plain version on the CPU) and through the JAX package's
+scan-based labelling there; both are the reference's remove_small_zones,
+so the class maps and the scores agree exactly too. Cases: blobby maps with islands under the 150-pixel
 threshold, a class absent from target and output (the fixup), and a
 padded batch (weights).
 """
