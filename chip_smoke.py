@@ -123,11 +123,12 @@ scans with the device preprocess, then --resume (no launch, the CSV byte
 for byte), then --resume with 3 images' artifacts deleted (exactly those
 written again, the CSV byte for byte). Phase 7, serving through
 cli/serve.make_server with the predict path's checkpoint (bf16, batch 8,
-25 ms, fixed height 1024): warm-up, 16 sequential and 8 x 4 concurrent
-JSON requests of the phase 3 images, a raw scan, mask / combined /
-exclude_nodes answers, /healthz and /v1/stats, every answer's numbers and
-the launch shapes checked; then a --float32 server's masks against a
-direct predict_images call (>= 99.9 % of pixels).
+25 ms, fixed height 1024): warm-up, then tools/serving_bench's
+sequential and concurrent phases at its defaults (20 requests, 8 clients
+x 5) over the phase 3 images, each JSON line printed, a raw scan, mask /
+combined / exclude_nodes answers, /healthz and /v1/stats, every answer's
+numbers and the launch shapes checked; then a --float32 server's masks
+against a direct predict_images call (>= 99.9 % of pixels).
 
 The zoo phase runs after phase 7: fcn_resnet101, deeplabv3_resnet50,
 deeplabv3_resnet101, fcn_efficientnet_b0 and deeplabv3_efficientnet_b7
@@ -156,6 +157,27 @@ loaded by a new engine, maps bit for bit; one request through a --int8
 server; and for fcn_resnet50 cli/quantize_checkpoint -> cli/predict.main
 on the .int8.pt against a lazy engine calibrated on the same image. Every
 phase prints its wall time.
+
+The entry points and tools of the port: after phase 3's profile, the
+trace phase wraps one warm folder pass in utils.device_trace and finds
+upsample_argmax's kernel in the Chrome trace it writes, once a launch.
+After the reference check, the float32 batch phase runs the predict
+cell's 16 images through the float32 engine (TF32 off) at launch batch 8,
+4, 2 and 1, with cuDNN's default algorithms, with its deterministic ones
+and with cuDNN disabled (batch 8 and 1 only), and prints the pixels that
+differ between every two batches and the device step alone in each mode.
+After phase 7 (whose traffic goes through tools/serving_bench), the
+serving tools phase runs serving_bench's cold start (a child server, bf16,
+batch 8, from its start to its first answer) and a SOAK_SECONDS-long
+tools/serving_soak (8 clients, heights 896/960/1024) whose checks must
+pass, each JSON line printed, with upsample_argmax launched; the curation
+phase runs tools/curation fine-tune over 20 structured 1024² duals on
+the card (the ccl kernels) and on the CPU (the plain version),
+the files byte for byte. After phase 4, the entry-points phase runs the
+console scripts bark-predict-torch (over a copy of the main folder) and
+bark-train-torch (one epoch over phase 4's dataset) with their default
+device, as two child processes of this script at once (``--entrypoint``,
+internal), each launching its kernels.
 
 Every path runs with all launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON line, the card's name and
@@ -378,8 +400,11 @@ BN_CHECK_TOL = {"float32": {"y": 1e-5, "dx": 1e-5, "dw": 1e-4, "db": 1e-4,
                 "bf16": {"y": 4e-3, "dx": 4e-3, "dw": 1e-4, "db": 1e-4,
                          "mean": 1e-5, "var": 1e-5}}
 SERVE_WAIT_MS = 25
+# the serving phase's traffic through tools/serving_bench at its defaults:
+# sequential requests, then clients x requests each
+SERVE_SEQ = 20
 SERVE_CLIENTS = 8
-SERVE_PER_CLIENT = 4
+SERVE_PER_CLIENT = 5
 # The ccl phase: PixelWiseF1's eval batch of phase 4's 1024² images (its
 # argmax, int64), a train step's crops, and the predict engine's ragged
 # chunk of uint8 maps (valid_h as the folder's heights, one image 0). Each
@@ -392,6 +417,19 @@ CCL_KINDS = {8: ("random 0.3", "random 0.5", "random 0.7", "blobs", "blobs",
                  "blobs", "all class 0", "all bark"),
              5: ("random 0.5", "blobs", "blobs", "all class 0", "all bark")}
 CCL_SPIRAL = 1024
+# The float32 batch check: the predict cell's images through the float32
+# engine at each launch batch, with cuDNN as it runs by default, with its
+# deterministic algorithms, and disabled (ATen's convolutions, slow: the
+# largest and smallest batch only). (mode, enabled, deterministic, batches)
+F32_BATCHES = (8, 4, 2, 1)
+F32_MODES = (("default", True, False, F32_BATCHES),
+             ("deterministic", True, True, F32_BATCHES),
+             ("disabled", False, False, (8, 1)))
+# The serving tools: the soak's length and clients
+SOAK_SECONDS = 15.0
+SOAK_CLIENTS = 8
+# The curation phase: structured 1024² duals through fine-tune
+CURATION_DUALS = 20
 
 
 def log(msg: str) -> None:
@@ -3303,14 +3341,6 @@ def check_answer(label: str, status: int, data: bytes) -> dict:
     return p
 
 
-def latency_line(seconds: list[float]) -> str:
-    import numpy as np
-
-    ms = np.asarray(seconds) * 1e3
-    return (f"p50 {np.percentile(ms, 50):.3f} ms, p95 "
-            f"{np.percentile(ms, 95):.3f} ms, max {ms.max():.3f} ms")
-
-
 def server_line(answers: list[dict]) -> str:
     """The server's own split of the answers' latency: the mean wait in
     the batcher's queue and the mean time of the engine's batch."""
@@ -3349,14 +3379,16 @@ def stop_server(srv, thread) -> None:
 def phase_serving(torch, main_root: str, ckpt: str, scan: str,
                   card: str) -> None:
     """cli/serve.make_server on the card with the predict cell's
-    checkpoint (bf16): warm-up, then 16 sequential JSON requests of the
-    cell's processed PNGs, SERVE_CLIENTS client threads x SERVE_PER_CLIENT
-    requests, one raw scan BMP, one request each of format=mask,
+    checkpoint (bf16): warm-up, one request, then serving_bench's phases
+    over the cell's processed PNGs (SERVE_SEQ sequential JSON requests,
+    SERVE_CLIENTS client threads x SERVE_PER_CLIENT requests; their JSON
+    lines printed), one raw scan BMP, one request each of format=mask,
     format=combined and exclude_nodes=1, /healthz and /v1/stats. Every
     answer 200 with consistent numbers, no launch shape after warm-up,
     upsample_argmax launched and no training kernel, every request served.
     Then a --float32 server's mask answers against a direct float32
-    predict_images call on the same preprocessed images."""
+    predict_images call on the same preprocessed images. Returns the
+    upsample_argmax launches of the bf16 server's traffic."""
     import io
     import numpy as np
     from PIL import Image
@@ -3367,6 +3399,7 @@ def phase_serving(torch, main_root: str, ckpt: str, scan: str,
         NeuralBarkCalculator)
     from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
         ProcessedImage, Preprocessor)
+    from neuralbarkcalculator_tpu_torch.tools import serving_bench
     from neuralbarkcalculator_tpu_torch.utils import profiling
 
     samples = os.path.join(main_root, "processed", "samples", "sapin")
@@ -3381,38 +3414,25 @@ def phase_serving(torch, main_root: str, ckpt: str, scan: str,
     shapes = set(calc._launch_shapes)
     log(f"serving ({card}): warm-up {warm_s:.3f} s, launch shapes "
         f"(pad_h, batch, width) {sorted(shapes)}")
+    device = serving_bench.device_name(calc.device)
     try:
         counters = reset_counters()
+        check_answer("warm", 200, serving_bench.one_request(port, pngs[0])[1])
         profiling.report(reset=True)
-        sent = 0
-        seq, seq_server = [], []
         t0 = time.perf_counter()
-        for i, body in enumerate(pngs):
-            status, _, data, dt = http_call(port, "POST", "/v1/predict", body)
-            seq_server.append(check_answer(f"sequential {i}", status, data))
-            seq.append(dt)
+        seq_row, seq_answers = serving_bench.sequential(
+            port, pngs, SERVE_SEQ, "bf16", device)
         seq_s = time.perf_counter() - t0
-        sent += len(pngs)
+        seq_server = [check_answer(f"sequential {i}", 200, a)
+                      for i, a in enumerate(seq_answers)]
+        sent = 1 + SERVE_SEQ
         after_seq = predictor.snapshot_stats()
         seq_stages = profiling.report(reset=True)
 
-        def client(c: int) -> list[tuple[float, dict]]:
-            out = []
-            for k in range(SERVE_PER_CLIENT):
-                status, _, data, dt = http_call(
-                    port, "POST", "/v1/predict",
-                    pngs[(c * SERVE_PER_CLIENT + k) % len(pngs)])
-                out.append((dt, check_answer(f"client {c} request {k}",
-                                             status, data)))
-            return out
-
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
-            answered = [a for f in [pool.submit(client, c)
-                                    for c in range(SERVE_CLIENTS)]
-                        for a in f.result()]
-        conc = [dt for dt, _ in answered]
-        conc_s = time.perf_counter() - t0
+        conc_row, conc_answers = serving_bench.concurrent(
+            port, pngs, SERVE_CLIENTS, SERVE_PER_CLIENT, "bf16", device)
+        conc_server = [check_answer(f"concurrent {i}", 200, a)
+                       for i, a in enumerate(conc_answers)]
         sent += SERVE_CLIENTS * SERVE_PER_CLIENT
         after_conc = predictor.snapshot_stats()
         conc_stages = profiling.report(reset=True)
@@ -3455,16 +3475,16 @@ def phase_serving(torch, main_root: str, ckpt: str, scan: str,
     finally:
         stop_server(srv, thread)
     log(f"serving health {health}; stats {stats}")
-    log(f"serving sequential ({card}): {len(seq)} requests in {seq_s:.3f} s "
-        f"= {len(seq) / seq_s:.3f} requests/s; client {latency_line(seq)}; "
-        f"mean batch {after_seq['mean_batch']:.3f}; {server_line(seq_server)}")
+    log(f"serving_bench: {json.dumps(seq_row)}")
+    log(f"serving_bench: {json.dumps(conc_row)}")
+    log(f"serving sequential ({card}): {SERVE_SEQ} requests in {seq_s:.3f} "
+        f"s = {SERVE_SEQ / seq_s:.3f} requests/s; mean batch "
+        f"{after_seq['mean_batch']:.3f}; {server_line(seq_server)}")
     n_conc = after_conc["served"] - after_seq["served"]
     conc_batches = after_conc["batches"] - after_seq["batches"]
     log(f"serving {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} ({card}): "
-        f"{len(conc)} requests in {conc_s:.3f} s = {len(conc) / conc_s:.3f} "
-        f"requests/s; client {latency_line(conc)}; mean batch "
-        f"{n_conc / conc_batches:.3f} over {conc_batches} batches; "
-        f"{server_line([p for _, p in answered])}")
+        f"mean batch {n_conc / conc_batches:.3f} over {conc_batches} "
+        f"batches; {server_line(conc_server)}")
     for label, stages in (("sequential", seq_stages),
                           ("concurrent", conc_stages)):
         log(f"serving {label}, the engine's stages (calls, ms per call): "
@@ -3525,6 +3545,7 @@ def phase_serving(torch, main_root: str, ckpt: str, scan: str,
         f"{warm_s:.3f} s")
     if 1 - differ / total < 0.999:
         raise AssertionError("the float32 server disagrees with the engine")
+    return launches["upsample_argmax"]
 
 
 def phase_kernel_stride32(torch, seed: int) -> dict:
@@ -4170,6 +4191,276 @@ def phase_int8(torch, workdir: str, root: str, ckpts: dict,
     return out
 
 
+def phase_trace(torch, engine, root: str, workdir: str) -> int:
+    """utils.device_trace around one warm folder pass of the main path's
+    engine: one Chrome trace in its directory, naming upsample_argmax's
+    kernel among its device events. Returns the pass's upsample_argmax
+    launches (counts set to 0 just before, read just after)."""
+    from neuralbarkcalculator_tpu_torch.utils import device_trace
+
+    log_dir = os.path.join(workdir, "trace")
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    with device_trace(log_dir):
+        engine.predict(root, progress=False)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters["upsample_argmax"].count
+    files = os.listdir(log_dir)
+    if len(files) != 1:
+        raise AssertionError(f"device_trace wrote {files}, not one trace")
+    path = os.path.join(log_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = [e for e in kernels
+            if "upsample_argmax_kernel" in e.get("name", "")]
+    log(f"trace: device_trace around one warm pass ({seconds:.3f} s with "
+        f"the trace's export): {files[0]}, {os.path.getsize(path)} bytes, "
+        f"{len(events)} events, {len(kernels)} kernels, "
+        f"{len(ours)} upsample_argmax_kernel; launches {launches}")
+    if not ours or launches == 0 or len(ours) != launches:
+        raise AssertionError(f"trace: {len(ours)} upsample_argmax kernels "
+                             f"in the trace for {launches} launches")
+    return launches
+
+
+def phase_f32_batch(torch, ckpt: str, main_root: str, card: str) -> int:
+    """Float32 class maps against the launch batch: the predict cell's
+    images through the float32 engine (TF32 off) at each launch batch of
+    F32_BATCHES, in each cuDNN mode of F32_MODES: cuDNN's default
+    algorithm choice, its deterministic algorithms (cudnn.deterministic,
+    benchmark off), and cuDNN disabled (ATen's own convolutions, at the
+    largest and smallest batch only). For every pair of batches in a mode,
+    the pixels and images whose maps differ, and the device step alone at
+    batch 8, printed. Returns the upsample_argmax launches (counts set to
+    0 just before, read just after)."""
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    items = folder_items(main_root, range(N_IMAGES))
+    total = sum(it.image.shape[0] * it.image.shape[1] for it in items)
+    engine = NeuralBarkCalculator(
+        ckpt, config=PredictConfig(model_path=ckpt, use_bfloat16=False))
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.enabled, cudnn.deterministic, cudnn.benchmark)
+    counters = reset_counters()
+    try:
+        for mode, enabled, deterministic, batches in F32_MODES:
+            cudnn.enabled, cudnn.deterministic = enabled, deterministic
+            cudnn.benchmark = False
+            maps = {}
+            for b in batches:
+                engine.config.batch_size = b
+                maps[b] = {it.fname: m for it, m in
+                           engine.predict_images(items)}
+            engine.config.batch_size = batches[0]
+            step_ms = zoo_step_ms(torch, engine)
+            diffs = {}
+            for i, a in enumerate(batches):
+                for b in batches[i + 1:]:
+                    per_image = [int((maps[b][f] != m).sum())
+                                 for f, m in maps[a].items()]
+                    diffs[f"{a}/{b}"] = {
+                        "pixels": sum(per_image),
+                        "images": sum(v > 0 for v in per_image),
+                        "largest": max(per_image)}
+            log(f"float32 batch ({card}; cuDNN {mode}: enabled {enabled}, "
+                f"deterministic {deterministic}, benchmark False): maps at "
+                f"launch batch {list(batches)} over {N_IMAGES} images "
+                f"({total} pixels), pixels that differ between batches: "
+                + "; ".join(f"{pair}: {d['pixels']} ({d['pixels'] / total:.3g})"
+                            f" in {d['images']} images, at most "
+                            f"{d['largest']} in one"
+                            for pair, d in diffs.items())
+                + f"; device step alone at batch {batches[0]} "
+                  f"{step_ms:.3f} ms")
+    finally:
+        cudnn.enabled, cudnn.deterministic, cudnn.benchmark = saved
+    launches = counters["upsample_argmax"].count
+    if launches == 0:
+        raise AssertionError("float32 batch: upsample_argmax never launched")
+    return launches
+
+
+def entrypoint_child(torch, argv: list[str]) -> dict:
+    """The entry-points phase's child (``--entrypoint CLI ARGV``): the
+    console script ``bark-CLI-torch`` (cli/CLI.entrypoint) on ARGV, with
+    every launch count set to 0 just before and read just after."""
+    import importlib
+
+    cli, args = argv[0], argv[1:]
+    module = importlib.import_module(f"neuralbarkcalculator_tpu_torch.cli."
+                                     f"{cli}")
+    counters = reset_counters()
+    sys.argv = [f"bark-{cli}-torch", *args]
+    t0 = time.perf_counter()
+    module.entrypoint()
+    torch.cuda.synchronize()
+    return {"launches": {name: c.count for name, c in counters.items()},
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_entry_points(torch, seed: int, workdir: str, main_root: str,
+                       ckpt: str, train_data: str, card: str) -> dict:
+    """The console scripts on the card, with their default device:
+    ``bark-predict-torch`` over a copy of the main path's folder (as its
+    sources) and ``bark-train-torch`` for one epoch over phase 4's dataset
+    (samples factor 1, no report), each entrypoint() in a child process of
+    this script, both at once. The predict run must write the folder's
+    artifacts and launch upsample_argmax, the train run its checkpoints
+    and launch fused_dropout_matmul forward and backward. Returns each
+    child's launch counts."""
+    root = os.path.join(workdir, "entry_predict")
+    copy_folder(main_root, root, True)
+    train_root = os.path.join(workdir, "entry_train")
+    children = {
+        "predict": [root, "--model_path", ckpt, "--dpi", str(DPI)],
+        "train": [train_root, "--data_dir", train_data, "--seed",
+                  str(seed), "--epochs", "1", "--samples_factor", "1",
+                  "--no_report"]}
+    t0 = time.perf_counter()
+    procs = {cli: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--entrypoint", cli,
+         *argv], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for cli, argv in children.items()}
+    try:
+        outs = {cli: p.communicate(timeout=900) for cli, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    runs = {}
+    for cli, p in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"bark-{cli}-torch exited {p.returncode}: "
+                               f"{outs[cli][1][-3000:]}")
+        runs[cli] = json.loads(outs[cli][0].strip().splitlines()[-1])
+    with open(os.path.join(root, "results", "final_stats.csv")) as f:
+        rows = len(f.read().splitlines()) - 1
+    moar = os.path.join(train_root, "moar")
+    saved = sorted(os.listdir(moar)) if os.path.isdir(moar) else []
+    log(f"entry points ({card}): bark-predict-torch and bark-train-torch "
+        f"as two child processes at once, wall {wall:.3f} s; predict "
+        f"{runs['predict']['seconds']:.3f} s, {rows} CSV rows, launches "
+        f"{runs['predict']['launches']}; train "
+        f"{runs['train']['seconds']:.3f} s, wrote {saved}, launches "
+        f"{runs['train']['launches']}")
+    if rows != N_IMAGES or runs["predict"]["launches"]["upsample_argmax"] \
+            == 0:
+        raise AssertionError("bark-predict-torch: its artifacts or its "
+                             "upsample_argmax launches are missing")
+    train_counts = runs["train"]["launches"]
+    if "best_model.pt" not in saved or not all(
+            train_counts[f"fused_dropout_matmul_{d}"] for d in ("fwd",
+                                                                "bwd")):
+        raise AssertionError("bark-train-torch: its checkpoint or its "
+                             "fused_dropout_matmul launches are missing")
+    return {cli: run["launches"] for cli, run in runs.items()}
+
+
+def soak_summary(report: dict) -> dict:
+    """The soak's report without its sample series."""
+    return {k: v for k, v in report.items()
+            if k not in ("rss_mb", "rss_resid_mb")} | {
+        "rss_first_mb": report["rss_mb"]["first_third_mean"],
+        "rss_last_mb": report["rss_mb"]["last_third_mean"],
+        "rss_resid_first_mb": report["rss_resid_mb"]["first_third_mean"],
+        "rss_resid_last_mb": report["rss_resid_mb"]["last_third_mean"]}
+
+
+def phase_serving_tools(torch, ckpt: str, workdir: str, card: str) -> int:
+    """The port's serving tools on the card with the predict path's
+    checkpoint, beside phase 7's run of serving_bench's request phases:
+    serving_bench's cold start (a child server, bf16, batch 8, from its
+    start to its first answer) and a SOAK_SECONDS-long serving_soak
+    through its command line (8 clients, heights 896/960/1024, the report
+    to a file), whose checks must pass. Each JSON line is printed. Returns
+    the soak's upsample_argmax launches (counts set to 0 just before, read
+    just after)."""
+    from neuralbarkcalculator_tpu_torch.tools import (serving_bench,
+                                                      serving_soak)
+
+    cold = serving_bench.run_cold_start(
+        serving_bench.serve_argv(ckpt, False, "cuda"))
+    log(f"serving_bench: {json.dumps(cold)}")
+    out = os.path.join(workdir, "serving_soak.json")
+    counters = reset_counters()
+    report = serving_soak.main(
+        ["--model_path", ckpt, "--minutes", str(SOAK_SECONDS / 60.0),
+         "--clients", str(SOAK_CLIENTS), "--out", out])
+    soak = counters["upsample_argmax"].count
+    log(f"serving_soak ({card}): {json.dumps(soak_summary(report))}")
+    if soak == 0:
+        raise AssertionError("serving_soak: upsample_argmax never launched")
+    if report["served"] == 0 or report["requests"] != report["served"]:
+        raise AssertionError(f"serving_soak served {report['served']} of "
+                             f"{report['requests']} requests")
+    return soak
+
+
+def phase_curation(torch, seed: int, workdir: str, card: str) -> int:
+    """tools/curation.py fine-tune of CURATION_DUALS structured 1024²
+    duals (bench_data: blobs, node islands, speckles under 150 pixels)
+    through its command line on the card (the ccl kernels), a warm-up run
+    and a timed one, against the same run on the CPU (the plain version):
+    every output file byte for byte, and not the input. Returns the timed
+    run's ccl launches (counts set to 0 just before, read just after)."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.io.native import (load_image_u8,
+                                                          save_image_u8)
+    from neuralbarkcalculator_tpu_torch.tools import curation
+    from neuralbarkcalculator_tpu_torch.tools.bench_data import (
+        structured_dual_mask)
+
+    base = os.path.join(workdir, "curation")
+    duals = os.path.join(base, "duals", "sapin")
+    os.makedirs(duals)
+    rng = np.random.default_rng(seed)
+    for i in range(CURATION_DUALS):
+        mask = structured_dual_mask(rng, 1024, 1024)
+        save_image_u8(os.path.join(duals, f"d{i}.png"), np.select(
+            [mask == 1, mask == 2], [127, 255], 0).astype(np.uint8))
+
+    def fine_tune(out: str, device: str) -> float:
+        t0 = time.perf_counter()
+        curation.main(["fine-tune", "--duals_dir", os.path.dirname(duals),
+                       "--output_dir", os.path.join(base, out), "--device",
+                       device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    fine_tune("warm", "cuda")
+    counters = reset_counters()
+    card_s = fine_tune("card", "cuda")
+    launches = counters["ccl"].count
+    cpu_s = fine_tune("cpu", "cpu")
+    differ = changed = 0
+    for name in sorted(os.listdir(duals)):
+        got, want = (open(os.path.join(base, d, "sapin", name), "rb").read()
+                     for d in ("card", "cpu"))
+        differ += got != want
+        changed += not np.array_equal(*(load_image_u8(
+            os.path.join(d, name), grayscale=True) for d in (
+                duals, os.path.join(base, "card", "sapin"))))
+    log(f"curation ({card}): fine-tune of {CURATION_DUALS} 1024² duals on "
+        f"the card {card_s:.3f} s = {CURATION_DUALS / card_s:.3f} images/s "
+        f"(PIL decode and encode included), on the CPU (plain version) "
+        f"{cpu_s:.3f} s = {CURATION_DUALS / cpu_s:.3f} images/s; files "
+        f"different card vs CPU {differ}, changed from the input {changed}; "
+        f"ccl launches {launches}")
+    if differ or changed != CURATION_DUALS or launches == 0:
+        raise AssertionError(f"curation fine-tune: {differ} files differ "
+                             f"card vs CPU, {changed} cleaned, {launches} "
+                             f"ccl launches")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4182,6 +4473,9 @@ def main() -> int:
     parser.add_argument("--no-native-predict", dest="no_native_predict",
                         nargs=argparse.REMAINDER, default=None,
                         help=argparse.SUPPRESS)  # the no-library child
+    parser.add_argument("--entrypoint", dest="entrypoint",
+                        nargs=argparse.REMAINDER, default=None,
+                        help=argparse.SUPPRESS)  # an entry-points child
     parser.add_argument("--train-rank", dest="train_rank", nargs=4,
                         metavar=("RANK", "PORT", "WORKDIR", "SEED"),
                         default=None,
@@ -4209,6 +4503,10 @@ def main() -> int:
         print(json.dumps(no_native_child(torch, args.no_native_predict)),
               flush=True)
         return 0
+    if args.entrypoint:
+        print(json.dumps(entrypoint_child(torch, args.entrypoint)),
+              flush=True)
+        return 0
     if args.train_rank:
         rank, port, workdir, seed = args.train_rank
         print(json.dumps(train_rank_child(torch, int(rank), int(port),
@@ -4232,12 +4530,17 @@ def main() -> int:
                           workdir)
         kernel["launches"] = main_path["launches"]
         timed("profile", phase_profile, torch, main_path)
+        kernel["trace_launches"] = timed(
+            "trace", phase_trace, torch, main_path["engine"],
+            main_path["root"], workdir)
         f32_agreement = timed(
             "reference", phase_reference, torch, main_path["engine"],
             main_path["ckpt"], folder_items(main_path["root"], range(4)))
         ckpt, main_root = main_path["ckpt"], main_path["root"]
         main_seconds = main_path["seconds"]
         del main_path
+        kernel["f32_batch_launches"] = timed(
+            "float32 batch", phase_f32_batch, torch, ckpt, main_root, card)
         sharded = timed(
             "sharded predict", phase_sharded_predict, torch, workdir,
             main_root, ckpt, main_seconds, f32_agreement, card)
@@ -4249,8 +4552,13 @@ def main() -> int:
                       workdir, card)
         timed("cli resume", phase_cli_resume, torch, scans["root"], ckpt,
               len(scans["paths"]))
-        timed("serving", phase_serving, torch, main_root, ckpt,
-              scans["paths"][0], card)
+        kernel["serving_launches"] = timed(
+            "serving", phase_serving, torch, main_root, ckpt,
+            scans["paths"][0], card)
+        kernel["soak_launches"] = timed(
+            "serving tools", phase_serving_tools, torch, ckpt, workdir, card)
+        ccl_row["curation_launches"] = timed(
+            "curation", phase_curation, torch, args.seed, workdir, card)
         zoo = timed("zoo", phase_zoo, torch, args.seed, workdir, main_root)
         kernel["zoo_launches"] = {name: zoo[name]["launches"] for name in ZOO}
         timed("zoo serving", phase_zoo_serving, torch, main_root, zoo, card)
@@ -4262,6 +4570,11 @@ def main() -> int:
                                    for name in INT8_MODELS}
         train = timed("train", phase_train, torch, args.seed, workdir)
         ccl_row["launches"] = train["launches"]["ccl"]
+        entry = timed("entry points", phase_entry_points, torch, args.seed,
+                      workdir, main_root, ckpt, os.path.join(
+                          workdir, "train_root", "Images", "1024_with_jedi"),
+                      card)
+        kernel["entrypoint_launches"] = entry["predict"]["upsample_argmax"]
         nccl = timed("train nccl", phase_train_nccl, torch, args.seed,
                      workdir, train["step_ms"], card)
         two_ranks = timed("train two ranks", phase_train_two_ranks, torch,
@@ -4280,6 +4593,8 @@ def main() -> int:
                 row["two_rank_launches"] = [
                     r[f"fused_dropout_matmul_{direction}"]
                     for r in two_ranks]
+                row["entrypoint_launches"] = entry["train"][
+                    f"fused_dropout_matmul_{direction}"]
     timed("train vs cpu", phase_train_vs_cpu, torch, args.seed)
     print(json.dumps({"kernels": [kernel, *fdm, ccl_row]}), flush=True)
     print(card, flush=True)

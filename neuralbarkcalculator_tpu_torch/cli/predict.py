@@ -1,10 +1,11 @@
 """Production inference CLI of the PyTorch port (reference predict.py:61-81
 parity).
 
-Usage: ``python -m neuralbarkcalculator_tpu_torch.cli.predict ROOT_DIR
-[--device {cuda,cpu}] [--exclude_nodes] [--only_preprocess] [--resume]
+Usage: ``bark-predict-torch ROOT_DIR`` (or ``python -m
+neuralbarkcalculator_tpu_torch.cli.predict ROOT_DIR``) ``[--device
+{cuda,cpu}] [--exclude_nodes] [--only_preprocess] [--resume]
 [--preprocess_backend {auto,device,host}] [--watch SECS] [--int8]
-[--shard K/N]``
+[--shard K/N] [--mpl]``
 
 Runs on the card by default (``--device cuda``) and raises when there is
 none; ``--device cpu`` runs the same path on the CPU. It creates the
@@ -14,7 +15,9 @@ sequentially. ``--resume`` skips images already processed and predicted;
 ``--watch SECS`` rescans ROOT every SECS seconds and handles only new
 images, until interrupted. ``--int8`` quantizes the model on the first
 batch (models/quantize.py); an offline int8 checkpoint as
-``--model_path`` runs int8 without it.
+``--model_path`` runs int8 without it. ``--mpl`` draws the combined
+figures with matplotlib Agg instead of the port's compositor, and raises
+ImportError where matplotlib is not installed.
 
 ``--shard K/N`` predicts manifest indices i % N == K on this process's
 card (``cuda:LOCAL_RANK``) and writes a per-shard CSV; shard 0 owns the
@@ -87,6 +90,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="rescan ROOT every SECS seconds, preprocessing "
                              "and predicting only new images (incremental "
                              "resume); Ctrl-C to stop")
+    parser.add_argument("--mpl", action="store_true", default=False,
+                        help="render combined figures with matplotlib Agg "
+                             "(the reference's drawing) instead of the "
+                             "port's compositor (same layout, faster); "
+                             "needs matplotlib")
     parser.add_argument("--shard", type=str, default=None, metavar="K/N",
                         help="sharded folder prediction: this process "
                              "computes manifest indices i%%N==K and writes "
@@ -120,6 +128,7 @@ def main(args: argparse.Namespace) -> None:
                                       wait_for_processed)
     from ..pipeline.predict import NeuralBarkCalculator
     from ..pipeline.preprocess import Preprocessor
+    from ..pipeline.report import require_matplotlib
 
     config = PredictConfig(model_path=args.model_path)
     if args.batch_size is not None:
@@ -130,6 +139,9 @@ def main(args: argparse.Namespace) -> None:
         config.use_bfloat16 = False
     if args.int8:
         config.quantize_int8 = True
+    if args.mpl:
+        require_matplotlib()  # before any work: no fallback
+        config.renderer = "mpl"
     shard = None if args.shard is None else parse_shard(args.shard)
     device = local_device(args.device)
 
@@ -199,5 +211,10 @@ def main(args: argparse.Namespace) -> None:
         print_report()
 
 
-if __name__ == "__main__":
+def entrypoint() -> None:
+    """console_scripts entry (pyproject: bark-predict-torch)."""
     main(build_parser().parse_args())
+
+
+if __name__ == "__main__":
+    entrypoint()

@@ -1,8 +1,9 @@
 """Training CLI of the PyTorch port (reference __main__.py:467-494).
 
-Usage: ``python -m neuralbarkcalculator_tpu_torch.cli.train ROOT_DIR
-[--device {cuda,cpu}] [--seed N] [--model NAME] [--loss NAME] [--bf16]
-[--backbone_ckpt FILE] [--resume] [--tpu-native-recipe]``
+Usage: ``bark-train-torch ROOT_DIR`` (or ``python -m
+neuralbarkcalculator_tpu_torch.cli.train ROOT_DIR``) ``[--device
+{cuda,cpu}] [--seed N] [--model NAME] [--loss NAME] [--bf16]
+[--backbone_ckpt FILE] [--resume] [--tpu-native-recipe] [--mpl]``
 
 Runs on the card by default (``--device cuda``) and raises when there is
 none; ``--device cpu`` runs the same path on the CPU. The reference flow
@@ -10,8 +11,9 @@ none; ``--device cpu`` runs the same path on the CPU. The reference flow
 checkpoints under ROOT_DIR/moar, fcn_resnet50(dropout=0.8) trained for 30
 epochs, the test split, then the evaluation report. The sizing flags
 shrink a run; their defaults are the reference recipe's. Every option of
-the JAX package's CLI is here but ``--mpl`` (the matplotlib renderer is
-not ported).
+the JAX package's CLI is here; ``--mpl`` draws the report's figures with
+matplotlib Agg and raises ImportError, before training, where matplotlib
+is not installed.
 
 Several cards: one process per card, ``torchrun --nproc_per_node N -m
 neuralbarkcalculator_tpu_torch.cli.train ROOT_DIR ...``. Under torchrun
@@ -92,6 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_report", action="store_true", default=False,
                         help="skip the per-image evaluation report")
     parser.add_argument("--report_dpi", type=int, default=200)
+    parser.add_argument("--mpl", action="store_true", default=False,
+                        help="render report figures with matplotlib Agg "
+                             "instead of the port's compositor; needs "
+                             "matplotlib")
     parser.add_argument("--distributed", action="store_true", default=False,
                         help="join the process group from torchrun's "
                              "environment (RANK, WORLD_SIZE, LOCAL_RANK, "
@@ -105,9 +111,12 @@ def main(args: argparse.Namespace):
     from ..config import TrainConfig
     from ..parallel.distributed import (initialize_distributed,
                                         shutdown_distributed)
+    from ..pipeline.report import require_matplotlib
     from ..train.evaluate import evaluation_report
     from ..train.loop import Experiment
 
+    if args.mpl:
+        require_matplotlib()  # before training: no fallback
     config = TrainConfig(seed=args.seed)
     for flag, field in (("epochs", "epochs"), ("batch_size", "batch_size"),
                         ("crop_size", "crop_size"),
@@ -139,12 +148,18 @@ def main(args: argparse.Namespace):
         if exp.ckpts.best_epoch is not None:
             exp.load_best()
         if not args.no_report:
-            evaluation_report(exp, args.root_dir, dpi=args.report_dpi)
+            evaluation_report(exp, args.root_dir, dpi=args.report_dpi,
+                              renderer="mpl" if args.mpl else "fast")
     finally:
         if distributed:
             shutdown_distributed()
     return exp
 
 
-if __name__ == "__main__":
+def entrypoint() -> None:
+    """console_scripts entry (pyproject: bark-train-torch)."""
     main(build_parser().parse_args())
+
+
+if __name__ == "__main__":
+    entrypoint()

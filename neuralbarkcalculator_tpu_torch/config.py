@@ -121,6 +121,9 @@ class PredictConfig:
     figure_dpi: int = 200  # reference hardcodes 900 (models.py:346)
     use_bfloat16: bool = True  # run the conv stack in bf16, channels_last;
     # False runs it in float32 with TF32 off
+    renderer: str = "fast"  # combined-figure renderer: "fast" = the
+    # port's compositor (pipeline/compositor.py); "mpl" = matplotlib Agg
+    # (the reference's drawing; raises where matplotlib is missing)
     effnet_bucket_heights: bool = False  # EfficientNet backbones cannot
     # run masked ragged batches exactly (the TF-SAME stride phase,
     # models/efficientnet.py), so by default every distinct trimmed height

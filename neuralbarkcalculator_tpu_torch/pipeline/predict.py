@@ -355,7 +355,8 @@ class NeuralBarkCalculator:
     def _reporter(self, root_path: str) -> PredictReporter:
         return PredictReporter(os.path.join(root_path, "results"),
                                dpi=self.config.figure_dpi,
-                               mm_per_pix=self.config.mm_per_pix)
+                               mm_per_pix=self.config.mm_per_pix,
+                               renderer=self.config.renderer)
 
     def _scan_resume(self, names: list[tuple[str, str]],
                      reporter: PredictReporter,

@@ -15,9 +15,15 @@ Reproduces the reference's output artifacts byte-layout-compatibly
   quirk exactly.
 
 Figure rendering is pure host work, so PredictReporter runs it on a thread
-pool that overlaps with device compute. Figures are drawn by the
-first-party raster compositor (pipeline/compositor.py): the reference's
-layout and content, without matplotlib.
+pool that overlaps with device compute. Two renderers:
+
+- ``renderer="fast"`` (default): the first-party raster compositor
+  (pipeline/compositor.py), the reference's layout and content without
+  matplotlib, which is never imported;
+- ``renderer="mpl"``: matplotlib Agg, the reference's own drawing (the
+  predict CLI's ``--mpl``). matplotlib is imported only then; without it
+  the reporter raises ImportError, with no fallback to the compositor.
+  Agg releases the GIL while it rasterizes, so it overlaps on the pool.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from ..config import DEFAULT_MM_PER_PIXEL
+from ..config import CLASS_NAMES, DEFAULT_MM_PER_PIXEL
 from ..io.native import save_image_u8
 from .compositor import render_combined_fast
 
@@ -58,6 +64,82 @@ def class_stats_row(fname: str, wood_type: str, counts: np.ndarray,
     return row, percents
 
 
+def require_matplotlib() -> None:
+    """Raise ImportError with the reason when matplotlib is missing: the
+    'mpl' renderer has no fallback."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            "the matplotlib renderer (--mpl, renderer='mpl') needs "
+            "matplotlib, which is not installed here; run without --mpl "
+            "for the port's own compositor") from e
+
+
+def display_subsample(img: np.ndarray, dpi: int) -> np.ndarray:
+    """Stride-subsample an image for imshow to ~2x the axes raster size.
+
+    Agg resamples the full-resolution array down to the axes' pixel grid
+    while it draws; a >= 2x-oversampled strided view renders the same
+    raster at a fraction of the cost. Legend values and CSV percentages
+    always come from the full-resolution map."""
+    target = max(256, int(4.4 * dpi))
+    step = max(1, min(img.shape[0] // target, img.shape[1] // target))
+    return img[::step, ::step] if step > 1 else img
+
+
+def render_figure_mpl(imgs, names, values, suptitle: str, out_path: str,
+                      dpi: int) -> None:
+    """Panels `imgs` titled `names` side by side, a legend of the class
+    `values` of the last 2-D panel, `suptitle` above, drawn by matplotlib
+    Agg into a PNG (the reference's drawing, models.py:280-347).
+    matplotlib is imported here, and the figure uses the object-oriented
+    Figure API: figures render on the reporter's thread pool, and
+    pyplot's global figure manager is not thread-safe."""
+    import matplotlib
+    matplotlib.use("Agg", force=False)
+    import matplotlib.patches as mpatches
+    from matplotlib.figure import Figure
+
+    fig = Figure()
+    axs = fig.subplots(1, len(imgs))
+    patches = []
+    for img, name, ax in zip(imgs, names, axs.flatten()):
+        plotted = ax.imshow(img, vmax=2)
+        ax.set_title(name)
+        ax.axis("off")
+        if img.ndim == 2:  # a class map: legend of its present values
+            patches = [
+                mpatches.Patch(
+                    color=plotted.cmap(plotted.norm(value)),
+                    label="{} zone".format(CLASS_NAMES[value]))
+                for value in values
+            ]
+    fig.legend(handles=patches, title="Classes",
+               bbox_to_anchor=(0.4, -0.2, 0.5, 0.5))
+    fig.suptitle(suptitle)
+    try:
+        fig.tight_layout()
+    except Exception:  # the reference gets the same non-fatal warning
+        pass
+    fig.savefig(out_path, format="png", dpi=dpi)
+
+
+def render_combined(input_img: np.ndarray, class_map: np.ndarray,
+                    out_path: str, class_percents: list[float],
+                    dpi: int = 200) -> None:
+    """The side-by-side Input / Generated figure (models.py:280-347),
+    drawn by matplotlib Agg (``renderer='mpl'``)."""
+    suptitle = "Estimated composition percentages\n"
+    for class_name, class_percent in zip(CLASS_NAMES[1:], class_percents):
+        suptitle += "{} : {:.3f}\n".format(class_name, class_percent)
+    render_figure_mpl(
+        [display_subsample(input_img, dpi), display_subsample(class_map, dpi)],
+        ["Input", "Generated image"],
+        np.unique(class_map.ravel()),  # full-resolution legend values
+        suptitle, out_path, dpi)
+
+
 def save_dual(class_map: np.ndarray, out_path: str) -> None:
     """Raw mask PNG: bark=127, node=255 (models.py:349-356).
 
@@ -84,14 +166,20 @@ def shard_stats_name(k: int, n: int) -> str:
 
 class PredictReporter:
     """Collects per-image results and writes all three artifact kinds,
-    offloading figure/PNG encoding to a thread pool."""
+    offloading figure/PNG encoding to a thread pool. ``renderer``:
+    ``"fast"`` (the compositor) or ``"mpl"`` (matplotlib Agg)."""
 
     def __init__(self, results_dir: str, dpi: int = 200,
                  mm_per_pix: float = DEFAULT_MM_PER_PIXEL,
-                 workers: int = 8):
+                 workers: int = 8, renderer: str = "fast"):
+        if renderer not in ("fast", "mpl"):
+            raise ValueError(f"unknown renderer {renderer!r}")
+        if renderer == "mpl":
+            require_matplotlib()
         self.results_dir = results_dir
         self.dpi = dpi
         self.mm_per_pix = mm_per_pix
+        self.renderer = renderer
         self._rows: list[tuple[int, list[str]]] = []
         self._pool = ThreadPoolExecutor(max_workers=workers)
         self._futures = []
@@ -113,12 +201,17 @@ class PredictReporter:
         combined = os.path.join(self.results_dir, "combined_images",
                                 wood_type, fname)
         dual = os.path.join(self.results_dir, "outputs", wood_type, fname)
-        # reuse the class counts: the legend lists present classes only
-        # (models.py:298-311) and would otherwise re-count the map
-        values = [v for v in range(3) if counts3[v] > 0]
-        self._futures.append(self._pool.submit(
-            render_combined_fast, input_img, class_map, combined,
-            percents, self.dpi, values))
+        if self.renderer == "fast":
+            # reuse the class counts: the legend lists present classes
+            # only (models.py:298-311) and would otherwise re-count the map
+            values = [v for v in range(3) if counts3[v] > 0]
+            self._futures.append(self._pool.submit(
+                render_combined_fast, input_img, class_map, combined,
+                percents, self.dpi, values))
+        else:
+            self._futures.append(self._pool.submit(
+                render_combined, input_img, class_map, combined,
+                percents, self.dpi))
         self._futures.append(self._pool.submit(save_dual, class_map, dual))
 
     def add_row_only(self, class_map: np.ndarray, fname: str,

@@ -6,7 +6,8 @@ Input/Target/Generated figure with per-class IoU/F1 in its suptitle, the
 dual mask PNG, and a 15-column tab-delimited final_stats.csv, under
 ``root_dir/Images/results/moar/...`` as the reference does
 (generate_output_folders, __main__.py:30-54). Figures go through the
-port's compositor.
+port's compositor, or with ``renderer="mpl"`` through matplotlib Agg (the
+train CLI's ``--mpl``; ImportError where matplotlib is missing).
 
 Reference quirk kept: the eval loop calls remove_small_zones on the
 *logits* (__main__.py:324), which is a no-op on float logits, so metrics
@@ -30,6 +31,8 @@ from ..config import CLASS_NAMES, NUM_CLASSES, WOOD_TYPES
 from ..io.native import save_image_u8
 from ..ops.metrics import confusion_matrix, iou_from_confusion, pixelwise_f1
 from ..pipeline.compositor import render_figure_fast
+from ..pipeline.report import (display_subsample, render_figure_mpl,
+                               require_matplotlib)
 
 EVAL_CSV_HEADER = [
     "Name", "Type", "Split", "iou_nothing", "iou_bark", "iou_node",
@@ -61,8 +64,11 @@ def eval_image_metrics(logits: torch.Tensor, target: torch.Tensor
 
 
 def render_eval_image(input_img, target, preds, fname, wood_type, split,
-                      ious, f1s, results_dir, dpi: int = 200) -> list[str]:
-    """One image's figure and dual PNG; returns its CSV row."""
+                      ious, f1s, results_dir, dpi: int = 200,
+                      renderer: str = "fast") -> list[str]:
+    """One image's figure and dual PNG; returns its CSV row. ``renderer``
+    as in pipeline/report.py: ``"fast"`` (the compositor) or ``"mpl"``
+    (matplotlib Agg)."""
     names = ["Input", "Target", "Generated image"]
     values = np.unique(preds.ravel())
 
@@ -86,9 +92,14 @@ def render_eval_image(input_img, target, preds, fname, wood_type, split,
 
     fig_path = os.path.join(results_dir, "combined_images", wood_type,
                             split, fname)
-    render_figure_fast((input_img, target, preds), names,
-                       suptitle.rstrip("\n"), [int(v) for v in values],
-                       fig_path, dpi)
+    if renderer == "fast":
+        render_figure_fast((input_img, target, preds), names,
+                           suptitle.rstrip("\n"), [int(v) for v in values],
+                           fig_path, dpi)
+    else:
+        render_figure_mpl([display_subsample(x, dpi)
+                           for x in (input_img, target, preds)],
+                          names, values, suptitle, fig_path, dpi)
     dual = np.zeros(preds.shape, np.uint8)
     dual[preds == 1] = 127
     dual[preds == 2] = 255
@@ -98,12 +109,17 @@ def render_eval_image(input_img, target, preds, fname, wood_type, split,
 
 
 def evaluation_report(experiment, root_dir: str, dpi: int = 200,
-                      workers: int = 8) -> str:
+                      workers: int = 8, renderer: str = "fast") -> str:
     """Render the report over all splits with the experiment's current
     weights, from its (pad_resized) dataset: forwards of 8 images in eval
     mode (under bf16 autocast when the experiment trains so; split across
     the ranks of a data-parallel run), metrics per image, figures on a
-    thread pool. Returns the CSV's path."""
+    thread pool, by ``renderer`` (``"fast"`` or ``"mpl"``). Returns the
+    CSV's path."""
+    if renderer not in ("fast", "mpl"):
+        raise ValueError(f"unknown renderer {renderer!r}")
+    if renderer == "mpl":
+        require_matplotlib()
     batch = 8
     world = experiment.world
     results_dir = generate_output_folders(root_dir)
@@ -142,7 +158,8 @@ def evaluation_report(experiment, root_dir: str, dpi: int = 200,
                     images[idx[k]].cpu().numpy(),
                     target.to(torch.int32).cpu().numpy(), m["preds"],
                     experiment.fnames[i], experiment.wood_types[i],
-                    split_of[i], m["iou"], m["f1"], results_dir, dpi))
+                    split_of[i], m["iou"], m["f1"], results_dir, dpi,
+                    renderer))
         rows = [f.result() for f in futures]
 
     if world.is_main:

@@ -1,1 +1,4 @@
-"""Stage timers, device selection and the native builds."""
+"""Stage timers, the profiler trace, device selection and the native
+builds."""
+from .profiling import (device_trace, print_report, report,  # noqa: F401
+                        stage_timer)

@@ -1,5 +1,6 @@
 """Stage timers: wall-clock time per named pipeline stage, with a
-process-wide report (near-zero cost when disabled).
+process-wide report (near-zero cost when disabled); and ``device_trace``,
+a profiler trace of a block of work.
 
 Stages that end in a device pull (``predict/pull_h*``) include the device
 work they wait for; the others are host time.
@@ -7,6 +8,7 @@ work they wait for; the others are host time.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
@@ -53,3 +55,23 @@ def print_report(reset: bool = False) -> None:
         print(f"{name:32s} {row['calls']:5d} calls  "
               f"{row['total_s']:8.3f}s total  {row['mean_s']*1e3:8.1f}ms "
               f"mean")
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Trace the block with ``torch.profiler``: CPU activity, and CUDA
+    activity (kernels, copies) when a card is present; on exit, export
+    one Chrome trace (``trace-<pid>-<ns>.json``, open it in Perfetto or
+    chrome://tracing) into ``log_dir``. The counterpart of the JAX
+    package's ``jax.profiler`` trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))

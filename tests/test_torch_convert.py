@@ -12,6 +12,7 @@ import torch
 
 from torch_port_common import (count_leaves, tiny_torch_model,
                                tiny_variables)
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

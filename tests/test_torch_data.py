@@ -10,6 +10,8 @@
 - The port's own draws come from a torch.Generator, another stream than
   jax.random: they are held to their ranges and rates, not to JAX's bits.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from PIL import Image
 
 from neuralbarkcalculator_tpu_torch.data import augment as ta
 from neuralbarkcalculator_tpu_torch.data import sampling as ts
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -36,7 +39,8 @@ def data_root(tmp_path_factory):
                               p=[0.6, 0.35, 0.05]).astype(np.uint8)
             Image.fromarray(dual, mode="L").save(root / "duals" / wood_type /
                                                  f"img{i}.png")
-    return str(root)
+    yield str(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_splits_and_batches_equal_jax():

@@ -55,8 +55,10 @@ test compares in this process. The tiny model of tests/torch_port_common:
   within 1e-6 relative and the epoch's within 1e-3, rank 0 alone writing
   the checkpoints and the report.
 """
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -67,6 +69,7 @@ import torch
 from torch_port_common import (jax_train_loss_and_grads,
                                tiny_deeplab_torch_model, tiny_torch_model,
                                tiny_variables, write_train_root)
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GLOBAL_BATCH = 4
@@ -505,6 +508,14 @@ def _report(exp, root) -> list[list[str]] | None:
         return list(csv.reader(f, delimiter="\t"))
 
 
+def _parameter_digest(model) -> str:
+    """sha256 over the parameters' bytes in ``model.parameters()`` order:
+    equal digests hold the parameters equal bit for bit."""
+    return hashlib.sha256(b"".join(
+        p.detach().cpu().numpy().tobytes() for p in model.parameters())
+    ).hexdigest()
+
+
 def _case_experiment(world, out_dir, data_root: str) -> dict:
     import neuralbarkcalculator_tpu_torch.train.loop as loop
 
@@ -519,8 +530,7 @@ def _case_experiment(world, out_dir, data_root: str) -> dict:
             super().update(batch_idxs, metric_value)
             weights.append(self.weights.copy())
             rng_states.append(self._rng.get_state()[1].copy())
-            params.append(torch.cat([p.detach().flatten() for p in
-                                     exp.model.parameters()]))
+            params.append(_parameter_digest(exp.model))
 
     loop.PrioritizedSampler = Recording
     try:
@@ -541,7 +551,9 @@ def _case_experiment(world, out_dir, data_root: str) -> dict:
 
 @pytest.fixture(scope="module")
 def data_root(tmp_path_factory):
-    return write_train_root(tmp_path_factory.mktemp("dp_train"))
+    root = tmp_path_factory.mktemp("dp_train")
+    yield write_train_root(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_two_rank_experiment(data_root, tmp_path):
@@ -569,8 +581,7 @@ def test_two_rank_experiment(data_root, tmp_path):
     for key in ("weights", "rng_states"):
         for wa, wb in zip(a[key], b[key]):
             np.testing.assert_array_equal(wa, wb)
-    for pa, pb in zip(a["params"], b["params"]):
-        assert torch.equal(pa, pb)
+    assert a["params"] == b["params"]
     assert not np.array_equal(a["weights"][0], a["weights"][-1])
     # rank 0 alone writes
     moar = tmp_path / "moar"
@@ -589,8 +600,6 @@ def _cli_run(root: str, data_root: str, distributed: bool) -> dict:
     report, on one thread (the CPU's sums depend on the thread count):
     each step's loss and a digest of the parameters after it, and the
     files this process saved with torch.save."""
-    import hashlib
-
     import neuralbarkcalculator_tpu_torch.train.loop as loop
     from neuralbarkcalculator_tpu_torch.cli import train as cli
     from neuralbarkcalculator_tpu_torch.models import segmentation
@@ -600,9 +609,7 @@ def _cli_run(root: str, data_root: str, distributed: bool) -> dict:
 
     def step(model, *args, **kwargs):
         metrics = real_step(model, *args, **kwargs)
-        digests.append(hashlib.sha256(b"".join(
-            p.detach().numpy().tobytes() for p in model.parameters())
-        ).hexdigest())
+        digests.append(_parameter_digest(model))
         return metrics
 
     loop.train_step = step

@@ -12,12 +12,15 @@ package's. Tolerances: head logits within 1e-4 of the largest |logit|
 other orders: measured ~1.5e-5 of it); the engine's maps equal JAX's away
 from near ties and the per-image runs bit for bit.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 from torch_port_common import (blob_image, calibrate_bn, normalized,
                                zoo_model)
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 WIDTH = 64
 # head logits of the two packages agree within this share of the largest
@@ -202,7 +205,9 @@ def _port_engine(pt, **config):
 
 @pytest.fixture(scope="module")
 def b0_checkpoint(b0, tmp_path_factory):
-    return _checkpoint(b0, tmp_path_factory.mktemp("effnet") / "b0.pt")
+    directory = tmp_path_factory.mktemp("effnet")
+    yield _checkpoint(b0, directory / "b0.pt")
+    shutil.rmtree(directory, ignore_errors=True)
 
 
 def test_engine_exact_heights_equal_jax_and_per_image(b0_checkpoint):

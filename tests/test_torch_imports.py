@@ -1,10 +1,12 @@
 """PyTorch port: import hygiene and device selection.
 
-The port imports nothing of JAX, flax or the JAX package. This runs in a
-subprocess because the test process has already imported jax
-(tests/conftest.py). Note that ``neuralbarkcalculator_tpu_torch`` starts
-with the string ``neuralbarkcalculator_tpu``, so the check looks for that
-exact key and its ``neuralbarkcalculator_tpu.`` submodules.
+The port imports nothing of JAX, flax or the JAX package, and neither PIL
+nor matplotlib when its modules (the tools subpackage included) are
+imported. This runs in a subprocess because the test process has already
+imported jax (tests/conftest.py). Note that
+``neuralbarkcalculator_tpu_torch`` starts with the string
+``neuralbarkcalculator_tpu``, so the check looks for that exact key and
+its ``neuralbarkcalculator_tpu.`` submodules.
 """
 import os
 import subprocess
@@ -12,6 +14,7 @@ import sys
 
 import pytest
 import torch
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,7 +29,8 @@ bad = sorted(k for k in sys.modules
              if k in ("jax", "flax", "neuralbarkcalculator_tpu")
              or k.startswith(("jax.", "flax.", "neuralbarkcalculator_tpu.")))
 print(json.dumps({"modules": names, "bad": bad,
-                  "pil": "PIL" in sys.modules}))
+                  "pil": "PIL" in sys.modules,
+                  "matplotlib": "matplotlib" in sys.modules}))
 """
 
 
@@ -39,6 +43,7 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     assert not out["pil"]  # PIL is imported only where images need it
+    assert not out["matplotlib"]  # only by the 'mpl' renderer's functions
     for name in ("pipeline.predict", "ops.upsample_argmax", "cli.predict",
                  "models.convert", "io.native", "ops.kernels",
                  "ops.fused_dropout_matmul", "ops.losses", "ops.metrics",
@@ -51,7 +56,9 @@ def test_port_imports_no_jax():
                  "models.qops", "models.quantize",
                  "cli.quantize_checkpoint", "parallel",
                  "parallel.distributed", "parallel.sync_bn",
-                 "pipeline.multihost", "ops.ccl"):
+                 "pipeline.multihost", "ops.ccl", "tools",
+                 "tools.bench_data", "tools.serving_bench",
+                 "tools.serving_soak", "tools.curation"):
         assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
 
 
@@ -124,9 +131,11 @@ def test_cli_defaults_to_cuda_and_drops_unported_flags():
     # --shard is ported (tests/test_torch_multihost.py drives it)
     assert parser.parse_args(["root", "--shard", "0/2"]).shard == "0/2"
     assert parser.parse_args(["root"]).shard is None
-    for flag in (["--mpl"], ["--preprocess_backend", "tpu"]):
-        with pytest.raises(SystemExit):
-            parser.parse_args(["root", *flag])
+    # --mpl is ported (tests/test_torch_report_mpl.py drives it)
+    assert parser.parse_args(["root", "--mpl"]).mpl
+    assert not parser.parse_args(["root"]).mpl
+    with pytest.raises(SystemExit):
+        parser.parse_args(["root", "--preprocess_backend", "tpu"])
 
 
 @pytest.mark.parametrize("argv,want", [

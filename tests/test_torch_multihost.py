@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from torch_port_common import blob_image, tiny_checkpoint, tiny_engines
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEIGHTS = (90, 100, 110, 96, 120)
@@ -64,7 +65,8 @@ def tiny_root(tmp_path_factory):
     _write_images(root / "processed" / "samples" / "sapin", "png")
     pt = tiny_checkpoint(str(root / "best_model.pt"), seed=5)
     jax_engine, port_engine = tiny_engines(pt, batch_size=1, figure_dpi=30)
-    return str(root), pt, jax_engine, port_engine
+    yield str(root), pt, jax_engine, port_engine
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _reset_results(root: str) -> str:

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from torch_port_common import tiny_checkpoint, tiny_engines, write_processed
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 from neuralbarkcalculator_tpu_torch.io import native
 from neuralbarkcalculator_tpu_torch.utils import build

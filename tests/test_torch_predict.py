@@ -10,6 +10,7 @@ The artifacts must match: final_stats.csv byte for byte, the dual PNGs
 decoded, and the same set of combined figures.
 """
 import os
+import shutil
 import subprocess
 import sys
 
@@ -19,6 +20,7 @@ import torch
 
 from torch_port_common import (near_ties, tiny_checkpoint, tiny_engines,
                                write_processed)
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTH = 64
@@ -39,9 +41,10 @@ def _few_threads():
 def engines(tmp_path_factory):
     """(JAX engine, port engine) loading the same best_model.pt, written
     by the JAX package's own exporter."""
-    pt = tiny_checkpoint(
-        str(tmp_path_factory.mktemp("engines") / "best_model.pt"), seed=5)
-    return tiny_engines(pt, batch_size=4, height_bucket=32, figure_dpi=50)
+    directory = tmp_path_factory.mktemp("engines")
+    pt = tiny_checkpoint(str(directory / "best_model.pt"), seed=5)
+    yield tiny_engines(pt, batch_size=4, height_bucket=32, figure_dpi=50)
+    shutil.rmtree(directory, ignore_errors=True)
 
 
 def _items(seed=7):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 TARGET = 96
 # (wood, name, h, w, dark top, dark bottom): resized and trimmed (a, c, f;

@@ -31,6 +31,7 @@ import torch
 from torch_port_common import (blob_image, tiny_checkpoint,
                                tiny_deeplab_torch_model, tiny_engines,
                                tiny_torch_model, write_processed)
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 # random weights overflow a downsample branch's clip range now and then
 pytestmark = pytest.mark.filterwarnings("ignore:int8 calibration")
@@ -51,7 +52,9 @@ def _few_threads():
 
 @pytest.fixture(scope="module")
 def ckpt(tmp_path_factory):
-    return tiny_checkpoint(str(tmp_path_factory.mktemp("q") / "m.pt"), 0)
+    directory = tmp_path_factory.mktemp("q")
+    yield tiny_checkpoint(str(directory / "m.pt"), 0)
+    shutil.rmtree(directory, ignore_errors=True)
 
 
 def _items():

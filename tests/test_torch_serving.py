@@ -15,6 +15,7 @@ import io
 import json
 import os
 import queue
+import shutil
 import threading
 import time
 import types
@@ -26,6 +27,7 @@ from PIL import Image
 
 from torch_port_common import (near_ties, tiny_checkpoint, tiny_engines,
                                tiny_torch_model, write_processed)
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 MM_PER_PIX = 3.6 * 3.6
 
@@ -49,8 +51,9 @@ def _few_threads():
 
 @pytest.fixture(scope="module")
 def ckpt(tmp_path_factory):
-    return tiny_checkpoint(
-        str(tmp_path_factory.mktemp("serve") / "best_model.pt"), seed=11)
+    directory = tmp_path_factory.mktemp("serve")
+    yield tiny_checkpoint(str(directory / "best_model.pt"), seed=11)
+    shutil.rmtree(directory, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

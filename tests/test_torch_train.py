@@ -25,6 +25,7 @@ package.
 """
 import csv
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ import torch
 from torch_port_common import (jax_train_loss_and_grads, tiny_jax_model,
                                tiny_variables, torch_train_model_with,
                                write_train_root)
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -245,7 +247,9 @@ def test_build_model_is_deterministic():
 
 @pytest.fixture(scope="module")
 def data_root(tmp_path_factory):
-    return write_train_root(tmp_path_factory.mktemp("trainroot"))
+    root = tmp_path_factory.mktemp("trainroot")
+    yield write_train_root(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_cli_trains_one_epoch_on_cpu(data_root, tmp_path):
@@ -298,10 +302,10 @@ def test_cli_trains_one_epoch_on_cpu(data_root, tmp_path):
 
 
 def test_unported_options_raise(data_root, tmp_path):
-    """What the training CLI and Experiment still refuse: --mpl (the
-    matplotlib renderer is not ported), --device tpu, an unknown loss, and
-    the default device without a card. Every other option of the JAX
-    package's CLI parses (tests/test_torch_train_zoo.py runs them)."""
+    """What the training CLI and Experiment still refuse: --device tpu,
+    an unknown loss, and the default device without a card. Every option
+    of the JAX package's CLI parses (tests/test_torch_train_zoo.py runs
+    them; tests/test_torch_report_mpl.py runs --mpl's figures)."""
     from neuralbarkcalculator_tpu_torch.cli.train import build_parser
     from neuralbarkcalculator_tpu_torch.config import TrainConfig
     from neuralbarkcalculator_tpu_torch.train.loop import Experiment
@@ -309,7 +313,9 @@ def test_unported_options_raise(data_root, tmp_path):
 
     parser = build_parser()
     assert parser.parse_args(["root"]).device == "cuda"
-    for flag in (["--mpl"], ["--device", "tpu"], ["--loss", "dice"]):
+    assert parser.parse_args(["root", "--mpl"]).mpl
+    assert not parser.parse_args(["root"]).mpl
+    for flag in (["--device", "tpu"], ["--loss", "dice"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["root", *flag])
     args = parser.parse_args(["root", "--bf16", "--backbone_ckpt", "x.pt",

@@ -44,6 +44,7 @@ import torch
 from torch_port_common import (blob_image, normalized, tiny_jax_model,
                                tiny_torch_model, tiny_variables,
                                write_train_root, zoo_model)
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 # per model: the input size. Measured on these weights, as the largest
 # logit difference over the largest |logit|, the least cosine and the
@@ -59,14 +60,6 @@ REL_MAX = 0.05
 # term) within VAR_RTOL; measured 4.1e-6 and 2.3e-5 (ResNet-101's layer4)
 MEAN_ATOL = 1e-5
 VAR_RTOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _remove_checkpoints(tmp_path):
-    """Checkpoints of full-width models take hundreds of MB a test: none
-    outlives its test."""
-    yield
-    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -381,7 +374,9 @@ def test_fcn_head_upcasts_bf16_for_the_kernel(monkeypatch):
 
 @pytest.fixture(scope="module")
 def data_root(tmp_path_factory):
-    return write_train_root(tmp_path_factory.mktemp("zootrain"))
+    root = tmp_path_factory.mktemp("zootrain")
+    yield write_train_root(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _config(**kw):

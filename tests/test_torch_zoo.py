@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from torch_port_common import blob_image, normalized, zoo_model
+from torch_port_common import remove_tmp_path  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -171,8 +172,9 @@ def test_served_exact_height_model(tmp_path):
 def test_training_refuses_other_zoo_models(name, tmp_path):
     """Training takes every zoo model now (tests/test_torch_train_zoo.py
     trains each); what it still refuses for them: a bare EfficientNet name
-    without its variant, an unknown sampler, and --mpl, before touching
-    the data."""
+    without its variant and an unknown sampler, before touching the data.
+    --mpl parses beside them (tests/test_torch_report_mpl.py draws its
+    figures)."""
     from neuralbarkcalculator_tpu_torch.cli.train import build_parser
     from neuralbarkcalculator_tpu_torch.train.loop import (Experiment,
                                                            build_model)
@@ -188,7 +190,7 @@ def test_training_refuses_other_zoo_models(name, tmp_path):
         with pytest.raises(ValueError, match="variant"):
             Experiment(str(tmp_path), str(tmp_path / "moar"),
                        model_name=bare, device="cpu")
-    with pytest.raises(SystemExit):
-        build_parser().parse_args([str(tmp_path), "--device", "cpu",
-                                   "--model", name, "--mpl"])
+    args = build_parser().parse_args([str(tmp_path), "--device", "cpu",
+                                      "--model", name, "--mpl"])
+    assert args.mpl and args.model == name
     assert not (tmp_path / "moar").exists()

@@ -11,9 +11,20 @@ model applied with ``train=True`` (``jax_train_loss_and_grads``).
 """
 from __future__ import annotations
 
+import shutil
+
 import numpy as np
+import pytest
 
 TINY_STAGES = (1, 1, 1, 1)
+
+
+@pytest.fixture(autouse=True)
+def remove_tmp_path(tmp_path):
+    """Checkpoints of full-width models take hundreds of MB a test: none
+    outlives its test. A test module imports this fixture to apply it."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def tiny_jax_model(dtype=None):
