@@ -31,7 +31,7 @@ rows 2-4 of the offset-0 mask, the kernels on rows 2-4 alone equal to the
 offset-0 run's rows bit for bit, and its time beside offset 0's, which it
 must match within the phase's spread.
 
-The ccl phase, after phase 2, holds the union-find kernels
+The ccl phase, after phase 2, holds the tiled union-find kernels
 (csrc/ccl.cu) against their plain version bit for bit: label_components,
 component_areas and remove_small_zones on the eval batch of phase 4's
 1024² images ([8, 1024, 1024] int64) and on a train step's crops ([5,
@@ -39,10 +39,15 @@ component_areas and remove_small_zones on the eval batch of phase 4's
 1024] uint8, valid_h 896/960/1024 and 0), each batch holding random maps
 at class-0 shares 0.3/0.5/0.7 or 0.5, blob maps and all-class-0 and
 all-bark images; the 1024² spiral against scipy.ndimage.label and the
-native union-find, with the plain version's sweeps printed. The kernels
-are timed by device time (3 rounds), the plain version by CUDA events,
-beside the native union-find as the port ran it before (the maps copied
-to the host, remove_small_zones_batch, the upload) and the byte bound.
+native union-find, with the plain version's sweeps printed; and the
+tile-border maps (heights and widths that are no multiple of the tile, a
+checkerboard, diagonals and lone pixels at the tile corners, valid_h 0, 1
+and H) against scipy's labels and the native union-find. The kernels are
+timed by device time (3 rounds, by kernel), the plain version by CUDA
+events, beside the native union-find as the port ran it before (the maps
+copied to the host, remove_small_zones_batch, the upload), the byte bound
+and, in the log only, the bytes the design itself moves (a model, not a
+measurement).
 
 Phase 3 drives the predict path, folder prediction, through the engine a
 user calls: a synthetic folder of 16 processed 1024-wide images at trimmed
@@ -162,10 +167,10 @@ The entry points and tools of the port: after phase 3's profile, the
 trace phase wraps one warm folder pass in utils.device_trace and finds
 upsample_argmax's kernel in the Chrome trace it writes, once a launch.
 After the reference check, the float32 batch phase runs the predict
-cell's 16 images through the float32 engine (TF32 off) at launch batch 8,
-4, 2 and 1, with cuDNN's default algorithms, with its deterministic ones
-and with cuDNN disabled (batch 8 and 1 only), and prints the pixels that
-differ between every two batches and the device step alone in each mode.
+cell's 16 images through the float32 engine (TF32 off, cuDNN's defaults)
+at launch batch 8 and 1, prints the pixels that differ and holds each
+image's maps to >= 99.9 % agreement: the scope of the float32 batch
+invariant on the card (bit for bit across launch batches on the CPU).
 After phase 7 (whose traffic goes through tools/serving_bench), the
 serving tools phase runs serving_bench's cold start (a child server, bf16,
 batch 8, from its start to its first answer) and a SOAK_SECONDS-long
@@ -417,14 +422,29 @@ CCL_KINDS = {8: ("random 0.3", "random 0.5", "random 0.7", "blobs", "blobs",
                  "blobs", "all class 0", "all bark"),
              5: ("random 0.5", "blobs", "blobs", "all class 0", "all bark")}
 CCL_SPIRAL = 1024
+# The ccl phase's tile-border maps: shapes that are no multiple of the
+# kernels' tile, a checkerboard (only diagonals connect, across every tile
+# corner), one-pixel diagonals through the tile corners, a lone pixel at
+# each corner of each tile, and a ragged batch at valid_h 0, 1 and H. Each
+# is held against scipy.ndimage.label's partition at its smallest index
+# and the native union-find, exact where the plain sweeps may stop.
+CCL_BORDER_SHAPES = ((1000, 1024), (896, 1000), (1, 1024), (1024, 1),
+                     (33, 129))
+CCL_BORDER_VALID_H = (0, 1, 1024)
+# The kernels' tile, rows x columns (csrc/ccl.cu's kTileH x kTileW): the
+# border maps are built around its corners
+CCL_TILE = (32, 128)
+# The eval batch's time with the per-pixel union-find this design replaced,
+# as PERF.md section 6 records it (device time, NVIDIA H100 80GB HBM3 at
+# 700 W); printed beside this run's, not measured by it
+CCL_PER_PIXEL_MS = 1.4298
 # The float32 batch check: the predict cell's images through the float32
-# engine at each launch batch, with cuDNN as it runs by default, with its
-# deterministic algorithms, and disabled (ATen's convolutions, slow: the
-# largest and smallest batch only). (mode, enabled, deterministic, batches)
-F32_BATCHES = (8, 4, 2, 1)
-F32_MODES = (("default", True, False, F32_BATCHES),
-             ("deterministic", True, True, F32_BATCHES),
-             ("disabled", False, False, (8, 1)))
+# engine with cuDNN's default algorithms at the largest and the smallest
+# launch batch; each image's maps must agree on at least F32_AGREE_FLOOR
+# of its pixels (on the card cuDNN may take other algorithms for another
+# batch shape; bit identity across launch batches holds on the CPU).
+F32_BATCHES = (8, 1)
+F32_AGREE_FLOOR = 0.999
 # The serving tools: the soak's length and clients
 SOAK_SECONDS = 15.0
 SOAK_CLIENTS = 8
@@ -1251,14 +1271,107 @@ def spiral(np, n: int):
 
 
 def ccl_expect(kind: str) -> dict[str, int]:
-    """The device kernels one ccl wrapper call launches, by label."""
-    one = {"ccl_init_kernel": 1, "ccl_merge_kernel": 1,
-           "ccl_compress_kernel": 1}
+    """The device kernels one ccl wrapper call launches, by label: one
+    labelling is a tile, a border and a finalize kernel."""
     if kind == "labels":
-        return one
-    return {"ccl_init_kernel": 1, "ccl_merge_kernel": 2,
-            "ccl_compress_kernel": 2, "ccl_count_kernel": 2,
-            "ccl_init_filled_kernel": 1, "ccl_writeback_kernel": 1}
+        return {"ccl_tile_kernel": 1, "ccl_border_kernel": 1,
+                "ccl_finalize_kernel": 1}
+    return {"ccl_tile_kernel": 2, "ccl_border_kernel": 2,
+            "ccl_finalize_kernel": 2, "ccl_writeback_kernel": 1}
+
+
+def ccl_design_bytes(elem_bytes: int, pixels: int) -> int:
+    """The bytes remove_small_zones moves in csrc/ccl.cu's design, roots
+    left out: the map read twice (holes tile load, write-back), the result
+    written, two int32 label planes written and read once each."""
+    return (3 * elem_bytes + 16) * pixels
+
+
+def scipy_labels(np, ndimage, mask):
+    """label_components' contract from scipy.ndimage.label (8-connected):
+    each component at its smallest per-image flat index, H * W on the
+    background; [B, H, W] bool in, int32 out."""
+    out = np.empty(mask.shape, np.int32)
+    for i, m in enumerate(mask):
+        lab, n = ndimage.label(m, structure=np.ones((3, 3), bool))
+        smallest = np.full(n + 1, m.size, np.int32)
+        ids, first = np.unique(lab.ravel(), return_index=True)
+        smallest[ids[ids > 0]] = first[ids > 0]  # raster order
+        out[i] = smallest[lab]
+    return out
+
+
+def ccl_border_maps(np, rng, tile: tuple) -> list:
+    """(label, class maps [B, H, W], valid_h or None) of CCL_BORDER_SHAPES
+    and the maps that stress the tile borders, built for `tile`."""
+    th, tw = tile
+    n = 1024
+    maps = []
+    for h, w in CCL_BORDER_SHAPES:
+        maps.append((f"random {h}x{w}", rng.choice(
+            3, size=(2, h, w), p=[0.5, 0.4, 0.1]).astype(np.int64), None))
+    rows, cols = np.indices((n, n))
+    maps.append(("checkerboard", np.where((rows + cols) % 2 == 0, 0, 1)
+                 [None].astype(np.int32), None))
+    corners = [(r, c) for r in range(0, n, th) for c in range(0, n, tw)]
+    diag = np.zeros((n, n), bool)
+    for d in {c - r for r, c in corners}:
+        diag |= cols - rows == d
+    for d in {c + r for r, c in corners}:
+        diag |= cols + rows == d
+    maps.append(("diagonals through tile corners", np.stack(
+        [np.where(diag, 0, 1), np.where(diag, 1, 0)]).astype(np.uint8),
+        None))
+    lone = np.ones((n, n), np.uint8)
+    for r, c in corners:
+        for rr, cc in ((r, c), (r, c + tw - 1), (r + th - 1, c),
+                       (r + th - 1, c + tw - 1)):
+            if rr < n and cc < n:
+                lone[rr, cc] = 0
+    maps.append(("a lone pixel at each tile corner",
+                 np.stack([lone, 1 - lone]), None))
+    maps.append((f"ragged, valid_h {list(CCL_BORDER_VALID_H)}", rng.choice(
+        3, size=(len(CCL_BORDER_VALID_H), n, n),
+        p=[0.5, 0.4, 0.1]).astype(np.uint8),
+        np.array(CCL_BORDER_VALID_H, np.int32)))
+    return maps
+
+
+def check_border_maps(torch, np, ndimage, rng) -> int:
+    """Every map of ccl_border_maps through the kernels: label_components
+    of the class-0 mask and of its complement against scipy,
+    component_areas against the areas of scipy's labels, and
+    remove_small_zones[_ragged] against the native union-find, all bit
+    for bit. Returns the wrapper calls that launched."""
+    from neuralbarkcalculator_tpu_torch.io.native import (
+        remove_small_zones_batch)
+    from neuralbarkcalculator_tpu_torch.ops import ccl
+
+    dev = torch.device("cuda")
+    before = ccl.LAUNCHES.count
+    for label, maps_np, vh_np in ccl_border_maps(np, rng, CCL_TILE):
+        x = torch.from_numpy(maps_np).to(dev)
+        for name, m_np in (("class-0 mask", maps_np == 0),
+                           ("its complement", maps_np != 0)):
+            want = torch.from_numpy(scipy_labels(np, ndimage, m_np)).to(dev)
+            m = torch.from_numpy(m_np).to(dev)
+            check_exact(torch, f"{label} labels of the {name}",
+                        ccl.label_components(m), want)
+            check_exact(torch, f"{label} areas of the {name}",
+                        ccl.component_areas(m),
+                        ccl.component_areas_plain(m, want))
+        native = remove_small_zones_batch(maps_np.astype(np.uint8), vh_np)
+        got = (ccl.remove_small_zones(x) if vh_np is None else
+               ccl.remove_small_zones_ragged(x, torch.from_numpy(vh_np)))
+        if got.dtype != x.dtype:
+            raise AssertionError(f"ccl {label}: remove_small_zones gave "
+                                 f"{got.dtype} for {x.dtype}")
+        check_exact(torch, f"{label} remove_small_zones",
+                    got.cpu().to(torch.uint8), torch.from_numpy(native))
+        log(f"ccl border map {label} {list(maps_np.shape)} {x.dtype}: "
+            f"labels and areas of the class-0 mask and its complement equal "
+            f"scipy's, remove_small_zones equal to the native union-find")
+    return ccl.LAUNCHES.count - before
 
 
 def check_exact(torch, label: str, got, want) -> int:
@@ -1278,11 +1391,13 @@ def phase_ccl(torch, seed: int, card: str) -> dict:
     remove_small_zones at the eval batch (int64) and a train step's crops,
     remove_small_zones_ragged on the engine's chunk (uint8, valid_h with a
     0); the 1024² spiral against scipy.ndimage.label and the native
-    union-find, with the plain version's sweeps. Then the kernels timed by
-    device time in FDM_TIMING_ROUNDS rounds, the plain version by CUDA
-    events around one call (seconds a call), beside the native union-find
-    as the port ran it before (device-to-host copy,
-    remove_small_zones_batch, upload; wall clock) and the byte bound."""
+    union-find, with the plain version's sweeps; the tile-border maps
+    (check_border_maps). Then the kernels timed by device time in
+    FDM_TIMING_ROUNDS rounds, by kernel, the plain version by CUDA events
+    around one call (seconds a call), beside the native union-find as the
+    port ran it before (device-to-host copy, remove_small_zones_batch,
+    upload; wall clock) and the byte bound; the log also gives the bytes
+    the design moves by its own count (ccl_design_bytes, a model)."""
     import numpy as np
     from scipy import ndimage
 
@@ -1307,11 +1422,12 @@ def phase_ccl(torch, seed: int, card: str) -> dict:
         torch.cuda.synchronize()
         launched = ccl.LAUNCHES.count - before
         lab_p = ccl.label_components_plain(mask)
+        zones_p = ccl.remove_small_zones_plain(x, None)
         errors += [check_exact(torch, f"{label} labels", lab, lab_p),
                    check_exact(torch, f"{label} areas", areas,
                                ccl.component_areas_plain(mask, lab_p)),
                    check_exact(torch, f"{label} remove_small_zones", zones,
-                               ccl.remove_small_zones_plain(x, None))]
+                               zones_p)]
         changed = (zones != x).flatten(1).sum(1).tolist()
         kinds = ", ".join(CCL_KINDS[x.shape[0]])
         log(f"ccl {label} {list(x.shape)} {x.dtype} ({kinds}): "
@@ -1364,6 +1480,8 @@ def phase_ccl(torch, seed: int, card: str) -> dict:
         f"{'equal to' if torch.equal(lab_p[0], lab) else 'NOT equal to'} the "
         f"kernels' (not held: the sweeps may stop unconverged)")
 
+    border_launches = check_border_maps(torch, np, ndimage, rng)
+
     # timing
     mask = maps == 0
     fns = (lambda: ccl.remove_small_zones(maps),
@@ -1372,20 +1490,25 @@ def phase_ccl(torch, seed: int, card: str) -> dict:
            lambda: ccl.label_components(mask))
     expect = (ccl_expect("zones"), ccl_expect("zones"), ccl_expect("zones"),
               ccl_expect("labels"))
-    rounds, counts = [], []
+    names = ("eval batch", "ragged chunk", "train crops", "labels alone")
+    rounds, counts, by_kernel = [], [], []
     for r in range(FDM_TIMING_ROUNDS):
         times, n = device_times(torch, fns, expect)
         rounds.append([sum(t.values()) for t in times])
         counts.append(n)
-        log(f"ccl timing round {r + 1} (device ms per call): eval batch "
-            f"{rounds[-1][0]:.4f}, ragged chunk {rounds[-1][1]:.4f}, train "
-            f"crops {rounds[-1][2]:.4f}, labels alone {rounds[-1][3]:.4f}; "
-            f"by kernel (eval batch) "
-            f"{ {k: round(v, 4) for k, v in times[0].items()} }; clocks.sm, "
-            f"clocks.mem, power.draw after it: {card_clocks()}")
+        by_kernel.append(times)
+        log(f"ccl timing round {r + 1} (device ms per call): "
+            + ", ".join(f"{name} {t:.4f}" for name, t in zip(names, rounds[-1]))
+            + f"; by kernel: "
+            + "; ".join(f"{name} { {k: round(v, 4) for k, v in t.items()} }"
+                        for name, t in zip(names, times))
+            + f"; clocks.sm, clocks.mem, power.draw after it: "
+              f"{card_clocks()}")
     same_counts("ccl", counts)
     ms, ragged_ms, crops_ms, labels_ms = (statistics.median(col)
                                           for col in zip(*rounds))
+    eval_by_kernel = {k: statistics.median(t[0][k] for t in by_kernel)
+                      for k in by_kernel[0][0]}
     # the plain version (~10^5 small kernels and a host sync a sweep) by
     # CUDA events around one call: a profiler session of its events took
     # minutes to read on an H100
@@ -1403,15 +1526,25 @@ def phase_ccl(torch, seed: int, card: str) -> dict:
     nbytes = 2 * maps.numel() * maps.element_size()
     bound = nbytes / H100_HBM_BYTES * 1e3
     chunk_bound = 2 * chunk.numel() / H100_HBM_BYTES * 1e3
+    design = ccl_design_bytes(maps.element_size(), maps.numel())
+    chunk_design = ccl_design_bytes(1, chunk.numel())
     log(f"ccl ({card}): remove_small_zones at the eval batch "
-        f"{list(maps.shape)} int64: kernels {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms (one call, CUDA events), native union-find as before (copy to the host, "
-        f"remove_small_zones_batch, upload; wall clock, median of "
-        f"{FDM_TIMING_ROUNDS}) {native_ms:.4f} ms, byte bound {bound:.4f} ms "
-        f"({nbytes / 1e6:.3f} MB: the map read once, the result written "
-        f"once; {bound / ms:.4f} of it); ragged chunk uint8 {ragged_ms:.4f} "
-        f"ms (bound {chunk_bound:.4f}); train crops {crops_ms:.4f} ms; "
-        f"labels alone {labels_ms:.4f} ms")
+        f"{list(maps.shape)} int64: kernels {ms:.4f} ms (the per-pixel "
+        f"union-find it replaced: {CCL_PER_PIXEL_MS} ms on an H100 80GB HBM3 "
+        f"at 700 W, PERF.md's figure, not this run's), by kernel "
+        f"{ {k: round(v, 4) for k, v in eval_by_kernel.items()} }; plain "
+        f"{plain_ms:.4f} ms (one call, CUDA events), native union-find as "
+        f"before (copy to the host, remove_small_zones_batch, upload; wall "
+        f"clock, median of {FDM_TIMING_ROUNDS}) {native_ms:.4f} ms; byte "
+        f"bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB: the map read once, "
+        f"the result written once; {bound / ms:.4f} of it); the design's "
+        f"byte model {design / 1e6:.3f} MB, "
+        f"{design / H100_HBM_BYTES * 1e3:.4f} ms at the memory rate (a "
+        f"count, not a time of this run); ragged chunk uint8 "
+        f"{ragged_ms:.4f} ms (bound {chunk_bound:.4f}, byte model "
+        f"{chunk_design / H100_HBM_BYTES * 1e3:.4f}); train crops "
+        f"{crops_ms:.4f} ms; labels alone {labels_ms:.4f} ms; border-map "
+        f"wrapper calls {border_launches}")
     return {
         "name": "ccl", "route": "cuda",
         "source": "neuralbarkcalculator_tpu_torch/csrc/ccl.cu",
@@ -1421,6 +1554,7 @@ def phase_ccl(torch, seed: int, card: str) -> dict:
         "library_ms": None, "native_ms": native_ms,
         "ragged_ms": ragged_ms, "train_crops_ms": crops_ms,
         "labels_ms": labels_ms, "spiral_plain_sweeps": sweeps,
+        "eval_ms_by_kernel": eval_by_kernel,
     }
 
 
@@ -1958,8 +2092,7 @@ def copy_folder(src_root: str, dst_root: str, as_sources: bool) -> None:
 
 
 def phase_sharded_predict(torch, workdir: str, main_root: str, ckpt: str,
-                          main_seconds: float, f32_agreement: float,
-                          card: str) -> dict:
+                          main_seconds: float, card: str) -> dict:
     """Sharded folder prediction on the card: `cli/predict --shard k/N
     --float32` for k < SHARDS as concurrent child processes over the main
     path's folder and checkpoint (shard 0 owns the preprocess, which finds
@@ -2057,9 +2190,8 @@ def phase_sharded_predict(torch, workdir: str, main_root: str, ckpt: str,
         f"names and order equal {same_names}; "
         f"{differ} rows differ in bytes from the single process's; dual "
         f"masks agree on {agree / total:.6f} of pixels (floor "
-        f"{SHARD_AGREE_FLOOR}; the float32 engine against the per-image "
-        f"reference {f32_agreement:.6f}); artifacts {counts}; shard files "
-        f"left {leftovers}")
+        f"{SHARD_AGREE_FLOOR}); artifacts {counts}; shard files left "
+        f"{leftovers}")
     if not same_names or leftovers \
             or counts != {"combined_images": N_IMAGES, "outputs": N_IMAGES}:
         raise AssertionError("sharded predict: the merged CSV's rows or the "
@@ -4226,14 +4358,12 @@ def phase_trace(torch, engine, root: str, workdir: str) -> int:
 
 
 def phase_f32_batch(torch, ckpt: str, main_root: str, card: str) -> int:
-    """Float32 class maps against the launch batch: the predict cell's
-    images through the float32 engine (TF32 off) at each launch batch of
-    F32_BATCHES, in each cuDNN mode of F32_MODES: cuDNN's default
-    algorithm choice, its deterministic algorithms (cudnn.deterministic,
-    benchmark off), and cuDNN disabled (ATen's own convolutions, at the
-    largest and smallest batch only). For every pair of batches in a mode,
-    the pixels and images whose maps differ, and the device step alone at
-    batch 8, printed. Returns the upsample_argmax launches (counts set to
+    """Float32 class maps across launch batches, the invariant's scope on
+    the card: the predict cell's images through the float32 engine (TF32
+    off, cuDNN's default algorithm choice, no cuDNN flag touched) at each
+    launch batch of F32_BATCHES. Each image's maps must agree on at least
+    F32_AGREE_FLOOR of its pixels between the batches; the pixels that
+    differ are printed. Returns the upsample_argmax launches (counts set to
     0 just before, read just after)."""
     from neuralbarkcalculator_tpu_torch.config import PredictConfig
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
@@ -4243,42 +4373,27 @@ def phase_f32_batch(torch, ckpt: str, main_root: str, card: str) -> int:
     total = sum(it.image.shape[0] * it.image.shape[1] for it in items)
     engine = NeuralBarkCalculator(
         ckpt, config=PredictConfig(model_path=ckpt, use_bfloat16=False))
-    cudnn = torch.backends.cudnn
-    saved = (cudnn.enabled, cudnn.deterministic, cudnn.benchmark)
     counters = reset_counters()
-    try:
-        for mode, enabled, deterministic, batches in F32_MODES:
-            cudnn.enabled, cudnn.deterministic = enabled, deterministic
-            cudnn.benchmark = False
-            maps = {}
-            for b in batches:
-                engine.config.batch_size = b
-                maps[b] = {it.fname: m for it, m in
-                           engine.predict_images(items)}
-            engine.config.batch_size = batches[0]
-            step_ms = zoo_step_ms(torch, engine)
-            diffs = {}
-            for i, a in enumerate(batches):
-                for b in batches[i + 1:]:
-                    per_image = [int((maps[b][f] != m).sum())
-                                 for f, m in maps[a].items()]
-                    diffs[f"{a}/{b}"] = {
-                        "pixels": sum(per_image),
-                        "images": sum(v > 0 for v in per_image),
-                        "largest": max(per_image)}
-            log(f"float32 batch ({card}; cuDNN {mode}: enabled {enabled}, "
-                f"deterministic {deterministic}, benchmark False): maps at "
-                f"launch batch {list(batches)} over {N_IMAGES} images "
-                f"({total} pixels), pixels that differ between batches: "
-                + "; ".join(f"{pair}: {d['pixels']} ({d['pixels'] / total:.3g})"
-                            f" in {d['images']} images, at most "
-                            f"{d['largest']} in one"
-                            for pair, d in diffs.items())
-                + f"; device step alone at batch {batches[0]} "
-                  f"{step_ms:.3f} ms")
-    finally:
-        cudnn.enabled, cudnn.deterministic, cudnn.benchmark = saved
+    maps = {}
+    for b in F32_BATCHES:
+        engine.config.batch_size = b
+        maps[b] = {it.fname: m for it, m in engine.predict_images(items)}
     launches = counters["upsample_argmax"].count
+    first, last = F32_BATCHES[0], F32_BATCHES[-1]
+    per_image = {f: (int((maps[last][f] != m).sum()), m.size)
+                 for f, m in maps[first].items()}
+    worst = min(1 - n / size for n, size in per_image.values())
+    differ = sum(n for n, _ in per_image.values())
+    log(f"float32 batch ({card}; cuDNN's defaults): maps at launch batch "
+        f"{first} and {last} over {N_IMAGES} images ({total} pixels): "
+        f"{differ} pixels differ ({differ / total:.3g}) in "
+        f"{sum(n > 0 for n, _ in per_image.values())} images, per image "
+        f"{[n for n, _ in per_image.values()]}; the least agreement of an "
+        f"image {worst:.6f} (floor {F32_AGREE_FLOOR})")
+    if worst < F32_AGREE_FLOOR:
+        raise AssertionError(f"float32 batch: an image's maps agree on "
+                             f"{worst:.6f} < {F32_AGREE_FLOOR} between "
+                             f"launch batch {first} and {last}")
     if launches == 0:
         raise AssertionError("float32 batch: upsample_argmax never launched")
     return launches
@@ -4533,9 +4648,8 @@ def main() -> int:
         kernel["trace_launches"] = timed(
             "trace", phase_trace, torch, main_path["engine"],
             main_path["root"], workdir)
-        f32_agreement = timed(
-            "reference", phase_reference, torch, main_path["engine"],
-            main_path["ckpt"], folder_items(main_path["root"], range(4)))
+        timed("reference", phase_reference, torch, main_path["engine"],
+              main_path["ckpt"], folder_items(main_path["root"], range(4)))
         ckpt, main_root = main_path["ckpt"], main_path["root"]
         main_seconds = main_path["seconds"]
         del main_path
@@ -4543,7 +4657,7 @@ def main() -> int:
             "float32 batch", phase_f32_batch, torch, ckpt, main_root, card)
         sharded = timed(
             "sharded predict", phase_sharded_predict, torch, workdir,
-            main_root, ckpt, main_seconds, f32_agreement, card)
+            main_root, ckpt, main_seconds, card)
         kernel["shard_launches"] = sharded["launches"]
         ccl_row["no_native_launches"] = timed(
             "no-library predict", phase_no_native_predict, torch, workdir,

@@ -25,7 +25,13 @@ labelled on its own. The contract is the JAX package's, bit for bit:
 - the class maps keep their dtype.
 
 - On CUDA tensors the wrappers launch the union-find kernels of
-  ``csrc/ccl.cu`` (built at first use) or raise.
+  ``csrc/ccl.cu`` (built at first use) or raise: each image labelled in
+  tiles of 32 x 128 pixels in shared memory, then the tiles' borders
+  merged; 3 launches for label_components, 4 for component_areas and the
+  object / hole tests, 7 for remove_small_zones. The kernels read the map
+  in place, so a CUDA map must be contiguous.
+- Every function takes a map of bool, uint8, int32 or int64, of fewer
+  than 2^31 - 1 pixels an image, and raises on anything else.
 - On CPU tensors they run the plain version: the JAX package's algorithm
   in torch ops (per sweep a segmented min-scan along rows and along
   columns, each a forward and a reverse Hillis-Steele doubling over
@@ -173,6 +179,9 @@ def _batched(x: torch.Tensor, name: str) -> torch.Tensor:
                          f"{x.shape[-1]} pixels exceeds int32 labels")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous CUDA tensor (the "
+                         f"kernels read it in place)")
     return x if x.dim() == 3 else x[None]
 
 
@@ -181,8 +190,11 @@ def _unbatched(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 class _Launch:
-    """The ccl library, the stream and the shape of one wrapper call on a
-    CUDA tensor [B, H, W]."""
+    """The ccl library, the stream, the shape and the scratch of one
+    wrapper call on a CUDA tensor [B, H, W]. A labelling leaves each
+    foreground pixel's tile root in ``parent`` and the tile root's global
+    root there too (two hops to the label), and each component's area at
+    its global root in ``areas``."""
 
     def __init__(self, x: torch.Tensor) -> None:
         self.lib = kernel_lib("ccl")
@@ -190,12 +202,15 @@ class _Launch:
         self.b, self.h, self.w = x.shape
         with torch.cuda.device(x.device):
             self.stream = torch.cuda.current_stream(x.device).cuda_stream
+        # each tile's roots, for each labelling
+        self.scratch = self.empty(
+            self.lib.ccl_scratch_ints(self.b, self.h, self.w))
 
     def empty(self, *shape: int, dtype=torch.int32) -> torch.Tensor:
         return torch.empty(shape, dtype=dtype, device=self.device)
 
-    def areas(self) -> torch.Tensor:
-        return self.empty(self.b, self.h * self.w + 1)
+    def plane(self) -> torch.Tensor:
+        return self.empty(self.b, self.h, self.w)
 
     def run(self, entry: str, *args) -> None:
         with torch.cuda.device(self.device):
@@ -204,18 +219,15 @@ class _Launch:
         check_launch(f"ccl ({entry})", rc)
 
     def label(self, src: torch.Tensor, invert: bool,
-              valid_h: torch.Tensor | None, areas: torch.Tensor | None
-              ) -> torch.Tensor:
-        """Labels of fg = (row < valid_h) & ((src != 0) != invert); zeroes
-        ``areas`` on the way."""
-        lab = self.empty(self.b, self.h, self.w)
-        self.run("ccl_init_launch", src.data_ptr(), _ELEM_BYTES[src.dtype],
-                 int(invert), _ptr(valid_h), lab.data_ptr(), _ptr(areas))
-        self.run("ccl_label_launch", lab.data_ptr())
-        return lab
-
-    def count(self, lab: torch.Tensor, areas: torch.Tensor) -> None:
-        self.run("ccl_count_launch", lab.data_ptr(), areas.data_ptr())
+              valid_h: torch.Tensor | None, areas: torch.Tensor | None,
+              write_labels: bool = False) -> torch.Tensor:
+        """The labelling of fg = (row < valid_h) & ((src != 0) != invert);
+        with ``write_labels`` the final labels."""
+        parent = self.plane()
+        self.run("ccl_label_launch", src.data_ptr(), _ELEM_BYTES[src.dtype],
+                 int(invert), _ptr(valid_h), parent.data_ptr(), _ptr(areas),
+                 self.scratch.data_ptr(), int(write_labels))
+        return parent
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -223,18 +235,18 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _labels_kernel(fg: torch.Tensor) -> torch.Tensor:
-    lab = _Launch(fg).label(fg, False, None, None)
+    lab = _Launch(fg).label(fg, False, None, None, write_labels=True)
     LAUNCHES.add()
     return lab
 
 
 def _areas_kernel(fg: torch.Tensor) -> torch.Tensor:
     k = _Launch(fg)
-    areas = k.areas()
-    lab = k.label(fg, False, None, areas)
-    k.count(lab, areas)
-    out = k.empty(k.b, k.h, k.w)
-    k.run("ccl_area_launch", lab.data_ptr(), areas.data_ptr(), out.data_ptr())
+    areas = k.plane()
+    parent = k.label(fg, False, None, areas)
+    out = k.plane()
+    k.run("ccl_area_launch", parent.data_ptr(), areas.data_ptr(),
+          out.data_ptr())
     LAUNCHES.add()
     return out
 
@@ -242,11 +254,10 @@ def _areas_kernel(fg: torch.Tensor) -> torch.Tensor:
 def _keep_kernel(mask: torch.Tensor, thr: int, invert: bool) -> torch.Tensor:
     """(fg & area(fg) >= thr) != invert, with fg = mask != invert."""
     k = _Launch(mask)
-    areas = k.areas()
-    lab = k.label(mask, invert, None, areas)
-    k.count(lab, areas)
+    areas = k.plane()
+    parent = k.label(mask, invert, None, areas)
     out = k.empty(k.b, k.h, k.w, dtype=torch.bool)
-    k.run("ccl_keep_launch", lab.data_ptr(), areas.data_ptr(), int(thr),
+    k.run("ccl_keep_launch", parent.data_ptr(), areas.data_ptr(), int(thr),
           int(invert), out.data_ptr())
     LAUNCHES.add()
     return out
@@ -256,17 +267,16 @@ def _zones_kernel(img: torch.Tensor, valid_h: torch.Tensor | None
                   ) -> torch.Tensor:
     k = _Launch(img)
     thr = SMALL_ZONE_THRESHOLD
-    areas, areas2 = k.areas(), k.areas()
-    lab = k.label(img, False, valid_h, areas)  # non-zero (hole) components
-    k.count(lab, areas)
-    # the filled class-0 mask cut at valid_h, labelled in place of lab
-    k.run("ccl_init_filled_launch", lab.data_ptr(), areas.data_ptr(),
-          _ptr(valid_h), thr, areas2.data_ptr())
-    k.run("ccl_label_launch", lab.data_ptr())
-    k.count(lab, areas2)
+    holes_areas = k.plane()
+    holes = k.label(img, False, valid_h, holes_areas)  # non-zero components
+    # the filled class-0 mask cut at valid_h, built in the tile load
+    objects, objects_areas = k.plane(), k.plane()
+    k.run("ccl_label_filled_launch", holes.data_ptr(),
+          holes_areas.data_ptr(), _ptr(valid_h), thr, objects.data_ptr(),
+          objects_areas.data_ptr(), k.scratch.data_ptr())
     out = torch.empty_like(img)
     k.run("ccl_writeback_launch", img.data_ptr(), _ELEM_BYTES[img.dtype],
-          _ptr(valid_h), lab.data_ptr(), areas2.data_ptr(), thr,
+          _ptr(valid_h), objects.data_ptr(), objects_areas.data_ptr(), thr,
           out.data_ptr())
     LAUNCHES.add()
     return out
@@ -287,7 +297,7 @@ def label_components(fg: torch.Tensor) -> torch.Tensor:
     m = _mask(fg, "label_components")
     if m.device.type == "cpu":
         return _unbatched(label_components_plain(m), fg)
-    return _unbatched(_labels_kernel(m.contiguous()), fg)
+    return _unbatched(_labels_kernel(m), fg)
 
 
 def component_areas(fg: torch.Tensor) -> torch.Tensor:
@@ -296,7 +306,7 @@ def component_areas(fg: torch.Tensor) -> torch.Tensor:
     m = _mask(fg, "component_areas")
     if m.device.type == "cpu":
         return _unbatched(component_areas_plain(m), fg)
-    return _unbatched(_areas_kernel(m.contiguous()), fg)
+    return _unbatched(_areas_kernel(m), fg)
 
 
 def remove_small_objects(mask: torch.Tensor,
@@ -307,7 +317,7 @@ def remove_small_objects(mask: torch.Tensor,
     if m.device.type == "cpu":
         out = m & (component_areas_plain(m) >= min_size)
     else:
-        out = _keep_kernel(m.contiguous(), min_size, False)
+        out = _keep_kernel(m, min_size, False)
     return _unbatched(out, mask)
 
 
@@ -321,7 +331,7 @@ def remove_small_holes(mask: torch.Tensor,
         inv = ~m
         out = ~(inv & (component_areas_plain(inv) >= area_threshold))
     else:
-        out = _keep_kernel(m.contiguous(), area_threshold, True)
+        out = _keep_kernel(m, area_threshold, True)
     return _unbatched(out, mask)
 
 
@@ -331,7 +341,7 @@ def remove_small_zones(img: torch.Tensor) -> torch.Tensor:
     x = _batched(img, "remove_small_zones")
     if x.device.type == "cpu":
         return _unbatched(remove_small_zones_plain(x, None), img)
-    return _unbatched(_zones_kernel(x.contiguous(), None), img)
+    return _unbatched(_zones_kernel(x, None), img)
 
 
 def remove_small_zones_ragged(img: torch.Tensor, valid_h) -> torch.Tensor:
@@ -348,4 +358,4 @@ def remove_small_zones_ragged(img: torch.Tensor, valid_h) -> torch.Tensor:
     vh = vh.to(device=x.device, dtype=torch.int32).contiguous()
     if x.device.type == "cpu":
         return _unbatched(remove_small_zones_plain(x, vh), img)
-    return _unbatched(_zones_kernel(x.contiguous(), vh), img)
+    return _unbatched(_zones_kernel(x, vh), img)

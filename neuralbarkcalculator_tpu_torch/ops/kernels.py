@@ -49,11 +49,11 @@ _SIGNATURES = {
         "fdm_max_classes": ([], _I),
     },
     "ccl": {
-        "ccl_init_launch": ([_P, _I, _I, _P, _P, _P, _I, _I, _I, _P], _I),
-        "ccl_init_filled_launch": ([_P, _P, _P, _I, _P, _I, _I, _I, _P],
-                                   _I),
-        "ccl_label_launch": ([_P, _I, _I, _I, _P], _I),
-        "ccl_count_launch": ([_P, _P, _I, _I, _I, _P], _I),
+        "ccl_scratch_ints": ([_I, _I, _I], ctypes.c_int64),
+        "ccl_label_launch": ([_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P], _I),
+        "ccl_label_filled_launch": ([_P, _P, _P, _I, _P, _P, _P, _I, _I,
+                                     _I, _P], _I),
         "ccl_area_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
         "ccl_keep_launch": ([_P, _P, _I, _I, _P, _I, _I, _I, _P], _I),
         "ccl_writeback_launch": ([_P, _I, _P, _P, _P, _I, _P, _I, _I, _I,

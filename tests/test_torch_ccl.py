@@ -220,9 +220,113 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         ccl.component_areas(torch.zeros((4, 5), dtype=torch.bool,
                                         device="meta"))
+    # the kernels read a CUDA map in place (the card test holds that they
+    # refuse a view); on the CPU the plain version takes views
+    view = torch.from_numpy(np.random.default_rng(4).choice(
+        3, size=(2, 9, 7)).astype(np.uint8)).transpose(1, 2)
+    assert torch.equal(ccl.remove_small_zones(view),
+                       ccl.remove_small_zones(view.contiguous()))
+    mask = view[:, ::2] == 0
+    assert torch.equal(ccl.label_components(mask),
+                       ccl.label_components(mask.contiguous()))
+    # labels are int32 per-image flat indices with H * W as the background
+    with pytest.raises(ValueError, match="int32"):
+        ccl.label_components(torch.zeros((46341, 46341), dtype=torch.bool,
+                                          device="meta"))
     before = ccl.LAUNCHES.count
     ccl.remove_small_zones(torch.zeros((4, 5), dtype=torch.uint8))
     assert ccl.LAUNCHES.count == before  # the plain version counts nothing
+
+
+def _scipy_labels(mask: np.ndarray) -> np.ndarray:
+    """label_components' contract from scipy: each 8-connected component
+    at its smallest flat index, H * W on the background."""
+    lab, n = ndi.label(mask, structure=_S8)
+    smallest = np.full(n + 1, mask.size, np.int32)
+    ids, first = np.unique(lab.ravel(), return_index=True)
+    smallest[ids[ids > 0]] = first[ids > 0]  # raster order
+    return smallest[lab]
+
+
+_TILE = (32, 128)  # csrc/ccl.cu's kTileH x kTileW
+
+
+def _border_maps(name: str):
+    """Small class maps that stress the kernels' tile borders, with their
+    valid_h or None."""
+    th, tw = _TILE
+    rng = np.random.default_rng(3)
+    if name.startswith("random"):
+        h, w = (int(v) for v in name.split()[1].split("x"))
+        return rng.choice(3, size=(2, h, w), p=[0.5, 0.4, 0.1]), None
+    h, w = 2 * th + 5, 2 * tw + 3
+    rows, cols = np.indices((h, w))
+    corners = [(r, c) for r in range(0, h, th) for c in range(0, w, tw)]
+    if name == "checkerboard":
+        return np.where((rows + cols) % 2 == 0, 0, 1)[None], None
+    if name == "diagonals":
+        diag = np.zeros((h, w), bool)
+        for r, c in corners:
+            diag |= (cols - rows == c - r) | (cols + rows == c + r)
+        return np.stack([np.where(diag, 0, 1), np.where(diag, 1, 0)]), None
+    if name == "tile corners":
+        lone = np.ones((h, w), np.int64)
+        for r, c in corners:
+            for rr, cc in ((r, c), (r, c + tw - 1), (r + th - 1, c),
+                           (r + th - 1, c + tw - 1)):
+                if rr < h and cc < w:
+                    lone[rr, cc] = 0
+        return np.stack([lone, 1 - lone]), None
+    assert name == "ragged"
+    return (rng.choice(3, size=(3, h, w), p=[0.5, 0.4, 0.1]),
+            np.array([0, 1, h], np.int32))
+
+
+_BORDER_MAPS = ["random 33x129", "random 1x300", "random 300x1",
+                "random 70x260", "checkerboard", "diagonals",
+                "tile corners", "ragged"]
+
+
+@pytest.mark.parametrize("name", _BORDER_MAPS)
+def test_border_maps_plain_equal_scipy_and_native(name):
+    """The maps the card test holds the kernels to: the plain version's
+    labels equal scipy's, its clean-up the native union-find's."""
+    from neuralbarkcalculator_tpu_torch.io.native import (
+        remove_small_zones_batch)
+
+    maps, vh = _border_maps(name)
+    x = torch.from_numpy(maps.astype(np.uint8))
+    for m in (maps == 0, maps != 0):
+        got = ccl.label_components(torch.from_numpy(m)).numpy()
+        np.testing.assert_array_equal(got,
+                                      np.stack([_scipy_labels(i) for i in m]))
+    got = (ccl.remove_small_zones(x) if vh is None else
+           ccl.remove_small_zones_ragged(x, torch.from_numpy(vh)))
+    np.testing.assert_array_equal(got.numpy(),
+                                  remove_small_zones_batch(x.numpy(), vh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _BORDER_MAPS)
+def test_ccl_kernels_on_border_maps_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode "
+                    "(chip_smoke.py runs them at the main path's shapes)")
+    maps, vh = _border_maps(name)
+    x = torch.from_numpy(maps).cuda()
+    for m in (x == 0, x != 0):
+        lab = ccl.label_components(m)
+        assert torch.equal(lab, ccl.label_components_plain(m))
+        assert torch.equal(ccl.component_areas(m),
+                           ccl.component_areas_plain(m, lab))
+    if vh is None:
+        got, want = (ccl.remove_small_zones(x),
+                     ccl.remove_small_zones_plain(x, None))
+    else:
+        v = torch.from_numpy(vh).cuda()
+        got, want = (ccl.remove_small_zones_ragged(x, v),
+                     ccl.remove_small_zones_plain(x, v))
+    assert got.dtype == x.dtype and torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -252,6 +356,10 @@ def test_ccl_kernels_equal_plain_on_card():
     for got, want in checks:
         assert got.dtype == want.dtype
         assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="contiguous"):
+        ccl.remove_small_zones(maps.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        ccl.label_components(masks[:, :, ::2])
     grid = torch.from_numpy(spiral(256)).cuda()
     lab = ccl.label_components(grid)
     first = int(np.flatnonzero(spiral(256).ravel())[0])
