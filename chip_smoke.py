@@ -184,6 +184,23 @@ bark-train-torch (one epoch over phase 4's dataset) with their default
 device, as two child processes of this script at once (``--entrypoint``,
 internal), each launching its kernels.
 
+The JAX checkpoints phase runs after the int8 phase, with no jax, flax or
+orbax on the machine: phase 3's seeded fcn_resnet50 weights mapped to the
+JAX package's variable tree (models/convert.state_dict_to_variables) and
+written as a flax .msgpack by io/flax_msgpack; bark-predict-torch
+(cli/predict.entrypoint, in this process) over two copies of the main
+folder, with the .pt and with the .msgpack, final_stats.csv and every
+dual mask byte for byte, upsample_argmax launched by the .msgpack run;
+the port's quantize_variables tree of the same weights (calibrated on two
+of the folder's images) written as the JAX package's .int8.msgpack (the
+NBCQINT8\x01 tag, then the msgpack) and as the port's .int8.pt, the two
+engines' int8 state dicts equal and their maps over the folder bit for
+bit; the orbax fixture tests/fixtures/orbax_tree (written by the JAX
+package's save_variables) read through io/orbax with the system libzstd,
+every leaf's sha256 as tests/fixtures/orbax_tree.json says. It prints the
+load times of the .pt, the .msgpack, the .int8.pt and the .int8.msgpack:
+to a state dict on the host, and to the engine's model on the card.
+
 Every path runs with all launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON line, the card's name and
 power limit, and the result line. The script exits nonzero, with no result line,
@@ -448,6 +465,14 @@ F32_AGREE_FLOOR = 0.999
 # The serving tools: the soak's length and clients
 SOAK_SECONDS = 15.0
 SOAK_CLIENTS = 8
+# The JAX checkpoints phase: the orbax fixture (tests/torch_port_common.
+# write_orbax_fixture), each leaf's sha256 in the JSON beside it; the
+# images the .int8.msgpack's quantization calibrates on; the load-time
+# repetitions of each checkpoint form.
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "fixtures", "orbax_tree")
+JAX_INT8_CALIBRATION_IMAGES = 2
+LOAD_REPS = 3
+
 # The curation phase: structured 1024² duals through fine-tune
 CURATION_DUALS = 20
 
@@ -4576,6 +4601,230 @@ def phase_curation(torch, seed: int, workdir: str, card: str) -> int:
     return launches
 
 
+def leaf_digests(tree, prefix: str = "") -> dict:
+    """{'params/conv/kernel': {'shape', 'dtype', 'sha256'}} of a tree of
+    numpy leaves (sha256 of the C-order bytes), as the orbax fixture's
+    JSON holds them."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(leaf_digests(v, path))
+        else:
+            arr = np.ascontiguousarray(v)
+            out[path] = {"shape": list(arr.shape), "dtype": arr.dtype.name,
+                         "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+    return out
+
+
+def run_predict_cli(torch, argv: list[str]) -> float:
+    """bark-predict-torch (cli/predict.entrypoint) on ARGV in this
+    process; returns its seconds."""
+    from neuralbarkcalculator_tpu_torch.cli import predict as cli_predict
+
+    saved = sys.argv
+    sys.argv = ["bark-predict-torch", *argv]
+    try:
+        t0 = time.perf_counter()
+        cli_predict.entrypoint()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    finally:
+        sys.argv = saved
+
+
+def jax_int8_files(torch, workdir: str, root: str, state: dict
+                   ) -> tuple[str, str]:
+    """The port's quantize_variables tree of ``state`` (fcn_resnet50,
+    folded, calibrated in float32 on the folder's first
+    JAX_INT8_CALIBRATION_IMAGES images) written as the JAX package's
+    .int8.msgpack and as the port's .int8.pt of the same int8 model."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.config import (DEFAULT_MEAN,
+                                                       DEFAULT_STD)
+    from neuralbarkcalculator_tpu_torch.io import flax_msgpack
+    from neuralbarkcalculator_tpu_torch.models.convert import (
+        load_state_dict_into, quantized_variables_to_state_dict)
+    from neuralbarkcalculator_tpu_torch.models.fold import fold_model
+    from neuralbarkcalculator_tpu_torch.models.quantize import (
+        JAX_QCKPT_MAGIC, calibrate, quantize_variables, quantized_twin,
+        save_quantized)
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        MODEL_FACTORIES)
+
+    model = MODEL_FACTORIES["fcn_resnet50"]()
+    load_state_dict_into(model, state)
+    model = fold_model(model).to("cuda").eval()
+    batches = [torch.from_numpy(((it.image.astype(np.float32) / 255.0
+                                  - np.float32(DEFAULT_MEAN))
+                                 / np.float32(DEFAULT_STD))[None]).cuda()
+               for it in folder_items(root, range(
+                   JAX_INT8_CALIBRATION_IMAGES))]
+    stats = calibrate(model, batches)
+    folded = {k: v.detach().float().cpu()
+              for k, v in model.state_dict().items()}
+    qvars = quantize_variables(folded, stats, model.backbone.stage_sizes,
+                               "fcn")
+    twin = quantized_twin(model.cpu())
+    twin.load_state_dict(quantized_variables_to_state_dict(qvars))
+    pt = os.path.join(workdir, "jax_ckpt.int8.pt")
+    save_quantized(pt, twin, "fcn_resnet50")
+    msgpack = os.path.join(workdir, "jax_ckpt.int8.msgpack")
+    with open(msgpack, "wb") as f:
+        f.write(JAX_QCKPT_MAGIC + flax_msgpack.to_bytes(qvars))
+    return pt, msgpack
+
+
+def load_times(torch, paths: dict) -> dict:
+    """Each checkpoint form's load, LOAD_REPS times: seconds to its state
+    dict on the host, then to a new engine's model on the card (BN folded
+    for the float forms; no calibration for the int8 ones)."""
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.io import flax_msgpack
+    from neuralbarkcalculator_tpu_torch.models.convert import (
+        load_jax_checkpoint, load_torch_checkpoint,
+        quantized_variables_to_state_dict)
+    from neuralbarkcalculator_tpu_torch.models.quantize import (
+        JAX_QCKPT_MAGIC)
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    host = {
+        ".pt": lambda p: load_torch_checkpoint(p),
+        ".msgpack": lambda p: load_jax_checkpoint(p, "fcn_resnet50"),
+        ".int8.pt": lambda p: torch.load(p, map_location="cpu",
+                                         weights_only=True)["state_dict"],
+        ".int8.msgpack": lambda p: quantized_variables_to_state_dict(
+            flax_msgpack.load(p, len(JAX_QCKPT_MAGIC)))}
+    out = {}
+    for form, path in paths.items():
+        rows = []
+        for _ in range(LOAD_REPS):
+            t0 = time.perf_counter()
+            host[form](path)
+            host_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            engine = NeuralBarkCalculator(path, config=PredictConfig(
+                model_path=path), device="cuda")
+            torch.cuda.synchronize()
+            rows.append((host_s, time.perf_counter() - t0))
+            del engine
+        out[form] = {"mb": os.path.getsize(path) / 1e6,
+                     "host_s": [r[0] for r in rows],
+                     "cuda_s": [r[1] for r in rows]}
+    return out
+
+
+def phase_jax_checkpoints(torch, workdir: str, main_root: str, ckpt: str,
+                          card: str) -> dict:
+    """The JAX package's checkpoint forms through the port on the card,
+    with none of jax, flax, orbax or msgpack: the main path's weights as a
+    flax .msgpack through bark-predict-torch (CSV and masks byte for byte
+    the .pt run's), as the JAX .int8.msgpack (maps bit for bit the
+    .int8.pt's), the orbax fixture's sha256s, and the load times. Returns
+    the upsample_argmax launches of the .msgpack CLI run and of the
+    .int8.msgpack engine's pass (counts set to 0 just before each, read
+    just after)."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.io import flax_msgpack, orbax
+    from neuralbarkcalculator_tpu_torch.models.convert import (
+        load_torch_checkpoint, state_dict_to_variables)
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    bad = sorted(m for m in ("jax", "flax", "orbax", "tensorstore",
+                             "msgpack") if m in sys.modules)
+    if bad:
+        raise AssertionError(f"imported {bad}")
+    state = load_torch_checkpoint(ckpt)
+    msgpack = os.path.join(workdir, "jax_ckpt.msgpack")
+    with open(msgpack, "wb") as f:
+        f.write(flax_msgpack.to_bytes(state_dict_to_variables(state)))
+
+    roots = {}
+    seconds = {}
+    launches = {}
+    for form, path in ((".pt", ckpt), (".msgpack", msgpack)):
+        roots[form] = os.path.join(workdir, f"jax_ckpt_cli{form}")
+        copy_folder(main_root, roots[form], True)
+        counters = reset_counters()
+        seconds[form] = run_predict_cli(torch, [
+            roots[form], "--model_path", path, "--dpi", str(DPI)])
+        launches[form] = counters["upsample_argmax"].count
+    outputs = os.path.join("results", "outputs", "sapin")
+    names = sorted(os.listdir(os.path.join(roots[".pt"], outputs)))
+    csv, masks = (
+        [open(os.path.join(roots[form], "results", "final_stats.csv"),
+              "rb").read() for form in roots],
+        [[open(os.path.join(roots[form], outputs, name), "rb").read()
+          for form in roots] for name in names])
+    masks_equal = sum(a == b for a, b in masks)
+
+    int8_pt, int8_msgpack = jax_int8_files(torch, workdir, main_root, state)
+    engines = {form: NeuralBarkCalculator(path, config=PredictConfig(
+        model_path=path), device="cuda") for form, path in (
+            (".int8.pt", int8_pt), (".int8.msgpack", int8_msgpack))}
+    states = [e.model.state_dict() for e in engines.values()]
+    state_equal = sorted(states[0]) == sorted(states[1]) and all(
+        torch.equal(states[0][k], states[1][k]) for k in states[0])
+    items = folder_items(main_root, range(N_IMAGES))
+    maps = {}
+    for form, engine in engines.items():
+        counters = reset_counters()
+        maps[form] = {it.fname: m for it, m in engine.predict_images(items)}
+        launches[form] = counters["upsample_argmax"].count
+    del engines
+    int8_equal = sum(np.array_equal(maps[".int8.pt"][k],
+                                    maps[".int8.msgpack"][k])
+                     for k in maps[".int8.pt"])
+
+    with open(ORBAX_FIXTURE + ".json") as f:
+        want = json.load(f)["leaves"]
+    t0 = time.perf_counter()
+    fixture = orbax.load(ORBAX_FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    got = leaf_digests(fixture)
+    digests_equal = sum(got.get(k) == v for k, v in want.items())
+
+    times = load_times(torch, {".pt": ckpt, ".msgpack": msgpack,
+                               ".int8.pt": int8_pt,
+                               ".int8.msgpack": int8_msgpack})
+    for form, row in times.items():
+        log(f"jax checkpoints load ({card}): fcn_resnet50 {form} "
+            f"{row['mb']:.3f} MB: to a state dict on the host "
+            f"{row['host_s']} s, to the engine's model on the card "
+            f"{row['cuda_s']} s ({LOAD_REPS} loads each)")
+    log(f"jax checkpoints ({card}): bark-predict-torch on {N_IMAGES} images "
+        f"with the .pt {seconds['.pt']:.3f} s, with the .msgpack "
+        f"{seconds['.msgpack']:.3f} s; final_stats.csv equal "
+        f"{csv[0] == csv[1]}, dual masks equal {masks_equal} of "
+        f"{len(names)}; the int8 engines' state dicts equal {state_equal}, "
+        f"maps equal {int8_equal} of {len(items)}; orbax fixture read in "
+        f"{fixture_s:.4f} s, sha256 equal {digests_equal} of {len(want)}; "
+        f"upsample_argmax launches {launches}")
+    if csv[0] != csv[1] or masks_equal != len(names) or \
+            len(names) != N_IMAGES:
+        raise AssertionError("the .msgpack run's CSV or masks differ from "
+                             "the .pt run's")
+    if not state_equal or int8_equal != len(items):
+        raise AssertionError("the .int8.msgpack engine differs from the "
+                             ".int8.pt engine")
+    if digests_equal != len(want) or len(got) != len(want):
+        raise AssertionError(f"orbax fixture: {digests_equal} of "
+                             f"{len(want)} leaves match")
+    if not all(launches.values()):
+        raise AssertionError(f"upsample_argmax not launched: {launches}")
+    return {"msgpack": launches[".msgpack"],
+            "int8_msgpack": launches[".int8.msgpack"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4682,6 +4931,9 @@ def main() -> int:
                      card)
         kernel["int8_launches"] = {name: int8[name]["launches"]
                                    for name in INT8_MODELS}
+        kernel["jax_checkpoint_launches"] = timed(
+            "jax checkpoints", phase_jax_checkpoints, torch, workdir,
+            main_root, ckpt, card)
         train = timed("train", phase_train, torch, args.seed, workdir)
         ccl_row["launches"] = train["launches"]["ccl"]
         entry = timed("entry points", phase_entry_points, torch, args.seed,

@@ -15,7 +15,10 @@ sequentially. ``--resume`` skips images already processed and predicted;
 ``--watch SECS`` rescans ROOT every SECS seconds and handles only new
 images, until interrupted. ``--int8`` quantizes the model on the first
 batch (models/quantize.py); an offline int8 checkpoint as
-``--model_path`` runs int8 without it. ``--mpl`` draws the combined
+``--model_path`` runs int8 without it. ``--model_path`` takes every
+checkpoint the JAX package's predict CLI takes (a reference ``.pt``, a
+flax ``.msgpack``, an orbax directory, a JAX ``.int8.msgpack``) and the
+port's ``.int8.pt``, with no jax, flax or orbax installed. ``--mpl`` draws the combined
 figures with matplotlib Agg instead of the port's compositor, and raises
 ImportError where matplotlib is not installed.
 
@@ -47,10 +50,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--only_preprocess", action="store_true",
                         default=False)
     parser.add_argument("--model_path", type=str, default="./best_model.pt",
-                        help="reference best_model.pt (torchvision-named "
-                             "state dict; reference predict.py:57), or an "
-                             "offline int8 checkpoint (*.int8.pt, "
-                             "cli/quantize_checkpoint)")
+                        help="reference .pt, flax .msgpack, or orbax dir "
+                             "(reference predict.py:57), or an offline int8 "
+                             "checkpoint (the port's *.int8.pt or the JAX "
+                             "package's *.int8.msgpack)")
     parser.add_argument("--model", type=str, default="fcn_resnet50",
                         choices=sorted(MODEL_FACTORIES),
                         help="model zoo entry (fcn_resnet50 is the "

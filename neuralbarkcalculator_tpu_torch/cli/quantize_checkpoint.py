@@ -17,9 +17,9 @@ tree, or any folder of representative inputs); up to ``--n`` of them,
 spread across the folder, calibrate one image per batch, through the
 predict engine on ``--device`` at the engine's dtype (bf16, or float32
 with ``--float32``), which should be the dtype the checkpoint will serve
-at: the stem runs at it and the scales follow it. A JAX ``.msgpack``
-checkpoint is exported to ``.pt`` first with
-``tools/export_torch_checkpoint.py``.
+at: the stem runs at it and the scales follow it. ``--model_path`` takes
+any float checkpoint the engine loads: a reference ``.pt``, or the JAX
+package's flax ``.msgpack`` or orbax directory.
 """
 from __future__ import annotations
 
@@ -54,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
                                        "processed images (searched "
                                        "recursively)")
     parser.add_argument("--model_path", required=True,
-                        help="float .pt checkpoint to quantize")
+                        help=".pt / .msgpack / orbax checkpoint to "
+                             "quantize")
     parser.add_argument("--model", default="fcn_resnet50",
                         choices=sorted(MODEL_FACTORIES),
                         help="model zoo entry (must match the checkpoint; "

@@ -67,9 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="bark calculator inference server (PyTorch / CUDA)")
     parser.add_argument("model_path", type=str,
-                        help="reference best_model.pt (torchvision-named "
-                             "state dict), or an offline int8 checkpoint "
-                             "(*.int8.pt, cli/quantize_checkpoint)")
+                        help="reference .pt, flax .msgpack, or orbax dir, "
+                             "or an offline int8 checkpoint (the port's "
+                             "*.int8.pt or the JAX package's "
+                             "*.int8.msgpack)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="serve from the CUDA card (default; fails "

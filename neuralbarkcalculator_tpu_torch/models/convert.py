@@ -34,17 +34,22 @@ An int8 model quantized by the JAX package (``quantize_variables``'
 ``{'params'}``) comes across through ``quantized_variables_to_state_dict``
 into the port's int8 state dict (models/quantize.py).
 
-Loading flax ``.msgpack`` files or orbax directories is not part of this
-port yet: the machine with the card has neither jax nor flax.
+``load_jax_checkpoint`` reads the JAX package's float checkpoints, a flax
+``.msgpack`` file (io/flax_msgpack.py) or an orbax directory
+(io/orbax.py: the trainer's ``best_model`` export, or a per-epoch
+checkpoint, whose ``opt_state`` and ``step`` are left out as the JAX
+engine's BatchNorm fold leaves them out), without jax, flax or orbax.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ..io import flax_msgpack, orbax
 from .efficientnet import block_table
 from .segmentation import efficientnet_variant_of
 
@@ -137,7 +142,9 @@ def variables_to_state_dict(variables: Mapping,
     """JAX ``{'params', 'batch_stats'}`` (numpy or array leaves, folded or
     not) of any zoo model -> the port's state dict. Every leaf maps to
     exactly one key. An EfficientNet backbone needs ``variant``: its n, or
-    the model name (``fcn_efficientnet_b3``)."""
+    the model name (``fcn_efficientnet_b3``). float32 leaves are shared,
+    not copied: a conv kernel comes back as a permuted view of its leaf,
+    which ``load_state_dict`` copies in one strided pass."""
     if isinstance(variant, str):
         variant = efficientnet_variant_of(variant)
     blocks = (None if variant is None else
@@ -146,7 +153,8 @@ def variables_to_state_dict(variables: Mapping,
     out: dict[str, torch.Tensor] = {}
     for col in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(col, {})).items():
-            arr = np.asarray(leaf, dtype=np.float32)
+            arr = (leaf.float().numpy() if isinstance(leaf, torch.Tensor)
+                   else np.asarray(leaf, dtype=np.float32))
             if path[-1] not in _LEAF:
                 raise KeyError(f"unmapped leaf {col}/{'/'.join(path)}")
             if path[-1] == "kernel":
@@ -154,7 +162,94 @@ def variables_to_state_dict(variables: Mapping,
             key = f"{module_name(path[:-1], blocks)}.{_LEAF[path[-1]]}"
             if key in out:
                 raise KeyError(f"two leaves map to {key}")
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[key] = torch.from_numpy(arr)
+    return out
+
+
+def _invert(table: Mapping[str, str]) -> dict[str, str]:
+    return {v: k for k, v in table.items()}
+
+
+_FCN_HEAD_INV, _DEEPLAB_HEAD_INV, _ASPP_INV, _ASPP_BRANCH_INV = map(
+    _invert, (_FCN_HEAD, _DEEPLAB_HEAD, _ASPP, _ASPP_BRANCH))
+_EFF_TOP_INV, _EFF_BLOCK_INV = _invert(_EFF_TOP), _invert(_EFF_BLOCK)
+
+
+def _scope_path(module: str, deeplab: bool, blocks: list[str] | None
+                ) -> tuple[str, ...]:
+    """The port's module name -> the flax scope path (the inverse of
+    ``module_name``)."""
+    root, *rest = module.split(".")
+    name: tuple[str, ...] | None = None
+    if root == "backbone" and rest[:1] == ["model"]:  # EfficientNet
+        if len(rest) == 2 and rest[1] in _EFF_TOP_INV:
+            name = (_EFF_TOP_INV[rest[1]],)
+        elif len(rest) == 4 and rest[1] == "_blocks":
+            if blocks is None:
+                raise KeyError("EfficientNet keys need the variant (or the "
+                               "model name) to lay out the block table")
+            block = blocks[int(rest[2])]
+            if rest[3] in ("_se_reduce", "_se_expand"):
+                name = (block, "se", rest[3][4:])
+            elif rest[3] in _EFF_BLOCK_INV:
+                name = (block, _EFF_BLOCK_INV[rest[3]])
+    elif root == "backbone" and len(rest) == 1:  # stem conv1 / bn1
+        name = (rest[0],)
+    elif root == "backbone" and len(rest) >= 3 and \
+            rest[0].startswith("layer"):
+        mod = {"downsample.0": "downsample_conv",
+               "downsample.1": "downsample_bn"}.get(".".join(rest[2:]),
+                                                     rest[2])
+        name = (f"{rest[0]}_{rest[1]}", mod)
+    elif root == "classifier" and deeplab:
+        aspp = ".".join(rest[1:])
+        if rest[0] != "0":
+            name = (_DEEPLAB_HEAD_INV.get(rest[0]),)
+        elif aspp in _ASPP_INV:
+            name = ("aspp", _ASPP_INV[aspp])
+        elif len(rest) == 4 and rest[1] == "convs" and \
+                rest[2] in ("1", "2", "3"):
+            name = ("aspp", f"b{rest[2]}", _ASPP_BRANCH_INV.get(rest[3]))
+    elif root == "classifier" and len(rest) == 1:
+        name = (_FCN_HEAD_INV.get(rest[0]),)
+    if name is None or None in name:
+        raise KeyError(f"unmapped module {module}")
+    return (root, *name)
+
+
+def state_dict_to_variables(state: Mapping[str, Any],
+                            variant: int | str | None = None) -> dict:
+    """The port's state dict of any zoo model -> the JAX ``{'params',
+    'batch_stats'}`` tree of numpy arrays (the JAX package's
+    ``torch_state_dict_to_variables``; the inverse of
+    ``variables_to_state_dict``). ``num_batches_tracked`` and a reference
+    EfficientNet's unused ``_fc`` are dropped; an EfficientNet backbone
+    needs ``variant``."""
+    if isinstance(variant, str):
+        variant = efficientnet_variant_of(variant)
+    blocks = (None if variant is None else
+              [f"block{s}_{i}" for s, i in block_table(variant)])
+    deeplab = any(k.startswith("classifier.0.convs.") for k in state)
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        if key.endswith("num_batches_tracked") or \
+                key.startswith(_UNUSED_PREFIX):
+            continue
+        module, leaf = key.rsplit(".", 1)
+        arr = (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+               else np.asarray(value))
+        if leaf == "weight" and arr.ndim == 4:
+            col, name, arr = "params", "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf in ("weight", "bias"):
+            col, name = "params", {"weight": "scale"}.get(leaf, leaf)
+        elif leaf in ("running_mean", "running_var"):
+            col, name = "batch_stats", leaf[len("running_"):]
+        else:
+            raise KeyError(f"unmapped key {key}")
+        node = out[col]
+        for scope in _scope_path(module, deeplab, blocks):
+            node = node.setdefault(scope, {})
+        node[name] = arr
     return out
 
 
@@ -230,6 +325,31 @@ def load_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:
     if isinstance(state, Mapping) and "state_dict" in state:
         state = state["state_dict"]
     return {k: torch.as_tensor(v) for k, v in state.items()}
+
+
+def load_jax_checkpoint(path: str, model_name: str
+                        ) -> dict[str, torch.Tensor]:
+    """A float checkpoint of the JAX package -> the port's state dict of
+    ``model_name``, on the CPU: an orbax directory (``best_model``, or a
+    per-epoch checkpoint, of which ``params`` and ``batch_stats`` are
+    taken), else a flax ``.msgpack`` file, which must hold exactly the two
+    collections (JAX ``from_bytes`` against the model's template)."""
+    if os.path.isdir(path):
+        tree = orbax.load(path)
+    else:
+        tree = flax_msgpack.load(path)
+        if not (isinstance(tree, dict)
+                and set(tree) == {"params", "batch_stats"}):
+            found = sorted(tree) if isinstance(tree, dict) else \
+                type(tree).__name__
+            raise ValueError(f"{path}: a flax msgpack of {found}, not a "
+                             f"model's {{'params', 'batch_stats'}}")
+    if not (isinstance(tree, dict) and "params" in tree):
+        raise ValueError(f"{path}: no 'params' in the checkpoint")
+    return variables_to_state_dict(
+        {"params": tree["params"],
+         "batch_stats": tree.get("batch_stats", {})},
+        variant=efficientnet_variant_of(model_name))
 
 
 # the ImageNet classifiers of a bare backbone checkpoint: torchvision's

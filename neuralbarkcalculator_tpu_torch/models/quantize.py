@@ -23,10 +23,11 @@ runtime graph is int8 GEMM -> multiply, add -> round, clip, cast.
 - The offline int8 checkpoint is a ``torch.save`` dict ``{"format":
   "NBCQINT8", "version": 1, "model": name, "state_dict": ...}``, by
   convention ``*.int8.pt``. It loads with no BN folding and no
-  calibration. The JAX package's ``.int8.msgpack`` (its 8-byte
-  ``NBCQINT8`` tag, then a flax msgpack) is recognized and refused:
-  ``cli/quantize_checkpoint`` makes the port's file from the float
-  ``.pt`` that ``tools/export_torch_checkpoint.py`` exports.
+  calibration. The JAX package's ``.int8.msgpack`` (the 8-byte
+  ``NBCQINT8`` tag, the version byte ``\x01``, then the flax msgpack of
+  its quantized ``{'params'}``) loads through ``load_jax_quantized`` into
+  the same int8 model (io/flax_msgpack.py,
+  models/convert.quantized_variables_to_state_dict).
 
 Scope: the dilated ResNets with the FCN or DeepLabV3 head
 (``supports_quantize``). EfficientNet raises, as in JAX: its SE / swish
@@ -42,6 +43,7 @@ from typing import Iterable, Mapping, Sequence
 import numpy as np
 import torch
 
+from ..io import flax_msgpack
 from .convert import module_name, quantized_variables_to_state_dict
 from .fold import fold_model
 from .heads import DeepLabHead, QuantizedDeepLabHead
@@ -52,8 +54,9 @@ _EPS = 1e-6  # floor for calibrated scales (dead tensors / channels)
 
 QCKPT_FORMAT = "NBCQINT8"
 QCKPT_VERSION = 1
-# the JAX package's int8 checkpoint starts with this tag
+# the JAX package's int8 checkpoint: this tag, a version byte, a msgpack
 JAX_QCKPT_TAG = b"NBCQINT8"
+JAX_QCKPT_MAGIC = JAX_QCKPT_TAG + b"\x01"
 
 
 def check_quantizable(model: SegmentationModel) -> None:
@@ -303,7 +306,8 @@ def save_quantized(path: str, qmodel: QuantizedSegmentationModel,
 
 
 def is_jax_quantized_checkpoint(path: str) -> bool:
-    """True when ``path`` is the JAX package's int8 ``.msgpack``."""
+    """True when ``path`` starts with the JAX package's int8 tag (its
+    ``.int8.msgpack``; the version byte is checked on loading)."""
     if not os.path.isfile(path):
         return False
     with open(path, "rb") as f:
@@ -349,7 +353,38 @@ def load_quantized(path: str, model_name: str = "fcn_resnet50"
     return qmodel.eval()
 
 
+def load_jax_quantized(path: str, model_name: str = "fcn_resnet50"
+                       ) -> QuantizedSegmentationModel:
+    """The JAX package's offline int8 checkpoint (``save_quantized``'s
+    ``.int8.msgpack``) -> the int8 model, on the CPU, float32, eval mode,
+    as ``load_quantized`` gives it; raises for another version byte as
+    the JAX package's loader does, and for a checkpoint of another
+    ``model_name``."""
+    with open(path, "rb") as f:
+        prefix = f.read(len(JAX_QCKPT_MAGIC))
+    if prefix[:len(JAX_QCKPT_TAG)] != JAX_QCKPT_TAG:
+        raise ValueError(f"{path!r} is not an int8 checkpoint (missing "
+                         f"NBCQINT8 prefix)")
+    if prefix != JAX_QCKPT_MAGIC:
+        raise ValueError(
+            f"{path!r} is int8 checkpoint version "
+            f"{prefix[len(JAX_QCKPT_TAG):]!r}, this runtime reads "
+            f"{JAX_QCKPT_MAGIC[len(JAX_QCKPT_TAG):]!r} — re-export it with "
+            f"tools/quantize_checkpoint.py from the original f32 checkpoint")
+    tree = flax_msgpack.load(path, offset=len(JAX_QCKPT_MAGIC))
+    if not (isinstance(tree, dict) and set(tree) == {"params"}):
+        found = sorted(tree) if isinstance(tree, dict) else \
+            type(tree).__name__
+        raise ValueError(f"{path}: a flax msgpack of {found}, not a "
+                         f"quantized model's {{'params'}}")
+    with torch.device("meta"):  # the layout only: no float weights made
+        layout = MODEL_FACTORIES[model_name]()
+    qmodel = quantized_twin(layout)
+    qmodel.load_state_dict(quantized_variables_to_state_dict(tree))
+    return qmodel.eval()
+
+
 __all__ = ["QCKPT_FORMAT", "QCKPT_VERSION", "calibrate", "check_quantizable",
            "is_jax_quantized_checkpoint", "is_quantized_checkpoint",
-           "load_quantized", "quantize_model", "quantize_variables",
-           "quantized_twin", "save_quantized"]
+           "load_jax_quantized", "load_quantized", "quantize_model",
+           "quantize_variables", "quantized_twin", "save_quantized"]

@@ -60,12 +60,13 @@ import torch
 from ..config import PredictConfig
 from ..data.dataset import make_dataset
 from ..io.native import image_info, load_image_u8, remove_small_zones_host2
-from ..models.convert import load_state_dict_into, load_torch_checkpoint
+from ..models.convert import (load_jax_checkpoint, load_state_dict_into,
+                              load_torch_checkpoint)
 from ..models.fold import fold_model
 from ..models.quantize import (check_quantizable,
                                is_jax_quantized_checkpoint,
-                               is_quantized_checkpoint, load_quantized,
-                               quantize_model)
+                               is_quantized_checkpoint, load_jax_quantized,
+                               load_quantized, quantize_model)
 from ..models.resnet import row_mask
 from ..models.segmentation import MODEL_FACTORIES
 from ..ops.ccl import remove_small_zones_ragged
@@ -109,15 +110,18 @@ class NeuralBarkCalculator:
             set_float32_exact(self.device)
         self._quantize_pending = False
         self._quant_lock = threading.Lock()
-        if _load_checkpoint_kind(model_path) == "int8":
+        kind = _load_checkpoint_kind(model_path)
+        if kind in ("int8", "jax_int8"):
             # an offline int8 checkpoint: no folding, no calibration
-            self.model = load_quantized(model_path, model_name).to(
-                self.device)
+            load = load_quantized if kind == "int8" else load_jax_quantized
+            self.model = load(model_path, model_name).to(self.device)
         else:
             model = MODEL_FACTORIES[model_name]()
             if self.config.quantize_int8:
                 check_quantizable(model)  # raises for EfficientNet
-            load_state_dict_into(model, load_torch_checkpoint(model_path))
+            load_state_dict_into(model, (
+                load_torch_checkpoint(model_path) if kind == "float"
+                else load_jax_checkpoint(model_path, model_name)))
             # constant-fold eval-mode BatchNorm into the conv weights and
             # biases
             model = fold_model(model)
@@ -732,27 +736,22 @@ def _header_size(path: str) -> tuple[int, int]:
 
 
 def _load_checkpoint_kind(path: str) -> str:
-    """"int8" for the port's offline int8 checkpoint, "float" for a
-    ``.pt`` / ``.pth`` state dict; raises for a missing file and for a
-    format the port does not load."""
+    """What ``path`` holds, as the JAX engine's loaders tell it: "int8"
+    for the port's offline int8 checkpoint, "jax_int8" for the JAX
+    package's (its NBCQINT8 tag), "float" for a ``.pt`` / ``.pth`` state
+    dict, "jax_float" for an orbax directory or a flax ``.msgpack``
+    (anything else); raises for a missing path."""
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"model checkpoint not found: {path!r} (expected a reference "
-            f"best_model.pt; the predict CLI looks for ./best_model.pt by "
-            f"default, reference predict.py:57)")
+            f"best_model.pt, a flax .msgpack file, or an orbax directory; "
+            f"the predict CLI looks for ./best_model.pt by default, "
+            f"reference predict.py:57)")
     if is_jax_quantized_checkpoint(path):
-        raise NotImplementedError(
-            f"{path!r} is the JAX package's int8 checkpoint, which the port "
-            f"does not read: export the float checkpoint it was quantized "
-            f"from with tools/export_torch_checkpoint.py, then run python "
-            f"-m neuralbarkcalculator_tpu_torch.cli.quantize_checkpoint "
-            f"IMAGES --model_path MODEL.pt for the port's .int8.pt")
-    if not path.endswith((".pt", ".pth")):
-        raise NotImplementedError(
-            f"{path!r}: only .pt/.pth state dicts load in the port; export "
-            f"flax .msgpack or orbax checkpoints with "
-            f"tools/export_torch_checkpoint.py")
-    return "int8" if is_quantized_checkpoint(path) else "float"
+        return "jax_int8"
+    if path.endswith((".pt", ".pth")):
+        return "int8" if is_quantized_checkpoint(path) else "float"
+    return "jax_float"
 
 
 __all__ = ["NeuralBarkCalculator", "pack2bit"]

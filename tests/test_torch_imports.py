@@ -2,7 +2,9 @@
 
 The port imports nothing of JAX, flax or the JAX package, and neither PIL
 nor matplotlib when its modules (the tools subpackage included) are
-imported. This runs in a subprocess because the test process has already
+imported; loading the JAX package's checkpoints (a flax ``.msgpack``
+through the engine, the orbax fixture) imports none of jax, flax, orbax,
+tensorstore or msgpack. This runs in a subprocess because the test process has already
 imported jax (tests/conftest.py). Note that
 ``neuralbarkcalculator_tpu_torch`` starts with the string
 ``neuralbarkcalculator_tpu``, so the check looks for that exact key and
@@ -25,11 +27,28 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+pil = "PIL" in sys.modules
+import os, tempfile
+from neuralbarkcalculator_tpu_torch.io import flax_msgpack, orbax
+from neuralbarkcalculator_tpu_torch.models.convert import (
+    state_dict_to_variables)
+from neuralbarkcalculator_tpu_torch.models.segmentation import (
+    MODEL_FACTORIES)
+from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+    NeuralBarkCalculator)
+orbax.load(os.path.join("tests", "fixtures", "orbax_tree"))
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "best_model.msgpack")
+    with open(path, "wb") as f:
+        f.write(flax_msgpack.to_bytes(state_dict_to_variables(
+            MODEL_FACTORIES["fcn_resnet50"]().state_dict())))
+    NeuralBarkCalculator(path, device="cpu")
+roots = ("jax", "flax", "orbax", "tensorstore", "msgpack",
+         "neuralbarkcalculator_tpu")
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "flax", "neuralbarkcalculator_tpu")
-             or k.startswith(("jax.", "flax.", "neuralbarkcalculator_tpu.")))
+             if k in roots or k.startswith(tuple(r + "." for r in roots)))
 print(json.dumps({"modules": names, "bad": bad,
-                  "pil": "PIL" in sys.modules,
+                  "pil": pil,
                   "matplotlib": "matplotlib" in sys.modules}))
 """
 
@@ -58,7 +77,8 @@ def test_port_imports_no_jax():
                  "parallel.distributed", "parallel.sync_bn",
                  "pipeline.multihost", "ops.ccl", "tools",
                  "tools.bench_data", "tools.serving_bench",
-                 "tools.serving_soak", "tools.curation"):
+                 "tools.serving_soak", "tools.curation", "io.flax_msgpack",
+                 "io.orbax", "tools.export_torch_checkpoint"):
         assert f"neuralbarkcalculator_tpu_torch.{name}" in out["modules"]
 
 
@@ -190,6 +210,8 @@ def test_model_zoo_names_equal_jax():
 
 
 def test_missing_or_unported_checkpoint(tmp_path):
+    """A missing path raises; a 1-byte .msgpack (the msgpack of the int 0,
+    not a variable tree) raises a ValueError naming the file."""
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
 
@@ -197,9 +219,9 @@ def test_missing_or_unported_checkpoint(tmp_path):
         NeuralBarkCalculator(str(tmp_path / "none.pt"), device="cpu")
     msgpack = tmp_path / "m.msgpack"
     msgpack.write_bytes(b"\0")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match=r"m\.msgpack"):
         NeuralBarkCalculator(str(msgpack), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match=r"m\.msgpack"):
         NeuralBarkCalculator(str(msgpack), device="cpu",
                              model_name="fcn_resnet101")
     with pytest.raises(ValueError, match="unknown model"):

@@ -18,7 +18,8 @@ The tiny model (tests/torch_port_common.py) on the CPU. What must hold:
   the stem conv takes bf16;
 - ``--int8`` through ``cli/predict.main`` and ``cli/serve.make_server``;
   ``cli/quantize_checkpoint`` writes a file the engine and the CLI load;
-- a JAX ``.int8.msgpack`` and EfficientNet are refused with messages.
+- a malformed JAX ``.int8.msgpack`` and EfficientNet raise with messages
+  (tests/test_torch_jax_checkpoints.py loads well-formed ones).
 """
 import json
 import os
@@ -298,9 +299,10 @@ def test_refusals(ckpt, tmp_path):
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
 
+    # the JAX package's tag and version, then no flax msgpack tree
     jax_int8 = tmp_path / "m.int8.msgpack"
     jax_int8.write_bytes(b"NBCQINT8\x01" + b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="quantize_checkpoint"):
+    with pytest.raises(ValueError, match=r"m\.int8\.msgpack"):
         NeuralBarkCalculator(str(jax_int8), device="cpu")
     with pytest.raises(ValueError, match="int8"):
         NeuralBarkCalculator(

@@ -347,3 +347,63 @@ def count_leaves(tree) -> int:
     if isinstance(tree, dict):
         return sum(count_leaves(v) for v in tree.values())
     return 1
+
+
+# tests/fixtures/orbax_tree: an orbax checkpoint written by the JAX
+# package's save_variables from orbax_fixture_tree(), with each leaf's
+# shape, dtype and sha256 in tests/fixtures/orbax_tree.json
+ORBAX_FIXTURE_SEED = 13
+
+
+def orbax_fixture_tree(seed: int = ORBAX_FIXTURE_SEED) -> dict:
+    """Nested dicts of float32 and int8 leaves: the conv kernels are
+    indirect values in the OCDBT data file (over 1024 bytes compressed),
+    the small vectors inline in the B+tree leaf node."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return {
+        "params": {
+            "backbone": {"conv1": {"kernel": normal(3, 3, 8, 16)},
+                         "bn1": {"scale": normal(16), "bias": normal(16)}},
+            "head": {"conv_q": rng.integers(-127, 128, (3, 3, 16, 24),
+                                            dtype=np.int8),
+                     "conv_m": normal(24), "s_ratio": normal()}},
+        "batch_stats": {"backbone": {"bn1": {"mean": normal(16),
+                                             "var": normal(16) ** 2}}},
+    }
+
+
+def leaf_digests(tree, prefix: str = "") -> dict:
+    """{'params/backbone/conv1/kernel': {'shape', 'dtype', 'sha256'}} of
+    a tree of numpy leaves (sha256 of the C-order bytes)."""
+    import hashlib
+
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(leaf_digests(v, path))
+        else:
+            arr = np.ascontiguousarray(v)
+            out[path] = {"shape": list(arr.shape), "dtype": arr.dtype.name,
+                         "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+    return out
+
+
+def write_orbax_fixture(directory: str) -> None:
+    """Write tests/fixtures/orbax_tree (``directory``) and its JSON with the
+    JAX package's ``save_variables``."""
+    import json
+
+    from neuralbarkcalculator_tpu.train.checkpoint import save_variables
+
+    tree = orbax_fixture_tree()
+    save_variables(directory, tree)
+    with open(directory.rstrip("/") + ".json", "w") as f:
+        json.dump({"seed": ORBAX_FIXTURE_SEED,
+                   "leaves": leaf_digests(tree)}, f, indent=1,
+                  sort_keys=True)
+        f.write("\n")
