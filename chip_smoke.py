@@ -28,8 +28,9 @@ are counted against what the function launches. fused_dropout_matmul is
 also held at the main shape at a data-parallel rank's element offset (2
 x 512 x 64 x 64): against the plain versions there, its mask equal to
 rows 2-4 of the offset-0 mask, the kernels on rows 2-4 alone equal to the
-offset-0 run's rows bit for bit, and its time beside offset 0's, which it
-must match within the phase's spread.
+offset-0 run's rows bit for bit, and its time beside offset 0's: the two
+timed in turns within each round's profiler session, their medians within
+the phase's spread or 3 % of offset 0's, whichever is larger.
 
 The ccl phase, after phase 2, holds the tiled union-find kernels
 (csrc/ccl.cu) against their plain version bit for bit: label_components,
@@ -61,7 +62,20 @@ this script on the one card over the same folder and checkpoint (shard 0
 merges), against the single-process float32 engine: every artifact once,
 the merged CSV's names and order equal, the rows whose bytes differ
 counted, the dual masks >= 99.9 % equal, each shard's upsample_argmax
-launches, the wall time against phase 3's. Then the no-library predict:
+launches, the wall time against phase 3's. Then the width phase: the
+JAX mesh's model axis, the engine under a (data, model) mesh of child
+processes of this script (``--width-rank``, internal) sharing the card
+over gloo, each rank uploading its rows and its strip of the width, the
+backbone and head exchanging halos (parallel/spatial.py), the logits
+gathered to the full width for upsample_argmax: (1, 2) in float32 over
+the 16 images at batch 8, each image's dual mask >= 99.9 % the
+one-process float32 engine's and the CSV's rows in the same order; (2,
+2) in bf16 over 8 of them, >= 95 % the same float32 masks. Each rank
+prints its upsample_argmax launches (> 0), its halo exchanges and the
+bytes it received beside the bytes the model's shapes give (equal), one
+launch batch's largest logit difference from the one-process engine's
+relative to their std, and its timed pass beside one process's warm
+pass. Then the no-library predict:
 cli/predict --float32 --preprocess_backend host over the same folder in
 a child process of this script (``--no-native-predict``, internal) that
 makes the native runtime's build fail before anything loads it: PIL
@@ -276,6 +290,16 @@ FDM_TIMING_ROUNDS = 3
 # A data-parallel rank's rows of the main shape's batch: rows 2-4 of 5, at
 # the mask's element offset of row 2.
 FDM_OFFSET_ROWS = 2
+# The offset's cost is one 64-bit add a lane. Offset 0 and the offset are
+# timed in turns, FDM_OFFSET_TURNS times each in each round's profiler
+# session, and their medians over rounds and turns may differ by the
+# phase's spread or FDM_OFFSET_SHARE of offset 0's median, whichever is
+# larger. Compared once a round against the spread alone, one run on an
+# H100 failed: the backward read 0.0355 ms at the offset against 0.0353 at
+# offset 0, beside a spread of 0.0002 ms; the next run of the same files
+# passed. 3 % is ~0.001 ms of the backward, well under a real cost.
+FDM_OFFSET_TURNS = 3
+FDM_OFFSET_SHARE = 0.03
 # Idle time at each end of a device_times window: one run's middle round
 # read the forward 11 % low and the backward 6 % high beside two steady
 # rounds, as events crossing windows would; at 5 ms a run failed three
@@ -376,6 +400,13 @@ SERVE_BATCH = 8
 # single process's on at least the float32 reference check's floor.
 SHARDS = 2
 SHARD_AGREE_FLOOR = 0.999
+# The width phase: (n_data, n_model, dtype, images) of each mesh over the
+# main path's folder, and the bf16 run's floor against the one-process
+# float32 masks over its images (phase_reference's bf16 bound); the
+# float32 run is held to F32_AGREE_FLOOR an image, the scoped float32
+# invariant (cuDNN may take other algorithms for a strip's width).
+WIDTH_RUNS = ((1, 2, "float32", N_IMAGES), (2, 2, "bf16", 8))
+WIDTH_BF16_FLOOR = 0.95
 # The two-rank phase: cli/train at global batch 10 (each of 2 ranks the
 # main path's 5), samples factor 2: 24 * 2 // 10 = 4 steps. Its first step
 # starts from equal weights and is held to the one-process step: the loss
@@ -1121,17 +1152,30 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
                 fused_dropout_matmul_plain(h, w, bias, dseed, rate),
             lambda h=h, w=w, g=g, dseed=dseed:
                 fused_dropout_matmul_backward_plain(h, w, g, dseed, rate)]
-    # the main shape's kernels at a data-parallel rank's element offset
+    # the main shape's kernels at offset 0 and at a data-parallel rank's
+    # element offset, in turns: forward 0, forward at the offset, backward
+    # 0, backward at the offset
     h, w, bias, g, dseed = cases[0][1]
     k_ = FDM_SHAPE[3]
-    fns += [lambda h=h, w=w, bias=bias, dseed=dseed:
-            fused_dropout_matmul_forward(h, w, bias, dseed, rate, offset),
-            lambda h=h, w=w, g=g, dseed=dseed:
-            fused_dropout_matmul_backward(h, w, g, dseed, rate, offset)]
-    expect += [{f"fdm_forward_kernel<{k_}>": 1},
-               {f"fdm_backward_kernel<{k_}>": 1,
-                "fdm_backward_reduce_kernel": 1}]
     at_offset = 4 * len(cases)
+    for _ in range(FDM_OFFSET_TURNS):
+        for at in (0, offset):
+            fns.append(lambda h=h, w=w, bias=bias, dseed=dseed, at=at:
+                       fused_dropout_matmul_forward(h, w, bias, dseed, rate,
+                                                    at))
+            expect.append({f"fdm_forward_kernel<{k_}>": 1})
+        for at in (0, offset):
+            fns.append(lambda h=h, w=w, g=g, dseed=dseed, at=at:
+                       fused_dropout_matmul_backward(h, w, g, dseed, rate,
+                                                     at))
+            expect.append({f"fdm_backward_kernel<{k_}>": 1,
+                           "fdm_backward_reduce_kernel": 1})
+
+    def turn_columns(j: int) -> list[int]:
+        """Column j of each turn: 0 forward at 0, 1 forward at the
+        offset, 2 backward at 0, 3 backward at the offset."""
+        return [at_offset + 4 * t + j for t in range(FDM_OFFSET_TURNS)]
+
     h_copy = torch.empty_like(h)
     fns += [h.sum, lambda: h_copy.copy_(h)]
     expect += [None, None]
@@ -1150,8 +1194,13 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
             + ", ".join(f"{rounds[-1][4 * i]:.4f} / "
                         f"{rounds[-1][4 * i + 1]:.4f}"
                         for i in range(1, len(cases)))
-            + f"; main shape at element offset {offset} forward / backward "
-            f"{rounds[-1][at_offset]:.4f} / {rounds[-1][at_offset + 1]:.4f}"
+            + f"; main shape in turns, forward at 0 / at element offset "
+            f"{offset} " + ", ".join(
+                f"{rounds[-1][c]:.4f} / {rounds[-1][c + 1]:.4f}"
+                for c in turn_columns(0))
+            + "; backward " + ", ".join(
+                f"{rounds[-1][c]:.4f} / {rounds[-1][c + 1]:.4f}"
+                for c in turn_columns(2))
             + f"; h summed {rounds[-1][len(fns) - 2]:.4f}, h copied "
             f"{rounds[-1][len(fns) - 1]:.4f}; clocks.sm, clocks.mem, "
             f"power.draw after it: {card_clocks()}")
@@ -1170,26 +1219,35 @@ def phase_fdm_kernel(torch, seed: int) -> list[dict]:
                 f"{k} {statistics.median(p[i].get(k, 0.0) for p in parts):.4f}"
                 for k in kernels))
 
-    # the offset's cost: one 64-bit add to each lane's first counter. The
-    # kernel at the offset must time as at offset 0 within the phase's
+    # the offset's cost (FDM_OFFSET_TURNS): the medians of the turns at
+    # offset 0 and at the offset, over every round, within the phase's
     # spread (the largest max - min over the rounds of any of the port's
-    # kernels timed here)
+    # kernels timed here) or FDM_OFFSET_SHARE of offset 0's median
     kernel_cols = [4 * i + j for i in range(len(cases)) for j in (0, 1)]
-    kernel_cols += [at_offset, at_offset + 1]
+    kernel_cols += [c for j in range(4) for c in turn_columns(j)]
     spread = max(max(r[c] for r in rounds) - min(r[c] for r in rounds)
                  for c in kernel_cols)
-    offset_ms = (med[at_offset], med[at_offset + 1])
+
+    def turn_median(j: int) -> float:
+        return statistics.median(r[c] for r in rounds
+                                 for c in turn_columns(j))
+
+    offset_ms = (turn_median(1), turn_median(3))
     for j, direction in enumerate(("forward", "backward")):
-        diff = abs(offset_ms[j] - med[j])
-        log(f"fused_dropout_matmul {direction} at the main shape: "
-            f"{med[j]:.4f} ms at offset 0, {offset_ms[j]:.4f} ms at element "
-            f"offset {offset} (difference {diff:.4f} ms; the phase's spread "
-            f"{spread:.4f} ms)")
-        if diff > spread:
+        base = turn_median(2 * j)
+        diff = abs(offset_ms[j] - base)
+        bound = max(spread, FDM_OFFSET_SHARE * base)
+        log(f"fused_dropout_matmul {direction} at the main shape, in turns: "
+            f"{base:.4f} ms at offset 0, {offset_ms[j]:.4f} ms at element "
+            f"offset {offset} (medians of {FDM_OFFSET_TURNS} turns x "
+            f"{FDM_TIMING_ROUNDS} rounds; difference {diff:.4f} ms, allowed "
+            f"{bound:.4f}: the phase's spread {spread:.4f} ms or "
+            f"{FDM_OFFSET_SHARE:.0%} of offset 0's)")
+        if diff > bound:
             raise AssertionError(f"fused_dropout_matmul {direction}: the "
                                  f"kernel at an element offset times "
                                  f"{diff:.4f} ms away from offset 0, beyond "
-                                 f"the phase's spread {spread:.4f} ms")
+                                 f"{bound:.4f} ms")
     int_est = integer_pipe_ms(torch, FDM_SHAPE[3], h.numel())
     rows = []
     for i, (shape, (h, w, _, _, _), first) in enumerate(cases):
@@ -2231,6 +2289,223 @@ def phase_sharded_predict(torch, workdir: str, main_root: str, ckpt: str,
                              f"{[sh['launches'] for sh in shards]}")
     return {"launches": launches, "single_s": single_s,
             "single_postprocess_s": post_s, "single_root": single_root}
+
+
+def expected_halo_bytes(model, rows: int, pad_h: int, n_model: int,
+                        rank: int, elem: int) -> int:
+    """The halo bytes model rank ``rank`` of ``n_model`` receives from its
+    neighbours in one launch of ``rows`` images at ``pad_h``, worked out
+    from the dilated ResNet's and FCN head's shapes alone: the max pool's
+    (1, 0) columns on the stem's 64 channels, each block's conv2, the
+    head's 3x3 (the stem's halo comes with the input)."""
+    def received(kernel, stride, dilation, padding, channels, height):
+        left = padding
+        right = dilation * (kernel - 1) - padding - stride + 1
+        cols = (left if rank > 0 else 0) + (right if rank < n_model - 1
+                                            else 0)
+        return elem * rows * channels * height * cols
+
+    total = received(3, 2, 1, 1, 64, pad_h // 2)
+    height = pad_h // 4
+    for stage in range(4):
+        for block in getattr(model.backbone, f"layer{stage + 1}"):
+            c = block.conv2
+            total += received(3, c.stride[1], c.dilation[1], c.padding[1],
+                              c.in_channels, height)
+            height //= c.stride[0]
+    return total + received(3, 1, 1, 1, model.classifier[0].in_channels,
+                            height)
+
+
+def width_rank_child(torch, argv: list[str]) -> dict:
+    """The width phase's child (``--width-rank RANK N_DATA N_MODEL PORT
+    ROOT CKPT DTYPE``): rank RANK of an N_DATA x N_MODEL mesh over gloo on
+    the one card, the folder engine under the mesh over ROOT (a warm-up
+    pass, then a timed pass with every launch count and the halo counter
+    set to 0 just before it and read just after); then one launch batch's
+    head logits under the mesh against a one-process engine's."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.parallel.distributed import (
+        initialize_distributed, make_mesh, shutdown_distributed)
+    from neuralbarkcalculator_tpu_torch.parallel.spatial import (
+        EXCHANGES, stem_columns)
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    rank, n_data, n_model, port = (int(a) for a in argv[:4])
+    root, ckpt, dtype = argv[4:7]
+    os.environ.update(torchrun_env(rank, n_data * n_model, port))
+    world = initialize_distributed(backend="gloo")
+    try:
+        mesh = make_mesh(n_data, n_model, world)
+        config = PredictConfig(model_path=ckpt, figure_dpi=DPI,
+                               use_bfloat16=dtype == "bf16")
+        engine = NeuralBarkCalculator(ckpt, config=config, mesh=mesh)
+        engine.predict(root, progress=False)  # warm-up: cuDNN's plans
+        world.barrier()
+        counters = reset_counters()
+        EXCHANGES.reset()
+        t0 = time.perf_counter()
+        csv = engine.predict(root, progress=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: c.count for name, c in counters.items()}
+        exchanges, halo_bytes = EXCHANGES.count, EXCHANGES.bytes
+        n = len(os.listdir(os.path.join(root, "processed", "samples",
+                                        "sapin")))
+        chunks = engine._plan_chunks(
+            [(i, FOLDER_HEIGHTS[i % len(FOLDER_HEIGHTS)], WIDTH)
+             for i in range(n)])
+        elem = 2 if dtype == "bf16" else 4
+        expected = sum(expected_halo_bytes(
+            engine.model, engine._padded_batch(len(idxs)) // n_data, pad_h,
+            n_model, mesh.model_rank, elem) for pad_h, idxs in chunks)
+
+        # one launch batch of BATCH images at PAD_H: this rank's rows and
+        # strip under the mesh, against the one-process engine's logits of
+        # the same rows
+        items = folder_items(root, range(BATCH))
+        full = engine._pad_group(items, PAD_H, BATCH)
+        heights = np.array([it.image.shape[0] for it in items], np.int32)
+        rows = mesh.data.rank_slice(BATCH)
+        vh = torch.from_numpy(heights[rows]).to(engine.device)
+        strip = np.ascontiguousarray(
+            full[rows][:, :, stem_columns(WIDTH, mesh.model)])
+        single = NeuralBarkCalculator(ckpt, config=config)
+        with torch.inference_mode():
+            got = engine._logits(torch.from_numpy(strip).to(engine.device),
+                                 vh)
+            want = single._logits(torch.from_numpy(np.ascontiguousarray(
+                full[rows])).to(engine.device), vh)
+        world.barrier()
+    finally:
+        shutdown_distributed()
+    return {"rank": rank, "mesh": [mesh.data_rank, mesh.model_rank],
+            "csv": csv, "seconds": seconds, "launches": launches,
+            "exchanges": exchanges, "halo_bytes": halo_bytes,
+            "halo_bytes_expected": expected,
+            "logit_err": float((got - want).abs().max()),
+            "logit_std": float(want.std()),
+            "launch_shapes": engine.cache_stats()["launch_shapes"]}
+
+
+def phase_width_partition(torch, workdir: str, main_root: str, ckpt: str,
+                          sharded: dict, main_seconds: float, card: str
+                          ) -> dict:
+    """Width partitioning on the card (WIDTH_RUNS): each mesh's ranks as
+    child processes of this script (``--width-rank``) sharing the one
+    card over gloo, over a copy of the main path's folder (its first
+    `images` images). Held: every rank exits 0 and launches
+    upsample_argmax; each rank's halo bytes equal the shapes' count; grid
+    rank 0 writes the CSV with the one-process float32 run's names in its
+    order and every artifact, and the dual masks agree with that run's on
+    at least F32_AGREE_FLOOR of each image's pixels (float32) or
+    WIDTH_BF16_FLOOR of all pixels (bf16). No speed is claimed: the ranks
+    share one card and gloo goes through the host. Returns each run's
+    upsample_argmax launches by rank."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+
+    single_root = sharded["single_root"]
+    with open(os.path.join(single_root, "results", "final_stats.csv")) as f:
+        single_rows = f.read().splitlines()
+    out = {}
+    for n_data, n_model, dtype, n_images in WIDTH_RUNS:
+        label = f"({n_data}, {n_model}) {dtype}"
+        root = os.path.join(workdir, f"width_{n_data}x{n_model}_{dtype}")
+        copy_folder(main_root, root, False)
+        for i in range(n_images, N_IMAGES):
+            os.remove(os.path.join(root, "processed", "samples", "sapin",
+                                   f"img{i:02d}.png"))
+        port = free_port()
+        size = n_data * n_model
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--width-rank",
+             str(rank), str(n_data), str(n_model), str(port), root, ckpt,
+             dtype], cwd=REPO, env={**os.environ,
+                                    **torchrun_env(rank, size, port)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for rank in range(size)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for rank, (p, (stdout, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"width {label}: rank {rank} exited "
+                                   f"{p.returncode}: {err[-3000:]}")
+            ranks.append(json.loads(stdout.strip().splitlines()[-1]))
+        for r in ranks:
+            log(f"width {label} rank {r['rank']} (data, model) {r['mesh']}: "
+                f"upsample_argmax launches {r['launches']['upsample_argmax']} "
+                f"(all {r['launches']}); {r['exchanges']} halo exchanges, "
+                f"{r['halo_bytes']} bytes received, the shapes give "
+                f"{r['halo_bytes_expected']}; one launch batch's logits vs "
+                f"one process: max abs diff {r['logit_err']:.6g}, "
+                f"{r['logit_err'] / r['logit_std']:.6g} of their std "
+                f"{r['logit_std']:.6g}; timed pass {r['seconds']:.3f} s; "
+                f"launch shapes {r['launch_shapes']}")
+        results = os.path.join(root, "results")
+        with open(os.path.join(results, "final_stats.csv")) as f:
+            got_rows = f.read().splitlines()
+        want_rows = single_rows[:1 + n_images]
+        same_names = ([r.split("\t")[:2] for r in got_rows]
+                      == [r.split("\t")[:2] for r in want_rows])
+        differ = sum(a != b for a, b in zip(got_rows, want_rows))
+        floor = F32_AGREE_FLOOR if dtype == "float32" else WIDTH_BF16_FLOOR
+        least, agree, total = 1.0, 0, 0
+        for row in want_rows[1:]:
+            fname, wood = row.split("\t")[:2]
+            for sub in ("combined_images", "outputs"):
+                if not os.path.isfile(os.path.join(results, sub, wood,
+                                                   fname)):
+                    raise AssertionError(f"width {label}: missing "
+                                         f"{sub}/{fname}")
+            a = load_image_u8(os.path.join(results, "outputs", wood, fname),
+                              grayscale=True)
+            b = load_image_u8(os.path.join(single_root, "results",
+                                           "outputs", wood, fname),
+                              grayscale=True)
+            same = int((a == b).sum())
+            least = min(least, same / b.size)
+            agree += same
+            total += b.size
+        log(f"width {label} ({card}): {size} processes on one card over "
+            f"gloo, {n_images} images: wall {wall:.3f} s from launch to "
+            f"every exit (process start, model load and a warm-up pass "
+            f"included); timed passes "
+            f"{[round(r['seconds'], 3) for r in ranks]} s against one "
+            f"process's warm pass of the {N_IMAGES} images, float32 "
+            f"{sharded['single_s']:.3f} s and bf16 {main_seconds:.3f} s; "
+            f"CSV {len(got_rows) - 1} rows, names and order equal "
+            f"{same_names}, {differ} rows differ in bytes; dual masks agree "
+            f"on {agree / total:.6f} of pixels against the one-process "
+            f"float32 engine, least image {least:.6f} (floor {floor} "
+            f"{'an image' if dtype == 'float32' else 'over the images'})")
+        if not same_names:
+            raise AssertionError(f"width {label}: the CSV's rows differ "
+                                 f"from the one process's")
+        held = least if dtype == "float32" else agree / total
+        if held < floor:
+            raise AssertionError(f"width {label}: masks agree on "
+                                 f"{held:.6f} < {floor}")
+        for r in ranks:
+            if r["launches"]["upsample_argmax"] == 0 \
+                    or r["halo_bytes"] != r["halo_bytes_expected"] \
+                    or (r["csv"] is None) != (r["rank"] != 0):
+                raise AssertionError(f"width {label} rank {r['rank']}: "
+                                     f"launches, halo bytes or CSV: {r}")
+        out[label] = [r["launches"]["upsample_argmax"] for r in ranks]
+    return out
 
 
 def postprocess_seconds(stages: dict) -> float:
@@ -4840,6 +5115,10 @@ def main() -> int:
     parser.add_argument("--entrypoint", dest="entrypoint",
                         nargs=argparse.REMAINDER, default=None,
                         help=argparse.SUPPRESS)  # an entry-points child
+    parser.add_argument("--width-rank", dest="width_rank", nargs=7,
+                        metavar=("RANK", "N_DATA", "N_MODEL", "PORT", "ROOT",
+                                 "CKPT", "DTYPE"), default=None,
+                        help=argparse.SUPPRESS)  # a width-phase child
     parser.add_argument("--train-rank", dest="train_rank", nargs=4,
                         metavar=("RANK", "PORT", "WORKDIR", "SEED"),
                         default=None,
@@ -4869,6 +5148,10 @@ def main() -> int:
         return 0
     if args.entrypoint:
         print(json.dumps(entrypoint_child(torch, args.entrypoint)),
+              flush=True)
+        return 0
+    if args.width_rank:
+        print(json.dumps(width_rank_child(torch, args.width_rank)),
               flush=True)
         return 0
     if args.train_rank:
@@ -4908,6 +5191,9 @@ def main() -> int:
             "sharded predict", phase_sharded_predict, torch, workdir,
             main_root, ckpt, main_seconds, card)
         kernel["shard_launches"] = sharded["launches"]
+        kernel["width_launches"] = timed(
+            "width partition", phase_width_partition, torch, workdir,
+            main_root, ckpt, sharded, main_seconds, card)
         ccl_row["no_native_launches"] = timed(
             "no-library predict", phase_no_native_predict, torch, workdir,
             main_root, ckpt, sharded, card)

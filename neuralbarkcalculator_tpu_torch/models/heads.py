@@ -26,10 +26,14 @@ In train mode with ``dropout > 0``, the FCN head's ``classifier.3`` +
 ``ops/fused_dropout_matmul``, on the 1x1 conv's own weight and bias; the
 step's ``dropout_seed`` keys its mask; in a data-parallel run the rank's
 element offset in the global batch places its mask (models/seeding.py).
-Eval mode, and dropout 0, run the modules one by one. In train mode the
-DeepLab head's BatchNorms use batch statistics and update their running
-ones, and the ASPP's Dropout(0.5) is an inverted dropout drawn from the
-step's head generator (models/seeding.py).
+Eval mode, and dropout 0, run the modules one by one; there the FCN
+head's 3x3 conv takes a halo of 1 column from each neighbour when a
+model group splits the width (``width``, parallel/spatial.py). The
+DeepLab head does not split the width: its atrous rates need halos of
+up to 36 columns and its pooled branch a sum over the whole width. In
+train mode the DeepLab head's BatchNorms use batch statistics and update
+their running ones, and the ASPP's Dropout(0.5) is an inverted dropout
+drawn from the step's head generator (models/seeding.py).
 """
 from __future__ import annotations
 
@@ -40,6 +44,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fused_dropout_matmul import fused_dropout_matmul
+from ..parallel.distributed import World
+from ..parallel.spatial import conv2d_w
 from .qops import QConv, mask_rows, quantize_act
 from .resnet import BN_EPS, apply_row_mask
 from .seeding import HEAD_STREAM, inverted_dropout, layer_generator
@@ -54,6 +60,7 @@ def _norm(channels: int, folded: bool) -> nn.Module:
 
 class FCNHead(nn.Sequential):
     supports_quantize = True  # an int8 twin (QuantizedFCNHead)
+    supports_width = True  # its 3x3 conv takes a halo in eval mode
 
     def __init__(self, in_channels: int, channels: int,
                  dropout: float = 0.1, folded: bool = False):
@@ -81,11 +88,14 @@ class FCNHead(nn.Sequential):
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 dropout_seed: int | None = None,
-                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
-        """``shard``: (rank, size) of a data-parallel batch."""
+                shard: tuple[int, int] = (0, 1),
+                width: World | None = None) -> torch.Tensor:
+        """``shard``: (rank, size) of a data-parallel batch; ``width``:
+        the model group that splits the width in eval mode, or None."""
         x = apply_row_mask(x, valid_h)
         if not (self.training and self.dropout > 0):
-            for layer in self:
+            x = conv2d_w(self[0], x, width)
+            for layer in list(self)[1:]:
                 x = layer(x)
             return x
         if dropout_seed is None:

@@ -23,6 +23,13 @@ gives at the true bottom edge. 1x1 convs, BN and ReLU are pointwise, so
 the rows they make past ``valid_h`` are cleaned at the next masked op.
 Per-stage valid heights follow ``conv_out_size``.
 
+Width partitioning (``width``, the model group of a mesh, JAX's ``model``
+axis): each rank holds a strip of the width. The stem, the max pool and
+each block's ``conv2`` run through parallel/spatial.py's halo exchange;
+the 1x1 convs, the strided 1x1 downsample included, run on the strip as
+they are. Rows are not split, so the row masks do not change. The int8
+twins do not split the width.
+
 ``QuantizedResNet`` / ``QuantizedBottleneck`` are the int8 inference
 twins (JAX ``resnet.py`` with ``quantized=True``; models/quantize.py
 builds them): NHWC from the stem to the features, every conv but the
@@ -37,6 +44,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.distributed import World
+from ..parallel.spatial import conv2d_rows, conv2d_w, is_split, max_pool2d_w
 from .qops import QConv, mask_rows, quantize_act
 
 BN_EPS = 1e-5  # torchvision BatchNorm2d default
@@ -90,13 +99,15 @@ class Bottleneck(nn.Module):
                 nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=bias),
                 _norm(planes * 4, folded))
 
-    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
+                width: World | None = None) -> torch.Tensor:
+        """``width``: the model group that splits the width, or None."""
         identity = x
         out = F.relu(self.bn1(self.conv1(x)))
-        # conv2 is the only row-mixing op in the block
+        # conv2 is the only row-mixing op in the block, and the only one
+        # that reads across a strip's edge
         out = apply_row_mask(out, valid_h)
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = F.relu(self.bn2(conv2d_w(self.conv2, out, width)))
         out = self.bn3(self.conv3(out))
         if self.downsample is not None:
             identity = self.downsample(x)
@@ -147,12 +158,13 @@ class _ResNetLayers(nn.Module):
             stride *= s
         return stride
 
-    def _blocks(self, x: torch.Tensor, h) -> torch.Tensor:
+    def _blocks(self, x: torch.Tensor, h, **block_kwargs) -> torch.Tensor:
         """Every block in order; ``h`` the valid rows after the max pool
-        (or None), updated at each stage's strided conv."""
+        (or None), updated at each stage's strided conv; ``block_kwargs``
+        passed on to each block."""
         for stage, stride in enumerate(self._strides):
             for i, block in enumerate(getattr(self, f"layer{stage + 1}")):
-                x = block(x, valid_h=h)
+                x = block(x, valid_h=h, **block_kwargs)
                 if i == 0 and h is not None and stride != 1:
                     h = conv_out_size(h, 3, stride, 1)
         return x
@@ -173,6 +185,7 @@ class DilatedResNet(_ResNetLayers):
     layer4 feature map."""
 
     supports_quantize = True  # an int8 twin (QuantizedResNet)
+    supports_width = True  # halo exchanges split the width
     bn_eps = BN_EPS
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
@@ -201,19 +214,27 @@ class DilatedResNet(_ResNetLayers):
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 dropout_seed: int | None = None,
-                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+                shard: tuple[int, int] = (0, 1),
+                width: World | None = None) -> torch.Tensor:
         """NCHW input (zero below valid_h) -> NCHW layer4 features. The
         ResNet has no random layer: ``dropout_seed`` and ``shard`` are
-        taken, as every backbone takes them, and ignored."""
-        x = F.relu(self.bn1(self.conv1(x)))
+        taken, as every backbone takes them, and ignored. ``width``: the
+        model group that splits the width; then ``x`` is this rank's
+        strip with the stem's halo (parallel/spatial.STEM_HALO columns,
+        zero past the image's edges) and the features are its strip."""
+        if is_split(width):
+            x = conv2d_rows(self.conv1, x)
+        else:
+            x = self.conv1(x)
+        x = F.relu(self.bn1(x))
         h = None if valid_h is None else conv_out_size(valid_h, 7, 2, 3)
         # masked zeros equal max_pool2d's -inf padding here because the
-        # pool's input is post-ReLU (>= 0)
+        # pool's input is post-ReLU (>= 0); so do a strip's edge zeros
         x = apply_row_mask(x, h)
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = max_pool2d_w(x, width)
         if h is not None:
             h = conv_out_size(h, 3, 2, 1)
-        return self._blocks(x, h)
+        return self._blocks(x, h, width=width)
 
 
 class QuantizedBottleneck(nn.Module):

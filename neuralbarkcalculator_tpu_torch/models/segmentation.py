@@ -15,6 +15,14 @@ the reference's zoo:
 
 ``QuantizedSegmentationModel`` is the int8 model of the ResNet factories
 (models/quantize.py).
+
+Width partitioning (``width``, the model group of a mesh; JAX's
+``model`` axis): ``head_logits`` runs the backbone and head on this
+rank's strip of the width (parallel/spatial.py) and gathers the logits
+to the full width, as JAX's ``shard_map`` gathers them for
+``upsample_argmax`` (JAX pipeline/predict.py:870-882). Inference only,
+and only the dilated ResNets with the FCN head: ``check_width_split``
+refuses the rest.
 """
 from __future__ import annotations
 
@@ -27,9 +35,26 @@ import torch.nn as nn
 
 from ..config import NUM_CLASSES
 from ..ops.resize import bicubic_resize_matrix, bicubic_upsample_ragged
+from ..parallel.distributed import World
+from ..parallel.spatial import STEM_HALO, gather_width, is_split
 from .efficientnet import SCALING, EfficientNetBackbone
 from .heads import DeepLabHead, FCNHead
 from .resnet import resnet101_dilated, resnet50_dilated
+
+
+def check_width_split(model: nn.Module) -> None:
+    """Raise ``ValueError`` unless ``model``'s backbone and head can split
+    the width: the DeepLab head (halos of up to 36 columns, a pooled
+    branch over the whole width), EfficientNet (squeeze-excite pools over
+    the whole width; TF-SAME pads asymmetrically) and the int8 twins
+    cannot yet."""
+    for label, part in (("backbone", model.backbone),
+                        ("head", model.classifier)):
+        if not getattr(part, "supports_width", False):
+            raise ValueError(
+                f"width partitioning: the {label} {type(part).__name__} "
+                f"cannot split the width (supported: the dilated ResNets "
+                f"with the FCN head, in float)")
 
 
 class SegmentationModel(nn.Module):
@@ -52,13 +77,24 @@ class SegmentationModel(nn.Module):
     def head_logits(self, x: torch.Tensor,
                     valid_h: torch.Tensor | None = None,
                     dropout_seed: int | None = None,
-                    shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+                    shard: tuple[int, int] = (0, 1),
+                    width: World | None = None) -> torch.Tensor:
         """NHWC images [B, H, W, 3] -> float32 head logits at the feature
         stride, NHWC [B, F, Wf, classes], without the upsample.
         ``dropout_seed`` keys every random layer in train mode: the head's
         dropout and a backbone's stochastic depth (models/seeding.py);
         ``shard``, (rank, size), places a data-parallel rank's rows in the
-        global batch's draws."""
+        global batch's draws. ``width``: the model group that splits the
+        width; then ``x`` is this rank's strip with the stem's halo
+        (models/resnet.py), and the logits are the full width's."""
+        split = is_split(width)
+        if split:
+            if self.training:
+                raise ValueError("width partitioning is inference-only (the "
+                                 "JAX package never splits a training "
+                                 "step's width)")
+            check_width_split(self)
+        width_kw = {"width": width} if split else {}
         x = x.permute(0, 3, 1, 2)
         if self.training:
             if self.backbone.folded or self.classifier.folded:
@@ -67,15 +103,18 @@ class SegmentationModel(nn.Module):
             # head's activations reach fused_dropout_matmul without a copy
             x = x.contiguous()
         if valid_h is None:
-            feat = self.backbone(x, dropout_seed=dropout_seed, shard=shard)
+            feat = self.backbone(x, dropout_seed=dropout_seed, shard=shard,
+                                 **width_kw)
             feat_h = None
         else:
             # raises for a backbone without ragged support
             feat_h = self.backbone.valid_feature_height(valid_h)
-            feat = self.backbone(x, valid_h=valid_h)
+            feat = self.backbone(x, valid_h=valid_h, **width_kw)
         logits = self.classifier(feat, valid_h=feat_h,
                                  dropout_seed=dropout_seed,
-                                 shard=shard).float()
+                                 shard=shard, **width_kw).float()
+        if split:
+            logits = gather_width(logits, width)
         out = logits.permute(0, 2, 3, 1)
         if logits.is_contiguous(memory_format=torch.channels_last):
             # a channels_last [B, C, F, Wf] viewed as NHWC is contiguous
@@ -86,12 +125,16 @@ class SegmentationModel(nn.Module):
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 row_upsample: torch.Tensor | None = None,
                 dropout_seed: int | None = None,
-                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+                shard: tuple[int, int] = (0, 1),
+                width: World | None = None) -> torch.Tensor:
         """NHWC images -> NHWC float32 logits at the input resolution. The
         upsample runs in float32 also under autocast (the loss and the
-        metrics take float32 logits)."""
+        metrics take float32 logits). ``width``: as ``head_logits``; the
+        logits are the full width's."""
         in_h, in_w = x.shape[1], x.shape[2]
-        logits = self.head_logits(x, valid_h, dropout_seed, shard)
+        if is_split(width):
+            in_w = (in_w - sum(STEM_HALO)) * width.size
+        logits = self.head_logits(x, valid_h, dropout_seed, shard, width)
         if row_upsample is None:
             rows = torch.as_tensor(
                 bicubic_resize_matrix(logits.shape[1], in_h).astype(
@@ -112,9 +155,12 @@ class QuantizedSegmentationModel(SegmentationModel):
     def head_logits(self, x: torch.Tensor,
                     valid_h: torch.Tensor | None = None,
                     dropout_seed: int | None = None,
-                    shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+                    shard: tuple[int, int] = (0, 1),
+                    width: World | None = None) -> torch.Tensor:
         if self.training:
             raise ValueError("an int8 model is inference-only")
+        if is_split(width):
+            check_width_split(self)  # raises: no int8 twin splits it
         feat_h = (None if valid_h is None
                   else self.backbone.valid_feature_height(valid_h))
         return self.classifier(self.backbone(x, valid_h), feat_h)

@@ -28,8 +28,11 @@ same code path, as the JAX package's 1x1 mesh does. With a group, even
 of size 1, every collective goes to torch.distributed: NCCL on a card,
 gloo on the CPU.
 
-Folder prediction needs none of this: its shards are independent
-processes that meet only on the filesystem (pipeline/multihost.py).
+Folder prediction runs on a ``Mesh`` (``make_mesh``), the JAX mesh's
+``(data, model)`` grid of processes: the launch batch's rows split over
+``data`` and the image width over ``model`` (parallel/spatial.py,
+pipeline/predict.py). Its ``--shard K/N`` processes are another thing:
+independent, they meet only on the filesystem (pipeline/multihost.py).
 """
 from __future__ import annotations
 
@@ -157,6 +160,80 @@ class World:
 def single_process(device: str | torch.device = "cpu") -> World:
     """The world of a single process: rank 0 of 1, no collectives."""
     return World(0, 1, torch.device(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in a ``(data, model)`` grid of processes (JAX
+    parallel/mesh.py's ``make_mesh`` and ``ShardingRules``): the whole
+    ``world``, the ``data`` group (the ranks that hold the same columns of
+    other rows of a launch batch) and the ``model`` group (the ranks that
+    split the same rows' width). An axis of size 1 is a ``World`` without
+    a group, so it issues no collective."""
+
+    world: World
+    data: World
+    model: World
+
+    @property
+    def data_size(self) -> int:
+        return self.data.size
+
+    @property
+    def model_size(self) -> int:
+        return self.model.size
+
+    @property
+    def n_devices(self) -> int:
+        return self.world.size
+
+    @property
+    def data_rank(self) -> int:
+        return self.data.rank
+
+    @property
+    def model_rank(self) -> int:
+        return self.model.rank
+
+    @property
+    def is_main(self) -> bool:
+        """Grid rank 0 writes the run's files."""
+        return self.world.is_main
+
+
+def _axis(world: World, groups: list[list[int]]) -> World:
+    """This rank's group among ``groups`` (every rank builds every group,
+    in the same order, as ``dist.new_group`` requires)."""
+    if len(groups[0]) == 1:
+        return World(0, 1, world.device)
+    for ranks in groups:
+        group = dist.new_group(ranks)
+        if world.rank in ranks:
+            mine = World(ranks.index(world.rank), len(ranks), world.device,
+                         group)
+    return mine
+
+
+def make_mesh(n_data: int | None = None, n_model: int = 1,
+              world: World | None = None) -> Mesh:
+    """A ``(data, model)`` grid over ``world``'s ranks (a single process
+    when None), numbered row-major as JAX's ``np.reshape(n_data,
+    n_model)``: rank = d x n_model + m. ``n_data`` defaults to
+    ``world.size // n_model``. Every rank of the grid works: raises
+    ``ValueError`` unless n_data x n_model == world.size (JAX leaves
+    spare devices idle; here each rank is a process that must take part
+    in every collective)."""
+    world = world if world is not None else single_process()
+    if n_data is None:
+        n_data = max(1, world.size // n_model)
+    if n_data < 1 or n_model < 1 or n_data * n_model != world.size:
+        raise ValueError(f"a {n_data}x{n_model} mesh needs "
+                         f"{n_data * n_model} ranks; the world has "
+                         f"{world.size}")
+    rows = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
+    columns = [[d * n_model + m for d in range(n_data)]
+               for m in range(n_model)]
+    return Mesh(world, data=_axis(world, columns), model=_axis(world, rows))
 
 
 def local_device(device: str | torch.device = "cuda") -> torch.device:

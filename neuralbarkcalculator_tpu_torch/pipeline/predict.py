@@ -37,6 +37,21 @@ models/convert.variables_to_state_dict and saved as ``.pt``; or the
 port's offline int8 checkpoint (models/quantize.py, ``*.int8.pt``), which
 starts the engine quantized.
 
+A mesh (``mesh=``, parallel/distributed.make_mesh; JAX's ``(data,
+model)`` mesh): every rank plans the same chunks (checked by a digest
+of the plan, gathered from every rank) and reads the whole chunk from
+disk; a launch batch is padded to a multiple of the data size and each
+rank uploads its rows (``data``) and its strip of the width (``model``)
+with the stem's halo of 3 + 2 columns. The backbone and head exchange
+halos (parallel/spatial.py) and gather the logits to the full width;
+``upsample_argmax`` runs at full width on every model rank, as JAX's
+``shard_map`` runs it, and the maps are gathered over the data group.
+With more than one rank, one pump worker issues every step's
+collectives, in chunk order. Grid rank 0 alone postprocesses and writes;
+``predict`` returns None on the other ranks. ``predict_streaming``, the
+server and int8 run on one process; the model axis takes the dilated
+ResNets with the FCN head (models/segmentation.check_width_split).
+
 int8 (``PredictConfig.quantize_int8``, opt-in and approximate; JAX
 pipeline/predict.py): the first chunk's first images calibrate the folded
 model at the engine's dtype before the pump submits any chunk
@@ -46,6 +61,7 @@ requantizing epilogues, float32 logits into ``upsample_argmax``.
 """
 from __future__ import annotations
 
+import hashlib
 import itertools
 import os
 import threading
@@ -56,6 +72,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import PredictConfig
 from ..data.dataset import make_dataset
@@ -68,11 +85,13 @@ from ..models.quantize import (check_quantizable,
                                is_quantized_checkpoint, load_jax_quantized,
                                load_quantized, quantize_model)
 from ..models.resnet import row_mask
-from ..models.segmentation import MODEL_FACTORIES
+from ..models.segmentation import MODEL_FACTORIES, check_width_split
 from ..ops.ccl import remove_small_zones_ragged
 from ..ops.resize import column_operator_t, embedded_bicubic_rows
 from ..ops.upsample_argmax import column_windows, upsample_argmax
-from ..parallel.distributed import pad_to_multiple
+from ..parallel.distributed import (Mesh, make_mesh, pad_to_multiple,
+                                    single_process)
+from ..parallel.spatial import is_split, stem_columns, stem_edge_pads
 from ..utils.device import resolve_device, set_float32_exact
 from ..utils.profiling import stage_timer
 from .preprocess import ProcessedImage
@@ -93,14 +112,21 @@ class NeuralBarkCalculator:
     ``device``: ``"cuda"`` (the default) runs on the card and raises when
     there is none; ``"cpu"`` runs the same path on the CPU, where the
     kernel's plain version stands in for it.
+
+    ``mesh``: this rank's place in a ``(data, model)`` grid of processes
+    (parallel/distributed.make_mesh; JAX's ``mesh=``). None is the 1x1
+    mesh of one process, which issues no collective.
     """
 
     def __init__(self, model_path: str,
                  config: PredictConfig | None = None,
                  model_name: str = "fcn_resnet50",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", *,
+                 mesh: Mesh | None = None):
         self.device = resolve_device(device)
         self.config = config or PredictConfig(model_path=model_path)
+        self.mesh = (mesh if mesh is not None
+                     else make_mesh(world=single_process(self.device)))
         if model_name not in MODEL_FACTORIES:
             raise ValueError(f"unknown model {model_name!r} (the zoo: "
                              f"{sorted(MODEL_FACTORIES)})")
@@ -111,6 +137,10 @@ class NeuralBarkCalculator:
         self._quantize_pending = False
         self._quant_lock = threading.Lock()
         kind = _load_checkpoint_kind(model_path)
+        if self.mesh.n_devices > 1 and (
+                kind in ("int8", "jax_int8") or self.config.quantize_int8):
+            raise ValueError("int8 runs on one process: its calibration "
+                             "and scales are one process's")
         if kind in ("int8", "jax_int8"):
             # an offline int8 checkpoint: no folding, no calibration
             load = load_quantized if kind == "int8" else load_jax_quantized
@@ -119,6 +149,8 @@ class NeuralBarkCalculator:
             model = MODEL_FACTORIES[model_name]()
             if self.config.quantize_int8:
                 check_quantizable(model)  # raises for EfficientNet
+            if is_split(self.mesh.model):
+                check_width_split(model)  # before reading the weights
             load_state_dict_into(model, (
                 load_torch_checkpoint(model_path) if kind == "float"
                 else load_jax_checkpoint(model_path, model_name)))
@@ -184,7 +216,7 @@ class NeuralBarkCalculator:
     def predict(self, root_path: str, exclude_nodes: bool = False,
                 images: Sequence[ProcessedImage] | None = None,
                 progress: bool = True, resume: bool = False,
-                shard: tuple[int, int] | None = None) -> str:
+                shard: tuple[int, int] | None = None) -> str | None:
         """Predict every image under root/processed, writing results/
         artifacts (combined figures, dual PNGs, final_stats.csv). Returns
         the csv path.
@@ -205,6 +237,9 @@ class NeuralBarkCalculator:
         (``PredictReporter.finalize``); returns its path. A resumed shard
         rebuilds only its own rows. pipeline/multihost.py runs the shards
         and merges them.
+
+        Under a mesh every rank calls this with the same arguments; grid
+        rank 0 writes and returns the path, the other ranks return None.
         """
         if shard is not None and not 0 <= shard[0] < shard[1]:
             raise ValueError(f"shard {shard[0]}/{shard[1]}: need "
@@ -237,6 +272,13 @@ class NeuralBarkCalculator:
                 else set())
         chunks = self._plan_chunks([(i, *size_of(i)) for i in mine
                                     if i not in done])
+        # also a barrier: no rank writes before every rank has scanned
+        self._check_plan(names, chunks)
+        if not self.mesh.is_main:
+            for _ in self._run_chunks(chunks, decode_chunk, exclude_nodes,
+                                      postprocess=False):
+                pass
+            return None
         bar = _progress_bar(progress, sum(len(c[1]) for c in chunks))
         for idx, item, cmap, counts3 in self._run_chunks(
                 chunks, decode_chunk, exclude_nodes):
@@ -255,9 +297,12 @@ class NeuralBarkCalculator:
         batched bucket order. ``with_counts=True`` yields (item,
         class_map, counts3) instead, counts3 being the int64 [3] per-class
         pixel count the native postprocess already produced (counted here
-        without the native library)."""
+        without the native library). Under a mesh every rank calls this
+        with the same images and yields every map."""
         chunks = self._plan_chunks(
             [(i, *im.image.shape[:2]) for i, im in enumerate(images)])
+        self._check_plan([(im.fname, im.wood_type) for im in images],
+                         chunks)
         for _, item, cmap, counts in self._run_chunks(
                 chunks, lambda idxs: [images[i] for i in idxs],
                 exclude_nodes):
@@ -278,8 +323,14 @@ class NeuralBarkCalculator:
         at most (open buckets x batch_size) images buffered in the planner
         plus ``PREFETCH`` chunks in flight. CSV rows land in manifest
         order through the stream's indices: the output equals the
-        sequential path's."""
+        sequential path's. One process only: each rank's plan would
+        depend on when its files arrive."""
         import queue as _queue
+
+        if self.mesh.n_devices > 1:
+            raise ValueError("predict_streaming runs on one process: its "
+                             "plan depends on when each rank's files "
+                             "arrive")
 
         reporter = self._reporter(root_path)
         bs = self.config.batch_size
@@ -398,13 +449,35 @@ class NeuralBarkCalculator:
                 for (pad_h, _w), idxs in sorted(buckets.items())
                 for s in range(0, len(idxs), bs)]
 
-    def _run_chunks(self, chunks, decode_chunk, exclude_nodes: bool):
+    def _check_plan(self, names: list[tuple[str, str]],
+                    chunks: list[tuple[int, list[int]]]) -> None:
+        """Under a mesh of more than one rank: gather a digest of the
+        images' names and the planned chunks from every rank and raise
+        unless they agree (every rank must launch the same steps, or the
+        collectives pair up wrong). Reading the digests back waits for
+        every rank."""
+        if self.mesh.n_devices == 1:
+            return
+        digest = hashlib.sha256(repr((names, chunks)).encode()).digest()
+        mine = torch.tensor(list(digest), dtype=torch.uint8,
+                            device=self.device)
+        every = self.mesh.world.gather_rows(mine[None]).cpu()
+        if not bool((every == every[0]).all()):
+            raise RuntimeError(
+                f"rank {self.mesh.world.rank}: the ranks planned different "
+                f"chunks (images or their sizes differ between them)")
+
+    def _run_chunks(self, chunks, decode_chunk, exclude_nodes: bool,
+                    postprocess: bool = True):
         """The pump: each chunk's round trip (decode -> pad -> upload ->
         device step -> pull) runs as one worker task, ``PREFETCH`` chunks
         in flight, consumed in submission order; the caller's thread
         postprocesses and yields (index, ProcessedImage, class_map,
-        counts3). The workers share the current CUDA stream, so the
-        device runs the steps in submission order."""
+        counts3), or nothing without ``postprocess``. The workers share
+        the current CUDA stream, so the device runs the steps in
+        submission order. Under a mesh of more than one rank a single
+        worker runs the tasks, so every rank issues its collectives in
+        chunk order from one thread."""
         it = iter(chunks)
         if self._quantize_pending:
             # int8 calibration needs real pixels before the first step
@@ -419,7 +492,8 @@ class NeuralBarkCalculator:
             valid_h, out = self._launch_batch(items, pad_h)
             return items, valid_h, out
 
-        with ThreadPoolExecutor(max_workers=PREFETCH) as pool:
+        workers = PREFETCH if self.mesh.n_devices == 1 else 1
+        with ThreadPoolExecutor(max_workers=workers) as pool:
             window: deque = deque()
 
             def submit_next() -> bool:
@@ -437,8 +511,9 @@ class NeuralBarkCalculator:
                 idxs, fut = window.popleft()
                 items, valid_h, out = fut.result()
                 submit_next()
-                yield from self._finish_batch_raw(exclude_nodes, idxs,
-                                                  items, valid_h, out)
+                if postprocess:
+                    yield from self._finish_batch_raw(exclude_nodes, idxs,
+                                                      items, valid_h, out)
 
     def _calibrate_first(self, pad_h: int, idxs: list[int], decode_chunk):
         """Lazy int8 calibration (PredictConfig.quantize_int8) on the first
@@ -550,28 +625,29 @@ class NeuralBarkCalculator:
             buf[i, :h] = item.image
             buf[i, h:] = item.image[h - 1] if self._bucketed_exact else 0
         buf[len(items):] = 0
-        with self._stats_lock:
-            self._cache_stats["bytes_h2d"] += buf.nbytes
         return buf
 
     def _padded_batch(self, n: int) -> int:
         """Launch-batch size for ``n`` items: rounded up the
         {1,2,4,...,batch_size} ladder with dummy rows, so a folder tail or
-        a micro-batch of any size hits one of a few launch shapes; dummy
-        rows are dropped before postprocess."""
+        a micro-batch of any size hits one of a few launch shapes, then to
+        a multiple of the mesh's data size (JAX pipeline/predict.py:639);
+        dummy rows are dropped before postprocess."""
         bs = self.config.batch_size
         if 0 < n < bs:
             p = 1
             while p < n:
                 p *= 2
             n = min(p, bs)
-        return n
+        return pad_to_multiple(n, self.mesh.data_size)
 
     def _launch_batch(self, items: list[ProcessedImage], pad_h: int
                       ) -> tuple[np.ndarray, np.ndarray]:
         """Pad a bucket chunk, run the device step and pull the maps.
         Returns (valid_h [n_pad] int32, class maps [n_pad, pad_h, w or
-        w/4] uint8) on the host; rows past len(items) are dummies.
+        w/4] uint8) on the host; rows past len(items) are dummies. Under a
+        mesh the rank uploads its rows and columns (with the stem's halo)
+        and gets every rank's maps.
 
         Exact heights: the model runs on the batch as it is, without row
         masks, and every image takes the launch height's operator; valid_h
@@ -591,17 +667,22 @@ class NeuralBarkCalculator:
         valid_h = np.array([it.image.shape[0] for it in items]
                            + [items[0].image.shape[0]] * (n_pad - n),
                            np.int32)
-        batch = self._pad_group(items, pad_h, n_pad)
+        rows = self.mesh.data.rank_slice(n_pad)
+        cols = (stem_columns(w, self.mesh.model)
+                if is_split(self.mesh.model) else slice(None))
+        batch = np.ascontiguousarray(
+            self._pad_group(items, pad_h, n_pad)[rows, :, cols])
         # dummies reuse image 0's operator
         ops = [self._row_op_dev(pad_h if exact else int(h), pad_h)
-               for h in valid_h]
+               for h in valid_h[rows]]
         with self._stats_lock:
             self._launch_shapes.add((pad_h, n_pad, w))
             self._cache_stats["launch_shapes"] = len(self._launch_shapes)
+            self._cache_stats["bytes_h2d"] += batch.nbytes
         with stage_timer(f"predict/dispatch_h{pad_h}"), \
                 torch.inference_mode():
             x = torch.from_numpy(batch).to(self.device)
-            vh = None if exact else torch.from_numpy(valid_h).to(
+            vh = None if exact else torch.from_numpy(valid_h[rows]).to(
                 self.device)
             out = self._device_step(x, vh, torch.stack(ops),
                                     pack=w % 4 == 0)
@@ -651,18 +732,35 @@ class NeuralBarkCalculator:
                      pack: bool) -> torch.Tensor:
         """[B, pad_h, W, 3] uint8 -> class maps [B, pad_h, W] uint8, or
         [B, pad_h, W/4] 2-bit packed, on the device. ``valid_h`` None:
-        the exact-height path (no row masks)."""
+        the exact-height path (no row masks). Under a mesh: the rank's
+        rows and strip (``_launch_batch``) -> every rank's maps at the
+        full width."""
         feat = self._logits(batch_u8, valid_h)
-        preds = upsample_argmax(
-            feat, row_ops, *self._colt_dev(feat.shape[2], batch_u8.shape[2]))
-        return pack2bit(preds) if pack else preds
+        w = batch_u8.shape[2]
+        if is_split(self.mesh.model):
+            # the logits are the full width's; the split backbone's
+            # feature stride divides the image width
+            w = feat.shape[2] * self.model.backbone.feature_stride
+        preds = upsample_argmax(feat, row_ops,
+                                *self._colt_dev(feat.shape[2], w))
+        return self.mesh.data.gather_rows(pack2bit(preds) if pack
+                                          else preds)
 
     def _logits(self, batch_u8: torch.Tensor,
                 valid_h: torch.Tensor | None) -> torch.Tensor:
         """[B, pad_h, W, 3] uint8 -> float32 head logits at the feature
-        stride [B, F, Wf, 3], in the engine's dtype and layout."""
+        stride [B, F, Wf, 3], in the engine's dtype and layout. Under a
+        mesh that splits the width, ``batch_u8`` is the rank's strip with
+        the stem's halo clipped to the image, and the logits are the full
+        width's."""
         x = self._normalize(batch_u8, valid_h)
-        return self.model.head_logits(x.to(self.dtype), valid_h)
+        width = self.mesh.model
+        if is_split(width):
+            # the stem's zero padding past the image's edges, after the
+            # normalization (as the rows past valid_h)
+            x = F.pad(x, (0, 0, *stem_edge_pads(width)))
+        return self.model.head_logits(x.to(self.dtype), valid_h,
+                                      width=width)
 
     def _normalize(self, batch_u8: torch.Tensor,
                    valid_h: torch.Tensor | None) -> torch.Tensor:

@@ -72,6 +72,11 @@ class BatchingPredictor:
     def __init__(self, calc, batch_size: int | None = None,
                  max_wait_ms: float = 25.0, queue_limit: int = 256,
                  mm_per_pix: float | None = None):
+        mesh = getattr(calc, "mesh", None)
+        if mesh is not None and mesh.n_devices > 1:
+            raise ValueError("the server runs on one process: a request "
+                             "reaches one rank, and a mesh's ranks must "
+                             "all launch every batch")
         self.calc = calc
         self.batch_size = batch_size or calc.config.batch_size
         self.max_wait_ms = max_wait_ms

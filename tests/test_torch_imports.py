@@ -75,6 +75,7 @@ def test_port_imports_no_jax():
                  "models.qops", "models.quantize",
                  "cli.quantize_checkpoint", "parallel",
                  "parallel.distributed", "parallel.sync_bn",
+                 "parallel.spatial",
                  "pipeline.multihost", "ops.ccl", "tools",
                  "tools.bench_data", "tools.serving_bench",
                  "tools.serving_soak", "tools.curation", "io.flax_msgpack",
