@@ -73,9 +73,9 @@ one-process float32 engine's and the CSV's rows in the same order; (2,
 2) in bf16 over 8 of them, >= 95 % the same float32 masks. Each rank
 prints its upsample_argmax launches (> 0), its halo exchanges and the
 bytes it received beside the bytes the model's shapes give (equal), one
-launch batch's largest logit difference from the one-process engine's
-relative to their std, and its timed pass beside one process's warm
-pass. Then the no-library predict:
+launch batch's largest logit difference from the same model on one
+process (model rank 0) relative to their std, and its timed pass beside
+one process's warm pass. Then the no-library predict:
 cli/predict --float32 --preprocess_backend host over the same folder in
 a child process of this script (``--no-native-predict``, internal) that
 makes the native runtime's build fail before anything loads it: PIL
@@ -176,6 +176,22 @@ loaded by a new engine, maps bit for bit; one request through a --int8
 server; and for fcn_resnet50 cli/quantize_checkpoint -> cli/predict.main
 on the .int8.pt against a lazy engine calibrated on the same image. Every
 phase prints its wall time.
+
+The width zoo phase runs after the int8 phase: the rest of the ResNet zoo
+under the mesh's model axis, as the width phase's child ranks over gloo
+on the one card. deeplabv3_resnet50 (the zoo phase's checkpoint) in
+float32 under (1, 2) over the 16 images, each dual mask >= 99.9 % a
+one-process float32 deeplabv3_resnet50 pass's (made here), and in bf16
+under (1, 4) over 8 (strips of 32 feature columns: the ASPP's rate-36
+halo spans two ranks), >= 95 % of those float32 masks; fcn_resnet50 with
+quantize_int8 under (2, 1) over the 16 and deeplabv3_resnet50 with
+quantize_int8 under (1, 2) over the 16 (grid rank 0 calibrates at full
+width on the first chunk's images, as the int8 phase's engine, and
+shares the stats), each image >= 99.9 % the int8 phase's one-process
+maps. Each rank launches upsample_argmax; its halo bytes and its pooled
+reductions' bytes equal the shapes' count; the int8 ranks' digests of
+their int8 weights and scales are equal (and printed beside the int8
+phase's one-process digest).
 
 The entry points and tools of the port: after phase 3's profile, the
 trace phase wraps one warm folder pass in utils.device_trace and finds
@@ -407,6 +423,21 @@ SHARD_AGREE_FLOOR = 0.999
 # invariant (cuDNN may take other algorithms for a strip's width).
 WIDTH_RUNS = ((1, 2, "float32", N_IMAGES), (2, 2, "bf16", 8))
 WIDTH_BF16_FLOOR = 0.95
+# The width zoo phase (after the int8 phase): (model, int8, n_data,
+# n_model, dtype, images) of each mesh over the main path's folder.
+# deeplabv3_resnet50 in float32 at (1, 2) against a one-process float32
+# deeplabv3_resnet50 pass, F32_AGREE_FLOOR an image; in bf16 at (1, 4)
+# (strips of 32 feature columns against the ASPP's rate 36: the halo
+# spans two ranks) against the same float32 masks, WIDTH_BF16_FLOOR over
+# the images; the int8 runs (quantize_int8, bf16 stem, calibrated by grid
+# rank 0) against the int8 phase's one-process engine of the same model
+# over the same images, F32_AGREE_FLOOR an image. The int8 runs take all
+# N_IMAGES: the calibration reads the first chunk's first images, so a
+# smaller folder calibrates on other images than the int8 phase's engine.
+WIDTH_ZOO_RUNS = (("deeplabv3_resnet50", False, 1, 2, "float32", N_IMAGES),
+                  ("deeplabv3_resnet50", False, 1, 4, "bf16", 8),
+                  ("fcn_resnet50", True, 2, 1, "bf16", N_IMAGES),
+                  ("deeplabv3_resnet50", True, 1, 2, "bf16", N_IMAGES))
 # The two-rank phase: cli/train at global batch 10 (each of 2 ranks the
 # main path's 5), samples factor 2: 24 * 2 // 10 = 4 steps. Its first step
 # starts from equal weights and is held to the one-process step: the loss
@@ -2291,81 +2322,127 @@ def phase_sharded_predict(torch, workdir: str, main_root: str, ckpt: str,
             "single_postprocess_s": post_s, "single_root": single_root}
 
 
-def expected_halo_bytes(model, rows: int, pad_h: int, n_model: int,
-                        rank: int, elem: int) -> int:
-    """The halo bytes model rank ``rank`` of ``n_model`` receives from its
-    neighbours in one launch of ``rows`` images at ``pad_h``, worked out
-    from the dilated ResNet's and FCN head's shapes alone: the max pool's
-    (1, 0) columns on the stem's 64 channels, each block's conv2, the
-    head's 3x3 (the stem's halo comes with the input)."""
-    def received(kernel, stride, dilation, padding, channels, height):
-        left = padding
-        right = dilation * (kernel - 1) - padding - stride + 1
-        cols = (left if rank > 0 else 0) + (right if rank < n_model - 1
-                                            else 0)
-        return elem * rows * channels * height * cols
+def expected_halo_bytes(model_name: str, rows: int, pad_h: int,
+                        n_model: int, rank: int, elem: int,
+                        int8: bool = False) -> int:
+    """The halo bytes model rank ``rank`` of ``n_model`` receives from
+    other ranks in one launch of ``rows`` images at ``pad_h``, worked out
+    from the factory's shapes alone: the max pool's (1, 0) columns on the
+    stem's 64 channels (``elem``-byte elements, the engine's dtype), each
+    block's conv2, then the FCN head's 3x3, or the ASPP's one exchange at
+    the widest rate that reads past its centre tap (float: unless the
+    rate reaches past the map's height and width; int8: past its width)
+    and the DeepLab head's 3x3; 1-byte elements after the stem for int8.
+    A halo wider than a strip takes columns from as many ranks as it
+    spans, none past the image (the stem's halo comes with the input)."""
+    from neuralbarkcalculator_tpu_torch.models.heads import (
+        ASPP_CHANNELS, ASPP_RATES, DeepLabHead)
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        MODEL_FACTORIES)
+    import torch
 
-    total = received(3, 2, 1, 1, 64, pad_h // 2)
-    height = pad_h // 4
+    with torch.device("meta"):  # the layout only
+        layout = MODEL_FACTORIES[model_name]()
+
+    def received(left, right, channels, height, w, e):
+        cols = min(left, rank * w) + min(right, (n_model - 1 - rank) * w)
+        return e * rows * channels * height * cols
+
+    total = received(1, 0, 64, pad_h // 2, WIDTH // 2 // n_model, elem)
+    q = 1 if int8 else elem
+    height, w = pad_h // 4, WIDTH // 4 // n_model
     for stage in range(4):
-        for block in getattr(model.backbone, f"layer{stage + 1}"):
+        for block in getattr(layout.backbone, f"layer{stage + 1}"):
             c = block.conv2
-            total += received(3, c.stride[1], c.dilation[1], c.padding[1],
-                              c.in_channels, height)
-            height //= c.stride[0]
-    return total + received(3, 1, 1, 1, model.classifier[0].in_channels,
-                            height)
+            s_, d = c.stride[1], c.dilation[1]
+            total += received(d, d - s_ + 1, c.in_channels, height, w, q)
+            height //= s_
+            w //= s_
+    head = layout.classifier
+    if not isinstance(head, DeepLabHead):
+        return total + received(1, 1, head[0].in_channels, height, w, q)
+    rates = [d for d in ASPP_RATES
+             if d < w * n_model or (not int8 and d < height)]
+    if rates:
+        total += received(max(rates), max(rates), head.in_channels, height,
+                          w, q)
+    return total + received(1, 1, ASPP_CHANNELS, height, w, q)
+
+
+def expected_reduced_bytes(model_name: str, rows: int, int8: bool) -> int:
+    """The pooled branch's reduction over the model group in one launch
+    of ``rows`` images: DeepLab's column sums [rows, 2048, WIDTH / 8]
+    float32, or its int8 map's sums [rows, 2048] int32; none for FCN."""
+    if not model_name.startswith("deeplabv3"):
+        return 0
+    return rows * 2048 * 4 * (1 if int8 else WIDTH // 8)
 
 
 def width_rank_child(torch, argv: list[str]) -> dict:
-    """The width phase's child (``--width-rank RANK N_DATA N_MODEL PORT
-    ROOT CKPT DTYPE``): rank RANK of an N_DATA x N_MODEL mesh over gloo on
-    the one card, the folder engine under the mesh over ROOT (a warm-up
-    pass, then a timed pass with every launch count and the halo counter
-    set to 0 just before it and read just after); then one launch batch's
-    head logits under the mesh against a one-process engine's."""
+    """The width phases' child (``--width-rank RANK N_DATA N_MODEL PORT
+    ROOT CKPT DTYPE MODEL INT8``): rank RANK of an N_DATA x N_MODEL mesh
+    over gloo on the one card, the folder engine of MODEL (INT8 ``int8``:
+    quantize_int8, calibrated by grid rank 0 in the first pass) under the
+    mesh over ROOT (a warm-up pass, then a timed pass with every launch
+    count, the halo counter and the reduction counter set to 0 just
+    before it and read just after); then one launch batch's head logits
+    under the mesh against the same engine's model on one process (on
+    model rank 0), and for int8 a digest of the int8 weights and scales."""
+    import copy
+
     import numpy as np
 
     from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.models.quantize import state_digest
     from neuralbarkcalculator_tpu_torch.parallel.distributed import (
-        initialize_distributed, make_mesh, shutdown_distributed)
+        initialize_distributed, make_mesh, shutdown_distributed,
+        single_process)
     from neuralbarkcalculator_tpu_torch.parallel.spatial import (
-        EXCHANGES, stem_columns)
+        EXCHANGES, REDUCTIONS, stem_columns)
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
 
     rank, n_data, n_model, port = (int(a) for a in argv[:4])
-    root, ckpt, dtype = argv[4:7]
+    root, ckpt, dtype, model_name = argv[4:8]
+    int8 = argv[8] == "int8"
     os.environ.update(torchrun_env(rank, n_data * n_model, port))
     world = initialize_distributed(backend="gloo")
     try:
         mesh = make_mesh(n_data, n_model, world)
         config = PredictConfig(model_path=ckpt, figure_dpi=DPI,
-                               use_bfloat16=dtype == "bf16")
-        engine = NeuralBarkCalculator(ckpt, config=config, mesh=mesh)
-        engine.predict(root, progress=False)  # warm-up: cuDNN's plans
+                               use_bfloat16=dtype == "bf16",
+                               quantize_int8=int8)
+        engine = NeuralBarkCalculator(ckpt, config=config, mesh=mesh,
+                                      model_name=model_name)
+        # warm-up: cuDNN's plans, and int8's calibration
+        engine.predict(root, progress=False)
         world.barrier()
         counters = reset_counters()
         EXCHANGES.reset()
+        REDUCTIONS.reset()
         t0 = time.perf_counter()
         csv = engine.predict(root, progress=False)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {name: c.count for name, c in counters.items()}
         exchanges, halo_bytes = EXCHANGES.count, EXCHANGES.bytes
+        reductions, reduced_bytes = REDUCTIONS.count, REDUCTIONS.bytes
         n = len(os.listdir(os.path.join(root, "processed", "samples",
                                         "sapin")))
         chunks = engine._plan_chunks(
             [(i, FOLDER_HEIGHTS[i % len(FOLDER_HEIGHTS)], WIDTH)
              for i in range(n)])
         elem = 2 if dtype == "bf16" else 4
+        local_rows = [engine._padded_batch(len(idxs)) // n_data
+                      for _, idxs in chunks]
         expected = sum(expected_halo_bytes(
-            engine.model, engine._padded_batch(len(idxs)) // n_data, pad_h,
-            n_model, mesh.model_rank, elem) for pad_h, idxs in chunks)
+            model_name, r, pad_h, n_model, mesh.model_rank, elem, int8)
+            for r, (pad_h, _) in zip(local_rows, chunks))
+        expected_reduced = sum(expected_reduced_bytes(model_name, r, int8)
+                               for r in local_rows) if n_model > 1 else 0
 
         # one launch batch of BATCH images at PAD_H: this rank's rows and
-        # strip under the mesh, against the one-process engine's logits of
-        # the same rows
+        # strip under the mesh, against the same model on one process
         items = folder_items(root, range(BATCH))
         full = engine._pad_group(items, PAD_H, BATCH)
         heights = np.array([it.image.shape[0] for it in items], np.int32)
@@ -2373,138 +2450,236 @@ def width_rank_child(torch, argv: list[str]) -> dict:
         vh = torch.from_numpy(heights[rows]).to(engine.device)
         strip = np.ascontiguousarray(
             full[rows][:, :, stem_columns(WIDTH, mesh.model)])
-        single = NeuralBarkCalculator(ckpt, config=config)
         with torch.inference_mode():
             got = engine._logits(torch.from_numpy(strip).to(engine.device),
                                  vh)
-            want = single._logits(torch.from_numpy(np.ascontiguousarray(
-                full[rows])).to(engine.device), vh)
+            logit_err = logit_std = None
+            if mesh.model_rank == 0:
+                single = copy.copy(engine)
+                single.mesh = make_mesh(world=single_process(engine.device))
+                want = single._logits(torch.from_numpy(np.ascontiguousarray(
+                    full[rows])).to(engine.device), vh)
+                logit_err = float((got - want).abs().max())
+                logit_std = float(want.std())
+                del single, want
+        digest = state_digest(engine.model).hex() if int8 else None
         world.barrier()
     finally:
         shutdown_distributed()
     return {"rank": rank, "mesh": [mesh.data_rank, mesh.model_rank],
             "csv": csv, "seconds": seconds, "launches": launches,
             "exchanges": exchanges, "halo_bytes": halo_bytes,
-            "halo_bytes_expected": expected,
-            "logit_err": float((got - want).abs().max()),
-            "logit_std": float(want.std()),
+            "halo_bytes_expected": expected, "reductions": reductions,
+            "reduced_bytes": reduced_bytes,
+            "reduced_bytes_expected": expected_reduced,
+            "logit_err": logit_err, "logit_std": logit_std,
+            "int8_digest": digest,
             "launch_shapes": engine.cache_stats()["launch_shapes"]}
+
+
+def width_run(torch, workdir: str, main_root: str, ckpt: str,
+              model_name: str, int8: bool, n_data: int, n_model: int,
+              dtype: str, n_images: int, single_rows: list[str],
+              want_dual, against: str, card: str) -> list[int]:
+    """One mesh's ranks as child processes of this script
+    (``--width-rank``) sharing the one card over gloo, over a copy of the
+    main path's folder (its first ``n_images`` images), the engine of
+    ``model_name`` (``int8``: quantize_int8). Held: every rank exits 0 and
+    launches upsample_argmax; each rank's halo bytes and pooled-reduction
+    bytes equal the shapes' count; for int8 every rank's int8 weights and
+    scales equal rank 0's bit for bit; grid rank 0 writes the CSV with
+    ``single_rows``' names in their order and every artifact; the dual
+    masks agree with ``want_dual(fname, wood)``'s (the ``against`` run's)
+    on at least F32_AGREE_FLOOR of each image's pixels (float32 and int8)
+    or WIDTH_BF16_FLOOR of all pixels (bf16 float). No speed is claimed:
+    the ranks share one card and gloo goes through the host. Returns the
+    upsample_argmax launches by rank."""
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+
+    kind = "int8" if int8 else "float"
+    label = f"{model_name} {kind} ({n_data}, {n_model}) {dtype}"
+    root = os.path.join(workdir, f"width_{model_name}_{kind}_{n_data}x"
+                        f"{n_model}_{dtype}")
+    copy_folder(main_root, root, False)
+    for i in range(n_images, N_IMAGES):
+        os.remove(os.path.join(root, "processed", "samples", "sapin",
+                               f"img{i:02d}.png"))
+    port = free_port()
+    size = n_data * n_model
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--width-rank",
+         str(rank), str(n_data), str(n_model), str(port), root, ckpt, dtype,
+         model_name, kind], cwd=REPO,
+        env={**os.environ, **torchrun_env(rank, size, port)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(size)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank, (p, (stdout, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"width {label}: rank {rank} exited "
+                               f"{p.returncode}: {err[-3000:]}")
+        ranks.append(json.loads(stdout.strip().splitlines()[-1]))
+    for r in ranks:
+        logits = ("" if r["logit_err"] is None else
+                  f"; one launch batch's logits vs one process: max abs "
+                  f"diff {r['logit_err']:.6g}, "
+                  f"{r['logit_err'] / r['logit_std']:.6g} of their std "
+                  f"{r['logit_std']:.6g}")
+        log(f"width {label} rank {r['rank']} (data, model) {r['mesh']}: "
+            f"upsample_argmax launches {r['launches']['upsample_argmax']} "
+            f"(all {r['launches']}); {r['exchanges']} halo exchanges, "
+            f"{r['halo_bytes']} bytes received, the shapes give "
+            f"{r['halo_bytes_expected']}; {r['reductions']} pooled "
+            f"reductions of {r['reduced_bytes']} bytes, the shapes give "
+            f"{r['reduced_bytes_expected']}{logits}; int8 digest "
+            f"{r['int8_digest']}; timed pass {r['seconds']:.3f} s; launch "
+            f"shapes {r['launch_shapes']}")
+    results = os.path.join(root, "results")
+    with open(os.path.join(results, "final_stats.csv")) as f:
+        got_rows = f.read().splitlines()
+    want_rows = single_rows[:1 + n_images]
+    same_names = ([r.split("\t")[:2] for r in got_rows]
+                  == [r.split("\t")[:2] for r in want_rows])
+    float_bf16 = dtype == "bf16" and not int8
+    floor = WIDTH_BF16_FLOOR if float_bf16 else F32_AGREE_FLOOR
+    least, agree, total = 1.0, 0, 0
+    for row in want_rows[1:]:
+        fname, wood = row.split("\t")[:2]
+        for sub in ("combined_images", "outputs"):
+            if not os.path.isfile(os.path.join(results, sub, wood, fname)):
+                raise AssertionError(f"width {label}: missing {sub}/{fname}")
+        a = load_image_u8(os.path.join(results, "outputs", wood, fname),
+                          grayscale=True)
+        b = want_dual(fname, wood)
+        same = int((a == b).sum())
+        least = min(least, same / b.size)
+        agree += same
+        total += b.size
+    digests = {r["int8_digest"] for r in ranks}
+    log(f"width {label} ({card}): {size} processes on one card over gloo, "
+        f"{n_images} images: wall {wall:.3f} s from launch to every exit "
+        f"(process start, model load and a warm-up pass included); timed "
+        f"passes {[round(r['seconds'], 3) for r in ranks]} s; CSV "
+        f"{len(got_rows) - 1} rows, names and order equal {same_names}; "
+        f"dual masks agree on {agree / total:.6f} of pixels against "
+        f"{against}, least image {least:.6f} (floor {floor} "
+        f"{'over the images' if float_bf16 else 'an image'}); "
+        f"{len(digests)} distinct int8 digest(s) over the ranks")
+    if not same_names:
+        raise AssertionError(f"width {label}: the CSV's rows differ from "
+                             f"the one process's")
+    held = agree / total if float_bf16 else least
+    if held < floor:
+        raise AssertionError(f"width {label}: masks agree on {held:.6f} < "
+                             f"{floor}")
+    if int8 and len(digests) != 1:
+        raise AssertionError(f"width {label}: the ranks hold different int8 "
+                             f"weights or scales: {digests}")
+    for r in ranks:
+        if r["launches"]["upsample_argmax"] == 0 \
+                or r["halo_bytes"] != r["halo_bytes_expected"] \
+                or r["reduced_bytes"] != r["reduced_bytes_expected"] \
+                or (r["csv"] is None) != (r["rank"] != 0):
+            raise AssertionError(f"width {label} rank {r['rank']}: "
+                                 f"launches, halo or reduced bytes, or CSV: "
+                                 f"{r}")
+    return [r["launches"]["upsample_argmax"] for r in ranks]
+
+
+def _read_csv_rows(root: str) -> list[str]:
+    with open(os.path.join(root, "results", "final_stats.csv")) as f:
+        return f.read().splitlines()
 
 
 def phase_width_partition(torch, workdir: str, main_root: str, ckpt: str,
                           sharded: dict, main_seconds: float, card: str
                           ) -> dict:
-    """Width partitioning on the card (WIDTH_RUNS): each mesh's ranks as
-    child processes of this script (``--width-rank``) sharing the one
-    card over gloo, over a copy of the main path's folder (its first
-    `images` images). Held: every rank exits 0 and launches
-    upsample_argmax; each rank's halo bytes equal the shapes' count; grid
-    rank 0 writes the CSV with the one-process float32 run's names in its
-    order and every artifact, and the dual masks agree with that run's on
-    at least F32_AGREE_FLOOR of each image's pixels (float32) or
-    WIDTH_BF16_FLOOR of all pixels (bf16). No speed is claimed: the ranks
-    share one card and gloo goes through the host. Returns each run's
-    upsample_argmax launches by rank."""
-    import numpy as np
-
+    """Width partitioning on the card (WIDTH_RUNS): fcn_resnet50 under
+    each mesh (``width_run``) against the one-process float32 run of the
+    sharded-predict phase; its warm pass of the 16 images, float32 and
+    bf16, is logged beside. Returns each run's upsample_argmax launches
+    by rank."""
     from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
 
     single_root = sharded["single_root"]
-    with open(os.path.join(single_root, "results", "final_stats.csv")) as f:
-        single_rows = f.read().splitlines()
+    log(f"width: one process's warm pass of the {N_IMAGES} images, float32 "
+        f"{sharded['single_s']:.3f} s and bf16 {main_seconds:.3f} s")
+
+    def want_dual(fname, wood):
+        return load_image_u8(os.path.join(single_root, "results", "outputs",
+                                          wood, fname), grayscale=True)
+
+    return {f"({n_data}, {n_model}) {dtype}": width_run(
+        torch, workdir, main_root, ckpt, "fcn_resnet50", False, n_data,
+        n_model, dtype, n_images, _read_csv_rows(single_root), want_dual,
+        "the one-process float32 engine", card)
+        for n_data, n_model, dtype, n_images in WIDTH_RUNS}
+
+
+def phase_width_zoo(torch, workdir: str, main_root: str, ckpts: dict,
+                    int8_runs: dict, single_root: str, card: str) -> dict:
+    """Width partitioning of the rest of the ResNet zoo on the card
+    (WIDTH_ZOO_RUNS, ``width_run``): deeplabv3_resnet50 in float32 and
+    bf16 against a one-process float32 deeplabv3_resnet50 pass over the
+    folder (made here), and int8 fcn_resnet50 and deeplabv3_resnet50
+    against the int8 phase's one-process maps (``int8_runs``: model ->
+    its "maps", fname -> class map, and the "digest" of its int8 state,
+    which each run's is logged against). Returns each run's
+    upsample_argmax launches by rank."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    name = "deeplabv3_resnet50"
+    f32_root = os.path.join(workdir, "width_zoo_single_f32")
+    copy_folder(main_root, f32_root, False)
+    t0 = time.perf_counter()
+    engine = NeuralBarkCalculator(
+        ckpts[name], model_name=name, config=PredictConfig(
+            model_path=ckpts[name], figure_dpi=DPI, use_bfloat16=False))
+    engine.predict(f32_root, progress=False)
+    del engine
+    torch.cuda.empty_cache()
+    log(f"width zoo: one-process float32 {name} over the {N_IMAGES} images "
+        f"{time.perf_counter() - t0:.3f} s (load and cold pass)")
+    single_rows = _read_csv_rows(single_root)
+
+    def f32_dual(fname, wood):
+        return load_image_u8(os.path.join(f32_root, "results", "outputs",
+                                          wood, fname), grayscale=True)
+
     out = {}
-    for n_data, n_model, dtype, n_images in WIDTH_RUNS:
-        label = f"({n_data}, {n_model}) {dtype}"
-        root = os.path.join(workdir, f"width_{n_data}x{n_model}_{dtype}")
-        copy_folder(main_root, root, False)
-        for i in range(n_images, N_IMAGES):
-            os.remove(os.path.join(root, "processed", "samples", "sapin",
-                                   f"img{i:02d}.png"))
-        port = free_port()
-        size = n_data * n_model
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--width-rank",
-             str(rank), str(n_data), str(n_model), str(port), root, ckpt,
-             dtype], cwd=REPO, env={**os.environ,
-                                    **torchrun_env(rank, size, port)},
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for rank in range(size)]
-        try:
-            outs = [p.communicate(timeout=300) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        ranks = []
-        for rank, (p, (stdout, err)) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                raise RuntimeError(f"width {label}: rank {rank} exited "
-                                   f"{p.returncode}: {err[-3000:]}")
-            ranks.append(json.loads(stdout.strip().splitlines()[-1]))
-        for r in ranks:
-            log(f"width {label} rank {r['rank']} (data, model) {r['mesh']}: "
-                f"upsample_argmax launches {r['launches']['upsample_argmax']} "
-                f"(all {r['launches']}); {r['exchanges']} halo exchanges, "
-                f"{r['halo_bytes']} bytes received, the shapes give "
-                f"{r['halo_bytes_expected']}; one launch batch's logits vs "
-                f"one process: max abs diff {r['logit_err']:.6g}, "
-                f"{r['logit_err'] / r['logit_std']:.6g} of their std "
-                f"{r['logit_std']:.6g}; timed pass {r['seconds']:.3f} s; "
-                f"launch shapes {r['launch_shapes']}")
-        results = os.path.join(root, "results")
-        with open(os.path.join(results, "final_stats.csv")) as f:
-            got_rows = f.read().splitlines()
-        want_rows = single_rows[:1 + n_images]
-        same_names = ([r.split("\t")[:2] for r in got_rows]
-                      == [r.split("\t")[:2] for r in want_rows])
-        differ = sum(a != b for a, b in zip(got_rows, want_rows))
-        floor = F32_AGREE_FLOOR if dtype == "float32" else WIDTH_BF16_FLOOR
-        least, agree, total = 1.0, 0, 0
-        for row in want_rows[1:]:
-            fname, wood = row.split("\t")[:2]
-            for sub in ("combined_images", "outputs"):
-                if not os.path.isfile(os.path.join(results, sub, wood,
-                                                   fname)):
-                    raise AssertionError(f"width {label}: missing "
-                                         f"{sub}/{fname}")
-            a = load_image_u8(os.path.join(results, "outputs", wood, fname),
-                              grayscale=True)
-            b = load_image_u8(os.path.join(single_root, "results",
-                                           "outputs", wood, fname),
-                              grayscale=True)
-            same = int((a == b).sum())
-            least = min(least, same / b.size)
-            agree += same
-            total += b.size
-        log(f"width {label} ({card}): {size} processes on one card over "
-            f"gloo, {n_images} images: wall {wall:.3f} s from launch to "
-            f"every exit (process start, model load and a warm-up pass "
-            f"included); timed passes "
-            f"{[round(r['seconds'], 3) for r in ranks]} s against one "
-            f"process's warm pass of the {N_IMAGES} images, float32 "
-            f"{sharded['single_s']:.3f} s and bf16 {main_seconds:.3f} s; "
-            f"CSV {len(got_rows) - 1} rows, names and order equal "
-            f"{same_names}, {differ} rows differ in bytes; dual masks agree "
-            f"on {agree / total:.6f} of pixels against the one-process "
-            f"float32 engine, least image {least:.6f} (floor {floor} "
-            f"{'an image' if dtype == 'float32' else 'over the images'})")
-        if not same_names:
-            raise AssertionError(f"width {label}: the CSV's rows differ "
-                                 f"from the one process's")
-        held = least if dtype == "float32" else agree / total
-        if held < floor:
-            raise AssertionError(f"width {label}: masks agree on "
-                                 f"{held:.6f} < {floor}")
-        for r in ranks:
-            if r["launches"]["upsample_argmax"] == 0 \
-                    or r["halo_bytes"] != r["halo_bytes_expected"] \
-                    or (r["csv"] is None) != (r["rank"] != 0):
-                raise AssertionError(f"width {label} rank {r['rank']}: "
-                                     f"launches, halo bytes or CSV: {r}")
-        out[label] = [r["launches"]["upsample_argmax"] for r in ranks]
+    for model_name, int8, n_data, n_model, dtype, n_images in \
+            WIDTH_ZOO_RUNS:
+        if int8:
+            maps = int8_runs[model_name]["maps"]
+
+            def want_dual(fname, wood, maps=maps):
+                return np.choose(maps[fname], [0, 127, 255]).astype(
+                    np.uint8)
+            against = (f"the int8 phase's one-process {model_name} engine "
+                       f"(digest {int8_runs[model_name]['digest']})")
+        else:
+            want_dual = f32_dual
+            against = f"the one-process float32 {name} engine"
+        label = (f"{model_name} {'int8' if int8 else 'float'} "
+                 f"({n_data}, {n_model}) {dtype}")
+        out[label] = width_run(
+            torch, workdir, main_root, ckpts[model_name], model_name, int8,
+            n_data, n_model, dtype, n_images, single_rows, want_dual,
+            against, card)
     return out
 
 
@@ -4485,7 +4660,8 @@ def phase_int8(torch, workdir: str, root: str, ckpts: dict,
     --int8 server. For fcn_resnet50 also the cli/quantize_checkpoint ->
     cli/predict path (int8_cli). Returns each model's numbers."""
     from neuralbarkcalculator_tpu_torch.config import PredictConfig
-    from neuralbarkcalculator_tpu_torch.models.quantize import save_quantized
+    from neuralbarkcalculator_tpu_torch.models.quantize import (
+        save_quantized, state_digest)
     from neuralbarkcalculator_tpu_torch.models.segmentation import (
         QuantizedSegmentationModel)
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
@@ -4517,6 +4693,7 @@ def phase_int8(torch, workdir: str, root: str, ckpts: dict,
                 or first_launches == 0:
             raise AssertionError(f"{label}: model {type(int8.model)}, "
                                  f"{first_launches} launches")
+        digest = state_digest(int8.model).hex()
         counters = reset_counters()
         t1 = time.perf_counter()
         csv = int8.predict(root, progress=False)
@@ -4614,7 +4791,8 @@ def phase_int8(torch, workdir: str, root: str, ckpts: dict,
             torch.cuda.empty_cache()
             int8_cli(torch, workdir, root, ckpt, name)
         out[name] = {"images_per_s": N_IMAGES / seconds,
-                     "launches": counts["upsample_argmax"],
+                     "launches": counts["upsample_argmax"], "maps": maps,
+                     "digest": digest,
                      "step_ms": int8_ms, "bf16_step_ms": bf16_ms,
                      "calibration_ms": calib_ms, "agreement": agree,
                      "groups": groups}
@@ -5115,9 +5293,10 @@ def main() -> int:
     parser.add_argument("--entrypoint", dest="entrypoint",
                         nargs=argparse.REMAINDER, default=None,
                         help=argparse.SUPPRESS)  # an entry-points child
-    parser.add_argument("--width-rank", dest="width_rank", nargs=7,
+    parser.add_argument("--width-rank", dest="width_rank", nargs=9,
                         metavar=("RANK", "N_DATA", "N_MODEL", "PORT", "ROOT",
-                                 "CKPT", "DTYPE"), default=None,
+                                 "CKPT", "DTYPE", "MODEL", "INT8"),
+                        default=None,
                         help=argparse.SUPPRESS)  # a width-phase child
     parser.add_argument("--train-rank", dest="train_rank", nargs=4,
                         metavar=("RANK", "PORT", "WORKDIR", "SEED"),
@@ -5217,6 +5396,12 @@ def main() -> int:
                      card)
         kernel["int8_launches"] = {name: int8[name]["launches"]
                                    for name in INT8_MODELS}
+        kernel["width_zoo_launches"] = timed(
+            "width zoo", phase_width_zoo, torch, workdir, main_root,
+            {"fcn_resnet50": ckpt,
+             "deeplabv3_resnet50": zoo["deeplabv3_resnet50"]["ckpt"]},
+            int8, sharded["single_root"], card)
+        del int8
         kernel["jax_checkpoint_launches"] = timed(
             "jax checkpoints", phase_jax_checkpoints, torch, workdir,
             main_root, ckpt, card)

@@ -26,11 +26,19 @@ In train mode with ``dropout > 0``, the FCN head's ``classifier.3`` +
 ``ops/fused_dropout_matmul``, on the 1x1 conv's own weight and bias; the
 step's ``dropout_seed`` keys its mask; in a data-parallel run the rank's
 element offset in the global batch places its mask (models/seeding.py).
-Eval mode, and dropout 0, run the modules one by one; there the FCN
-head's 3x3 conv takes a halo of 1 column from each neighbour when a
-model group splits the width (``width``, parallel/spatial.py). The
-DeepLab head does not split the width: its atrous rates need halos of
-up to 36 columns and its pooled branch a sum over the whole width. In
+Eval mode, and dropout 0, run the modules one by one.
+
+Width partitioning (``width``, the model group of a mesh; eval mode):
+every head runs on this rank's strip of the width (parallel/spatial.py).
+The 3x3 convs take a halo of 1 column from each neighbour. The ASPP's
+three atrous branches share one exchange at the widest rate that reads
+beyond its centre tap (36 columns at 1024 rows), each taking its slice,
+and may span several ranks' strips; a branch whose rate reaches past the
+whole map (the centre-tap shortcut, decided on the full map's width)
+runs on the strip as it is. The pooled branch sums the column sums
+gathered over the group (``sum_width_f32``; the int8 ASPP all-reduces
+its int32 sums), divided by the full width, so it is the one process's
+bit for bit on the CPU. The int8 heads split the same way. In
 train mode the DeepLab head's BatchNorms use batch statistics and update
 their running ones, and the ASPP's Dropout(0.5) is an inverted dropout
 drawn from the step's head generator (models/seeding.py).
@@ -45,8 +53,9 @@ import torch.nn.functional as F
 
 from ..ops.fused_dropout_matmul import fused_dropout_matmul
 from ..parallel.distributed import World
-from ..parallel.spatial import conv2d_w
-from .qops import QConv, mask_rows, quantize_act
+from ..parallel.spatial import (all_reduce_int32, conv2d_w, exchange_halo,
+                                exchange_halo_nhwc, is_split, sum_width_f32)
+from .qops import QConv, mask_rows, quantize_act, widen
 from .resnet import BN_EPS, apply_row_mask
 from .seeding import HEAD_STREAM, inverted_dropout, layer_generator
 
@@ -128,18 +137,30 @@ class AtrousConv2d(nn.Conv2d):
         super().__init__(cin, cout, 3, padding=rate, dilation=rate,
                          bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def centre_only(self, h: int, w: int) -> bool:
+        """Whether on an h x w map every tap but the centre reads only
+        padding (EfficientNet's 16 x 16 maps at crop 512, any map at rate
+        36 from 1024 rows / 32)."""
+        d = self.dilation[0]
+        return d >= h and d >= w
+
+    def forward(self, x: torch.Tensor, halo: bool = False) -> torch.Tensor:
+        """``halo``: ``x`` is a strip of the width widened by d columns on
+        each side (parallel/spatial.exchange_halo), which takes no width
+        padding; the output is the strip's columns. The caller decides the
+        centre-tap shortcut on the full map and passes the strip as it is
+        when it holds."""
         d = self.dilation[0]
         b, c, h, w = x.shape
-        if d >= h and d >= w:
-            # every tap but the centre reads only padding (EfficientNet's
-            # 16 x 16 maps at crop 512, any map at rate 36 from 1024 rows /
-            # 32): a 1x1 conv of the centre tap, the same nonzero products
+        if not halo and self.centre_only(h, w):
+            # a 1x1 conv of the centre tap, the same nonzero products
             return F.conv2d(x, self.weight[:, :, 1:2, 1:2], self.bias)
-        # pad by d, then up to a multiple of d: phase (r, s) takes the
-        # padded rows r, r + d, ... and the columns s, s + d, ...
-        ph, pw = -(-(h + 2 * d) // d) * d, -(-(w + 2 * d) // d) * d
-        xp = F.pad(x, (d, pw - w - d, d, ph - h - d))
+        # pad by d (the width by 0 on a widened strip), then up to a
+        # multiple of d: phase (r, s) takes the padded rows r, r + d, ...
+        # and the columns s, s + d, ...
+        wpad = 0 if halo else d
+        ph, pw = -(-(h + 2 * d) // d) * d, -(-(w + 2 * wpad) // d) * d
+        xp = F.pad(x, (wpad, pw - w - wpad, d, ph - h - d))
         qh, qw = ph // d, pw // d
         # [b, c, qh, d, qw, d] -> channels_last [b * d * d, c, qh, qw]
         xs = (xp.reshape(b, c, qh, d, qw, d).permute(0, 3, 5, 2, 4, 1)
@@ -150,7 +171,7 @@ class AtrousConv2d(nn.Conv2d):
         y = (ys.permute(0, 2, 3, 1).reshape(b, d, d, rh, rw, o)
              .permute(0, 3, 1, 4, 2, 5).reshape(b, rh * d, rw * d, o)
              .permute(0, 3, 1, 2))
-        return y[:, :, :h, :w]
+        return y[:, :, :h, :w + 2 * (wpad - d)]
 
 
 def _conv_bn_relu(conv: nn.Conv2d, folded: bool) -> nn.Sequential:
@@ -169,13 +190,16 @@ class ASPPPooling(nn.Sequential):
                          nn.Conv2d(cin, cout, 1, bias=folded),
                          _norm(cout, folded), nn.ReLU())
 
-    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
+                width: World | None = None) -> torch.Tensor:
+        """``width``: the model group whose strips make the map's width;
+        the mean is the full map's, broadcast to the strip."""
         # the sum in float32: a bf16 sum over 128 x 128 positions drifts
-        total = x.sum(dim=(2, 3), keepdim=True, dtype=torch.float32)
+        total = sum_width_f32(x, width)[:, :, None, None]
         count = (x.shape[2] if valid_h is None
                  else valid_h.to(torch.float32).view(-1, 1, 1, 1))
-        pooled = (total / (count * x.shape[3])).to(x.dtype)
+        full_w = x.shape[3] * (width.size if is_split(width) else 1)
+        pooled = (total / (count * full_w)).to(x.dtype)
         for layer in list(self)[1:]:
             pooled = layer(pooled)
         return pooled.expand(-1, -1, x.shape[2], x.shape[3])
@@ -202,12 +226,29 @@ class ASPP(nn.Module):
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
-                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+                shard: tuple[int, int] = (0, 1),
+                width: World | None = None) -> torch.Tensor:
         """``generator`` draws the dropout's mask in train mode; ``shard``:
-        (rank, size) of a data-parallel batch."""
+        (rank, size) of a data-parallel batch; ``width``: the model group
+        that splits the width in eval mode, or None."""
         x = apply_row_mask(x, valid_h)  # the atrous branches mix rows
-        branches = [conv(x) for conv in self.convs[:-1]]
-        branches.append(self.convs[-1](x, valid_h))
+        branches = [self.convs[0](x)]
+        h, w = x.shape[2:]
+        full_w = w * width.size if is_split(width) else w
+        haloed = [conv[0].dilation[0] for conv in self.convs[1:-1]
+                  if is_split(width)
+                  and not conv[0].centre_only(h, full_w)]
+        if haloed:  # one exchange at the widest rate for every branch
+            reach = max(haloed)
+            wide = exchange_halo(x, reach, reach, width)
+        for conv in self.convs[1:-1]:
+            atrous, d = conv[0], conv[0].dilation[0]
+            y = (atrous(wide[..., reach - d:reach + w + d], halo=True)
+                 if d in haloed else atrous(x))
+            for layer in list(conv)[1:]:
+                y = layer(y)
+            branches.append(y)
+        branches.append(self.convs[-1](x, valid_h, width))
         y = torch.cat(branches, dim=1)
         for layer in list(self.project)[:3]:
             y = layer(y)
@@ -225,6 +266,7 @@ class DeepLabHead(nn.Sequential):
     dropout."""
 
     supports_quantize = True  # an int8 twin (QuantizedDeepLabHead)
+    supports_width = True  # halo exchanges and a pooled sum, in eval mode
 
     def __init__(self, in_channels: int, channels: int,
                  folded: bool = False):
@@ -250,16 +292,19 @@ class DeepLabHead(nn.Sequential):
 
     def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
                 dropout_seed: int | None = None,
-                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+                shard: tuple[int, int] = (0, 1),
+                width: World | None = None) -> torch.Tensor:
+        """``width``: the model group that splits the width in eval mode,
+        or None."""
         generator = None
         if self.training:
             if dropout_seed is None:
                 raise ValueError("DeepLabHead in train mode needs the step's "
                                  "dropout_seed")
             generator = layer_generator(dropout_seed, HEAD_STREAM, x.device)
-        x = self[0](x, valid_h, generator, shard)
-        x = apply_row_mask(x, valid_h)
-        for layer in list(self)[1:]:
+        x = self[0](x, valid_h, generator, shard, width)
+        x = conv2d_w(self[1], apply_row_mask(x, valid_h), width)
+        for layer in list(self)[2:]:
             x = layer(x)
         return x
 
@@ -270,14 +315,19 @@ class QuantizedFCNHead(nn.Module):
     NHWC logits. The row mask zeroes the 3x3 conv's input; the dropout is
     an inference no-op and left out."""
 
+    supports_width = True  # its 3x3 conv takes an int8 halo
+
     def __init__(self, in_channels: int, channels: int):
         super().__init__()
         self.conv1 = QConv(in_channels, in_channels // 4, 3)
         self.conv2 = QConv(in_channels // 4, channels)
 
     def forward(self, x_q: torch.Tensor,
-                valid_h: torch.Tensor | None = None) -> torch.Tensor:
-        return self.conv2.dequant(self.conv1.relu(mask_rows(x_q, valid_h)))
+                valid_h: torch.Tensor | None = None,
+                width: World | None = None) -> torch.Tensor:
+        """``width``: the model group that splits the width, or None."""
+        return self.conv2.dequant(self.conv1.relu(
+            *widen(self.conv1, mask_rows(x_q, valid_h), width)))
 
 
 class QuantizedASPP(nn.Module):
@@ -289,7 +339,9 @@ class QuantizedASPP(nn.Module):
     pixel count (valid_h * W), runs the 1x1 conv in float32
     (``pool_kernel`` [cin, 256], ``pool_bias``), and quantizes its ReLU by
     ``inv_s_cat``, broadcast to every pixel. ``project`` maps the concat
-    to 256; the dropout is left out."""
+    to 256; the dropout is left out. On a strip of the width the atrous
+    branches share one int8 exchange at the widest halo their live taps
+    read, and the int32 sums are all-reduced over the model group."""
 
     def __init__(self, in_channels: int, rates: Sequence[int] = ASPP_RATES):
         super().__init__()
@@ -305,22 +357,41 @@ class QuantizedASPP(nn.Module):
         self.project = QConv(c * (len(self.rates) + 2), c)
 
     def pooled(self, x_q: torch.Tensor,
-               valid_h: torch.Tensor | None = None) -> torch.Tensor:
-        """The pooled branch of a masked int8 map: int8 [B, 256] at
-        s_cat."""
+               valid_h: torch.Tensor | None = None,
+               width: World | None = None) -> torch.Tensor:
+        """The pooled branch of a masked int8 map (or of the strips of the
+        model group ``width``): int8 [B, 256] at s_cat."""
         sums = x_q.sum(dim=(1, 2), dtype=torch.int32)
-        denom = (float(x_q.shape[1] * x_q.shape[2]) if valid_h is None
-                 else (valid_h.float() * x_q.shape[2])[:, None])
+        full_w = x_q.shape[2]
+        if is_split(width):
+            sums = all_reduce_int32(sums, width)
+            full_w *= width.size
+        denom = (float(x_q.shape[1] * full_w) if valid_h is None
+                 else (valid_h.float() * full_w)[:, None])
         pooled = sums.float() * self.s_in / denom
         pooled = pooled @ self.pool_kernel + self.pool_bias
         return quantize_act(F.relu(pooled), self.inv_s_cat)
 
     def forward(self, x_q: torch.Tensor,
-                valid_h: torch.Tensor | None = None) -> torch.Tensor:
+                valid_h: torch.Tensor | None = None,
+                width: World | None = None) -> torch.Tensor:
+        """``width``: the model group that splits the width, or None."""
         x_q = mask_rows(x_q, valid_h)  # the atrous branches mix rows
-        branches = [getattr(self, f"b{i}").relu(x_q)
-                    for i in range(len(self.rates) + 1)]
-        pooled_q = self.pooled(x_q, valid_h)
+        atrous = [getattr(self, f"b{i + 1}") for i in range(len(self.rates))]
+        branches = [self.b0.relu(x_q)]
+        if is_split(width):
+            w = x_q.shape[2]
+            full = w * width.size
+            reach = max(max(conv.halo(full)) for conv in atrous)
+            wide = (exchange_halo_nhwc(x_q, reach, reach, width) if reach
+                    else x_q)
+            for conv in atrous:
+                left, right = conv.halo(full)
+                branches.append(conv.relu(
+                    wide[:, :, reach - left:reach + w + right], full))
+        else:
+            branches += [conv.relu(x_q) for conv in atrous]
+        pooled_q = self.pooled(x_q, valid_h, width)
         branches.append(pooled_q[:, None, None, :].expand(
             *x_q.shape[:3], pooled_q.shape[1]))
         return self.project.relu(torch.cat(branches, dim=-1))
@@ -331,6 +402,8 @@ class QuantizedDeepLabHead(nn.Module):
     the int8 ASPP, the row mask, the 3x3 ``conv`` and the 1x1
     ``classifier`` -> float32 NHWC logits."""
 
+    supports_width = True  # int8 halos and an all-reduced pooled sum
+
     def __init__(self, in_channels: int, channels: int):
         super().__init__()
         c = ASPP_CHANNELS
@@ -339,9 +412,12 @@ class QuantizedDeepLabHead(nn.Module):
         self.classifier = QConv(c, channels)
 
     def forward(self, x_q: torch.Tensor,
-                valid_h: torch.Tensor | None = None) -> torch.Tensor:
-        x = mask_rows(self.aspp(x_q, valid_h), valid_h)
-        return self.classifier.dequant(self.conv.relu(x))
+                valid_h: torch.Tensor | None = None,
+                width: World | None = None) -> torch.Tensor:
+        """``width``: the model group that splits the width, or None."""
+        x = mask_rows(self.aspp(x_q, valid_h, width), valid_h)
+        return self.classifier.dequant(self.conv.relu(
+            *widen(self.conv, x, width)))
 
 
 __all__ = ["ASPP", "ASPPPooling", "AtrousConv2d", "DeepLabHead", "FCNHead",

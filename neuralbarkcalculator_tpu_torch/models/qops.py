@@ -15,11 +15,13 @@ Activations are NHWC. A conv is one ``torch._int_mm`` (cuBLAS's int8
 GEMM on the card): a 1x1 conv over the activation viewed as [pixels, C],
 a k x k conv over an NHWC im2col whose taps run in (ky, kx, cin) order,
 built from zero padding and strided slices (there is no int8
-``F.unfold``). Integer sums are exact in any order, so the card, the CPU
-and the JAX package give the same int32 accumulators, and the epilogues,
-written as separate float32 operations (no fused multiply-add; the int32
-accumulator converts to float32 as the multiply loads it), the same int8
-tensors.
+``F.unfold``). On a strip of the width (a mesh's model axis) the conv
+takes the halo its live column taps read (``strip_halo``, ``widen``),
+and the taps are those of the full map. Integer sums are exact in any
+order, so the card, the CPU and the JAX package give the same int32
+accumulators, and the epilogues, written as separate float32 operations
+(no fused multiply-add; the int32 accumulator converts to float32 as the
+multiply loads it), the same int8 tensors.
 
 Weights are stored as ``[N, K]`` int8: the JAX package's HWIO kernel
 flattened to [kh * kw * cin, cout], transposed, with N padded up to a
@@ -34,6 +36,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.distributed import World
+from ..parallel.spatial import exchange_halo_nhwc, is_split
 
 # torch._int_mm on the card needs more than this many rows
 _MIN_ROWS = 16
@@ -63,13 +68,38 @@ def _live_taps(n_in: int, n_out: int, k: int, stride: int, dilation: int,
             and t * dilation - pad < n_in]
 
 
+def _col_taps(w: int, k: int, stride: int, dilation: int) -> list[int]:
+    """The live column taps of a conv over a map ``w`` wide."""
+    pad = dilation * (k // 2)
+    wo = (w + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    return _live_taps(w, wo, k, stride, dilation, pad)
+
+
+def strip_halo(k: int, stride: int, dilation: int, full_width: int
+               ) -> tuple[int, int]:
+    """(left, right) columns a strip of a map ``full_width`` wide reads
+    beyond itself for the live column taps of the full map
+    (parallel/spatial.halo of those taps): (0, 0) when only the centre
+    tap reads the map."""
+    pad = dilation * (k // 2)
+    cols = _col_taps(full_width, k, stride, dilation)
+    return (max(pad - cols[0] * dilation, 0),
+            max(cols[-1] * dilation - pad - stride + 1, 0))
+
+
 def qconv(x_q: torch.Tensor, w_q: torch.Tensor, k: int = 1,
-          stride: int = 1, dilation: int = 1) -> torch.Tensor:
+          stride: int = 1, dilation: int = 1,
+          full_width: int | None = None) -> torch.Tensor:
     """int8 NHWC conv -> int32 accumulator ``[B, Ho, Wo, N]``, with the
     model's symmetric ``dilation * (k // 2)`` zero padding (JAX
     ``qops.qconv``). ``w_q`` is ``[N, k * k * cin]`` (module docstring).
     Taps that read only padding (a rate past the map: the ASPP's rates on
-    a small map) are left out with their weight columns: the same sums."""
+    a small map) are left out with their weight columns: the same sums.
+
+    ``full_width``: ``x_q`` is a strip of a map that wide, widened by
+    ``strip_halo`` (parallel/spatial.exchange_halo_nhwc); the width takes
+    no padding and the column taps are the full map's, so the result is
+    exactly the strip's columns of the full conv."""
     b, h, w, cin = x_q.shape
     n = w_q.shape[0]
     if w_q.shape[1] != k * k * cin:
@@ -77,18 +107,28 @@ def qconv(x_q: torch.Tensor, w_q: torch.Tensor, k: int = 1,
                          f"a {k}x{k} conv over {cin} channels")
     pad = dilation * (k // 2)
     ho = (h + 2 * pad - dilation * (k - 1) - 1) // stride + 1
-    wo = (w + 2 * pad - dilation * (k - 1) - 1) // stride + 1
     rows = _live_taps(h, ho, k, stride, dilation, pad)
-    cols = _live_taps(w, wo, k, stride, dilation, pad)
+    if full_width is None:
+        wpad = pad
+        wo = (w + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+        cols = _live_taps(w, wo, k, stride, dilation, pad)
+    else:
+        cols = _col_taps(full_width, k, stride, dilation)
+        left, right = strip_halo(k, stride, dilation, full_width)
+        wo = (w - left - right) // stride
+        # tap c of output j reads the widened column j * stride + c *
+        # dilation - pad + left: pad - left zero columns in front (read by
+        # no live tap) keep the one-process indexing
+        wpad = pad - left
     if len(rows) * len(cols) < k * k:
         w_q = w_q.view(n, k, k, cin)[:, rows][:, :, cols].reshape(n, -1)
     if len(rows) == len(cols) == 1:
         # one tap: a strided view of the input itself
-        r0, c0 = rows[0] * dilation - pad, cols[0] * dilation - pad
+        r0, c0 = rows[0] * dilation - pad, cols[0] * dilation - wpad
         a = x_q[:, r0:r0 + (ho - 1) * stride + 1:stride,
                 c0:c0 + (wo - 1) * stride + 1:stride]
     else:
-        xp = F.pad(x_q, (0, 0, pad, pad, pad, pad))
+        xp = F.pad(x_q, (0, 0, wpad, wpad, pad, pad))
         a = torch.cat([xp[:, r * dilation:r * dilation + (ho - 1) * stride
                           + 1:stride,
                           c * dilation:c * dilation + (wo - 1) * stride
@@ -144,7 +184,8 @@ def mask_rows(x_q: torch.Tensor, valid_h: torch.Tensor | None
 class QConv(nn.Module):
     """One int8 conv's parameters: ``q`` the [N, k * k * cin] int8 weight
     (N = cout padded to a multiple of 8), ``m`` and ``b`` the float32
-    epilogue's multiplier and offset [cout]."""
+    epilogue's multiplier and offset [cout]. ``full_width``: the input is
+    a widened strip of a map that wide (``qconv``, ``widen``)."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
                  dilation: int = 1):
@@ -156,20 +197,45 @@ class QConv(nn.Module):
         self.register_buffer("m", torch.zeros(cout))
         self.register_buffer("b", torch.zeros(cout))
 
-    def acc(self, x_q: torch.Tensor) -> torch.Tensor:
+    def halo(self, full_width: int) -> tuple[int, int]:
+        """The columns a strip of a map ``full_width`` wide reads beyond
+        itself (``strip_halo``)."""
+        return strip_halo(self.k, self.stride, self.dilation, full_width)
+
+    def acc(self, x_q: torch.Tensor, full_width: int | None = None
+            ) -> torch.Tensor:
         """The int32 accumulator of this conv over NHWC int8 ``x_q``."""
-        acc = qconv(x_q, self.q, self.k, self.stride, self.dilation)
+        acc = qconv(x_q, self.q, self.k, self.stride, self.dilation,
+                    full_width)
         return acc if acc.shape[-1] == self.cout else acc[..., :self.cout]
 
-    def relu(self, x_q: torch.Tensor) -> torch.Tensor:
-        return requant_relu(self.acc(x_q), self.m, self.b)
+    def relu(self, x_q: torch.Tensor, full_width: int | None = None
+             ) -> torch.Tensor:
+        return requant_relu(self.acc(x_q, full_width), self.m, self.b)
 
     def signed(self, x_q: torch.Tensor) -> torch.Tensor:
         return requant_signed(self.acc(x_q), self.m, self.b)
 
-    def dequant(self, x_q: torch.Tensor) -> torch.Tensor:
-        return dequant(self.acc(x_q), self.m, self.b)
+    def dequant(self, x_q: torch.Tensor, full_width: int | None = None
+                ) -> torch.Tensor:
+        return dequant(self.acc(x_q, full_width), self.m, self.b)
+
+
+def widen(conv: QConv, x_q: torch.Tensor, width: World | None
+          ) -> tuple[torch.Tensor, int | None]:
+    """(input, full_width) of ``conv`` on this rank's NHWC strip ``x_q``
+    when the model group ``width`` splits the map: the strip widened by
+    the halo the conv reads (parallel/spatial.exchange_halo_nhwc) and the
+    map's width; ``(x_q, None)`` without a split."""
+    if not is_split(width):
+        return x_q, None
+    full = x_q.shape[2] * width.size
+    left, right = conv.halo(full)
+    if left or right:
+        x_q = exchange_halo_nhwc(x_q, left, right, width)
+    return x_q, full
 
 
 __all__ = ["QConv", "dequant", "int8_mm", "mask_rows", "qconv",
-           "quantize_act", "requant_relu", "requant_signed"]
+           "quantize_act", "requant_relu", "requant_signed", "strip_halo",
+           "widen"]

@@ -35,6 +35,7 @@ graph has no int8 mode.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import warnings
 import zipfile
@@ -103,6 +104,13 @@ def _sow_points(model: SegmentationModel):
     else:
         points.append((head[2], "out", ("classifier", "q_t1")))
     return points
+
+
+def stat_paths(model: SegmentationModel) -> list[tuple[str, ...]]:
+    """The JAX scope paths ``calibrate`` records for ``model``'s layout,
+    sorted: the order in which a mesh's rank 0 hands its stats to the
+    other ranks (pipeline/predict.py)."""
+    return sorted(path for _, _, path in _sow_points(model))
 
 
 def calibrate(model: SegmentationModel, batches: Iterable[torch.Tensor]
@@ -268,20 +276,24 @@ def quantize_variables(folded_state: Mapping[str, torch.Tensor],
 
 
 def quantize_model(model: SegmentationModel,
-                   calib_batches: Iterable[torch.Tensor],
-                   folded_state: Mapping[str, torch.Tensor] | None = None
+                   calib_batches: Iterable[torch.Tensor] | None = None,
+                   folded_state: Mapping[str, torch.Tensor] | None = None,
+                   stats: Mapping[tuple[str, ...], float] | None = None
                    ) -> QuantizedSegmentationModel:
     """(model, calibration batches) -> the int8 model, on the CPU.
 
     ``model`` is folded or not (folded here if not), on any device and
     dtype: calibration runs it as it is on ``calib_batches`` (normalized
-    NHWC batches on its device, at its dtype). ``folded_state``: the
-    folded float32 weights to quantize, when ``model`` itself holds them
-    in another dtype (the engine's bf16 copy); default its own."""
+    NHWC batches on its device, at its dtype), unless ``stats`` gives
+    ``calibrate``'s result already (a mesh's rank 0 calibrates for every
+    rank). ``folded_state``: the folded float32 weights to quantize, when
+    ``model`` itself holds them in another dtype (the engine's bf16
+    copy); default its own."""
     twin = quantized_twin(model)
     if not model.backbone.folded:
         model = fold_model(model)
-    stats = calibrate(model, calib_batches)
+    if stats is None:
+        stats = calibrate(model, calib_batches)
     if folded_state is None:
         folded_state = {k: v.detach().float().cpu()
                         for k, v in model.state_dict().items()}
@@ -291,6 +303,18 @@ def quantize_model(model: SegmentationModel,
                                model.backbone.stage_sizes, head)
     twin.load_state_dict(quantized_variables_to_state_dict(qvars))
     return twin.eval()
+
+
+def state_digest(qmodel: QuantizedSegmentationModel) -> bytes:
+    """sha256 of an int8 model's state dict (names, dtypes, shapes and
+    bytes, in name order): equal on two processes exactly when their
+    weights and scales are equal bit for bit."""
+    h = hashlib.sha256()
+    for key, v in sorted(qmodel.state_dict().items()):
+        v = v.detach().cpu().contiguous()
+        h.update(repr((key, str(v.dtype), tuple(v.shape))).encode())
+        h.update(v.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.digest()
 
 
 def save_quantized(path: str, qmodel: QuantizedSegmentationModel,
@@ -387,4 +411,5 @@ def load_jax_quantized(path: str, model_name: str = "fcn_resnet50"
 __all__ = ["QCKPT_FORMAT", "QCKPT_VERSION", "calibrate", "check_quantizable",
            "is_jax_quantized_checkpoint", "is_quantized_checkpoint",
            "load_jax_quantized", "load_quantized", "quantize_model",
-           "quantize_variables", "quantized_twin", "save_quantized"]
+           "quantize_variables", "quantized_twin", "save_quantized",
+           "stat_paths", "state_digest"]

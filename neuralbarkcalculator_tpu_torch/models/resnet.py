@@ -28,7 +28,9 @@ axis): each rank holds a strip of the width. The stem, the max pool and
 each block's ``conv2`` run through parallel/spatial.py's halo exchange;
 the 1x1 convs, the strided 1x1 downsample included, run on the strip as
 they are. Rows are not split, so the row masks do not change. The int8
-twins do not split the width.
+twins split the same way: the float stem reads the input's halo, the max
+pool and each block's int8 ``conv2`` exchange theirs (models/qops.py's
+``widen``), the 1x1 convs run on the strip.
 
 ``QuantizedResNet`` / ``QuantizedBottleneck`` are the int8 inference
 twins (JAX ``resnet.py`` with ``quantized=True``; models/quantize.py
@@ -46,7 +48,7 @@ import torch.nn.functional as F
 
 from ..parallel.distributed import World
 from ..parallel.spatial import conv2d_rows, conv2d_w, is_split, max_pool2d_w
-from .qops import QConv, mask_rows, quantize_act
+from .qops import QConv, mask_rows, quantize_act, widen
 
 BN_EPS = 1e-5  # torchvision BatchNorm2d default
 
@@ -258,10 +260,14 @@ class QuantizedBottleneck(nn.Module):
             self.register_buffer("s_ratio", torch.ones(()))
 
     def forward(self, x_q: torch.Tensor,
-                valid_h: torch.Tensor | None = None) -> torch.Tensor:
-        # conv2 is the only row-mixing op in the block
+                valid_h: torch.Tensor | None = None,
+                width: World | None = None) -> torch.Tensor:
+        """``width``: the model group that splits the width, or None."""
+        # conv2 is the only row-mixing op in the block, and the only one
+        # that reads across a strip's edge
         t1 = mask_rows(self.conv1.relu(x_q), valid_h)
-        out = self.conv3.dequant(self.conv2.relu(t1))
+        out = self.conv3.dequant(self.conv2.relu(*widen(self.conv2, t1,
+                                                        width)))
         if self.downsample is not None:
             out.add_(self.downsample.signed(x_q))
         else:
@@ -278,6 +284,8 @@ class QuantizedResNet(_ResNetLayers):
     post-ReLU values, so quantizing after it equals quantizing before it)
     and every block runs int8. NHWC in, int8 NHWC features out."""
 
+    supports_width = True  # halo exchanges split the width
+
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  replace_stride_with_dilation: Sequence[bool] = (
                      False, True, True)):
@@ -287,31 +295,36 @@ class QuantizedResNet(_ResNetLayers):
         self._build_layers(stage_sizes, replace_stride_with_dilation,
                            QuantizedBottleneck)
 
-    def stem(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
-             ) -> torch.Tensor:
+    def stem(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
+             width: World | None = None) -> torch.Tensor:
         """NHWC images (zero below valid_h) -> the int8 NHWC map after the
         max pool. The conv runs at ``x``'s dtype (the engine's), its
-        float32 weights cast to it, as the JAX package casts them."""
+        float32 weights cast to it, as the JAX package casts them.
+        ``width``: as ``DilatedResNet.forward``'s (``x`` carries the
+        stem's halo)."""
         conv = self.conv1
+        padding = (conv.padding[0], 0) if is_split(width) else conv.padding
         y = F.relu(F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
-                            conv.bias.to(x.dtype), conv.stride,
-                            conv.padding))
+                            conv.bias.to(x.dtype), conv.stride, padding))
         h = None if valid_h is None else conv_out_size(valid_h, 7, 2, 3)
-        y = F.max_pool2d(apply_row_mask(y, h), 3, stride=2, padding=1)
+        y = max_pool2d_w(apply_row_mask(y, h), width)
         return quantize_act(y.permute(0, 2, 3, 1),
                             self.inv_s_stem).contiguous()
 
-    def blocks(self, x_q: torch.Tensor, valid_h: torch.Tensor | None = None
-               ) -> torch.Tensor:
+    def blocks(self, x_q: torch.Tensor, valid_h: torch.Tensor | None = None,
+               width: World | None = None) -> torch.Tensor:
         """The int8 blocks from the stem's int8 map; ``valid_h`` are the
         images' valid rows (not the map's)."""
         h = None if valid_h is None else conv_out_size(
             conv_out_size(valid_h, 7, 2, 3), 3, 2, 1)
-        return self._blocks(x_q, h)
+        return self._blocks(x_q, h, width=width)
 
-    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None
-                ) -> torch.Tensor:
-        return self.blocks(self.stem(x, valid_h), valid_h)
+    def forward(self, x: torch.Tensor, valid_h: torch.Tensor | None = None,
+                width: World | None = None) -> torch.Tensor:
+        """NHWC images -> int8 NHWC features; ``width``: the model group
+        that splits the width (``x`` is the rank's strip with the stem's
+        halo, the features its strip), or None."""
+        return self.blocks(self.stem(x, valid_h, width), valid_h, width)
 
 
 def resnet50_dilated() -> DilatedResNet:

@@ -20,9 +20,9 @@ Width partitioning (``width``, the model group of a mesh; JAX's
 ``model`` axis): ``head_logits`` runs the backbone and head on this
 rank's strip of the width (parallel/spatial.py) and gathers the logits
 to the full width, as JAX's ``shard_map`` gathers them for
-``upsample_argmax`` (JAX pipeline/predict.py:870-882). Inference only,
-and only the dilated ResNets with the FCN head: ``check_width_split``
-refuses the rest.
+``upsample_argmax`` (JAX pipeline/predict.py:870-882). Inference only:
+the dilated ResNets with the FCN or the DeepLab head, in float and in
+int8; ``check_width_split`` refuses EfficientNet.
 """
 from __future__ import annotations
 
@@ -44,17 +44,16 @@ from .resnet import resnet101_dilated, resnet50_dilated
 
 def check_width_split(model: nn.Module) -> None:
     """Raise ``ValueError`` unless ``model``'s backbone and head can split
-    the width: the DeepLab head (halos of up to 36 columns, a pooled
-    branch over the whole width), EfficientNet (squeeze-excite pools over
-    the whole width; TF-SAME pads asymmetrically) and the int8 twins
-    cannot yet."""
+    the width: EfficientNet cannot yet (squeeze-excite pools over the
+    whole width in every block; TF-SAME pads asymmetrically)."""
     for label, part in (("backbone", model.backbone),
                         ("head", model.classifier)):
         if not getattr(part, "supports_width", False):
             raise ValueError(
                 f"width partitioning: the {label} {type(part).__name__} "
-                f"cannot split the width (supported: the dilated ResNets "
-                f"with the FCN head, in float)")
+                f"cannot split the width: EfficientNet does not split yet "
+                f"(supported: the dilated ResNets with the FCN or the "
+                f"DeepLab head, in float and in int8)")
 
 
 class SegmentationModel(nn.Module):
@@ -150,7 +149,9 @@ class QuantizedSegmentationModel(SegmentationModel):
     ``QuantizedDeepLabHead``. The path stays NHWC from the stem to the
     logits, with no permute; ``head_logits`` returns float32 NHWC
     [B, F, Wf, classes], contiguous, for ``upsample_argmax``, and the
-    inherited ``forward`` upsamples them. Inference only."""
+    inherited ``forward`` upsamples them. Inference only. ``width``: as
+    ``SegmentationModel.head_logits``'s; the backbone and head run on the
+    rank's strip and the logits are gathered to the full width."""
 
     def head_logits(self, x: torch.Tensor,
                     valid_h: torch.Tensor | None = None,
@@ -159,11 +160,13 @@ class QuantizedSegmentationModel(SegmentationModel):
                     width: World | None = None) -> torch.Tensor:
         if self.training:
             raise ValueError("an int8 model is inference-only")
-        if is_split(width):
-            check_width_split(self)  # raises: no int8 twin splits it
         feat_h = (None if valid_h is None
                   else self.backbone.valid_feature_height(valid_h))
-        return self.classifier(self.backbone(x, valid_h), feat_h)
+        if not is_split(width):
+            return self.classifier(self.backbone(x, valid_h), feat_h)
+        logits = self.classifier(self.backbone(x, valid_h, width), feat_h,
+                                 width)
+        return gather_width(logits, width, dim=2)
 
 
 def fcn_resnet50(dropout: float = 0.1, num_classes: int = NUM_CLASSES

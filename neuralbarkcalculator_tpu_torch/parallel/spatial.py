@@ -12,7 +12,8 @@ right halo of d(k - 1) - p - s + 1 (``halo``). ``exchange_halo`` fetches
 them from the neighbours, with zeros past the image's outer edges (the
 op's own zero padding), and the op runs on the widened strip with width
 padding 0 and its height padding as before, so the rank gets exactly its
-columns of the full-width op. For the dilated ResNet and the FCN head:
+columns of the full-width op. For the dilated ResNet and the heads, in
+float and in int8 (models/qops.py):
 
 | Op | Left | Right |
 | --- | --- | --- |
@@ -20,8 +21,12 @@ columns of the full-width op. For the dilated ResNet and the FCN head:
 | max pool 3x3/2 | 1 | 0 |
 | layer2's strided 3x3/2 | 1 | 0 |
 | 3x3 at dilation 1 / 2 / 4 | 1 / 2 / 4 | 1 / 2 / 4 |
-| FCN head 3x3 | 1 | 1 |
+| FCN head 3x3, DeepLab head 3x3 | 1 | 1 |
+| ASPP atrous 3x3 at rate 12 / 24 / 36 | 36 | 36 (one exchange, sliced) |
 | 1x1 convs, the strided 1x1 downsample too | 0 | 0 |
+
+An ASPP branch whose rate is at least the map's height and full width
+reads only its centre tap (models/heads.py) and takes no halo.
 
 The max pool's zeros at the outer edges equal its -inf padding because
 its input is post-ReLU (models/resnet.py relies on the same for rows).
@@ -31,16 +36,27 @@ so the engine uploads the rank's columns with 3 + 2 more
 (``stem_edge_pads``) are added after normalization.
 
 A strip's width must be a multiple of 8, the stride before layer3, so
-that each strided op's strip starts on a multiple of its stride; and a
-halo may not be wider than the neighbour's strip: layer4's dilation 4
-needs 4 feature columns a rank, W / n >= 32. Both raise ``ValueError``.
+that each strided op's strip starts on a multiple of its stride; it
+raises ``ValueError`` otherwise.
 
 The exchange is one ``all_gather`` over the model group of each rank's
 two edge strips, made contiguous first (a channels_last tensor's column
-slice is a view): every rank takes its left neighbour's last ``left``
-columns and its right neighbour's first ``right``. ``EXCHANGES`` counts
-the exchanges a process made and the halo bytes it received from its
-neighbours.
+slice is a view): its first ``min(right, w)`` columns and its last
+``min(left, w)``. A halo wider than the neighbour's strip (DeepLab's ASPP
+at rate 36 on strips of 32 feature columns) is stitched from as many
+ranks as it spans, with zeros past the image's outer edges.
+``EXCHANGES`` counts the exchanges a process made and the halo bytes it
+received from other ranks (not the zeros). ``exchange_halo_nhwc`` is the
+same exchange on an NHWC strip (the int8 path's, models/qops.py).
+
+Two reductions over the model group take the whole width and do not
+depend on the split: ``sum_width_f32``, the float32 sum over rows and
+columns as the column sums over the rows (added pairwise, each column on
+its own), gathered to the full width and summed over it in one order
+(the one process computes the same thing, so the split's sum is
+bit-equal to it); and ``all_reduce_int32``, an integer sum, exact in any
+order. ``REDUCTIONS`` counts them and the bytes of the full-width tensor
+each reduces.
 """
 from __future__ import annotations
 
@@ -67,8 +83,7 @@ STEM_HALO = halo(7, 2, 1, 3)  # (3, 2)
 
 
 class ExchangeCounter:
-    """A thread-safe count of halo exchanges and of the halo bytes they
-    received from other ranks."""
+    """A thread-safe count of collectives and of their bytes."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -87,6 +102,9 @@ class ExchangeCounter:
 
 
 EXCHANGES = ExchangeCounter()
+# the reductions over the model group, and the bytes of the full-width
+# tensor each reduced
+REDUCTIONS = ExchangeCounter()
 
 
 def is_split(model: World | None) -> bool:
@@ -133,30 +151,41 @@ def _layout(x: torch.Tensor) -> torch.memory_format:
 def exchange_halo(x: torch.Tensor, left: int, right: int, model: World
                   ) -> torch.Tensor:
     """NCHW strip [B, C, H, w] -> [B, C, H, left + w + right]: the strip
-    widened by its neighbours' edge columns, zeros at the image's outer
-    edges, in ``x``'s memory layout."""
+    widened by the columns of the ranks beside it, as many ranks as the
+    halo spans, zeros past the image's outer edges, in ``x``'s memory
+    layout."""
     w = x.shape[3]
-    if max(left, right) > w:
-        raise ValueError(
-            f"a halo of {max(left, right)} columns is wider than the "
-            f"neighbour's strip of {w}: split the width over fewer ranks")
-    edges = torch.cat([x[..., :right], x[..., w - left:]], dim=3).contiguous()
+    lo_w, hi_w = min(left, w), min(right, w)
+    edges = torch.cat([x[..., :hi_w], x[..., w - lo_w:]], dim=3).contiguous()
     parts = [torch.empty_like(edges) for _ in range(model.size)]
     dist.all_gather(parts, edges, group=model.group)
-    m = model.rank
-    received = 0
-    if m > 0:
-        lo = parts[m - 1][..., right:]
-        received += lo.numel()
-    else:
-        lo = x.new_zeros((*x.shape[:3], left))
-    if m < model.size - 1:
-        hi = parts[m + 1][..., :right]
-        received += hi.numel()
-    else:
-        hi = x.new_zeros((*x.shape[:3], right))
-    EXCHANGES.add(received * x.element_size())
-    return torch.cat([lo, x, hi], dim=3).contiguous(memory_format=_layout(x))
+    m, n = model.rank, model.size
+    # the left halo, global columns [m w - left, m w): zeros before column
+    # 0, then the last columns of ranks first // w ... m - 1
+    first = max(m * w - left, 0)
+    pieces = [x.new_zeros((*x.shape[:3], first - (m * w - left)))]
+    for j in range(first // w, m):
+        take = (j + 1) * w - max(first, j * w)  # <= min(left, w)
+        pieces.append(parts[j][..., hi_w + lo_w - take:])
+    pieces.append(x)
+    # the right halo, global columns [(m + 1) w, (m + 1) w + right): the
+    # first columns of ranks m + 1 ..., then zeros past column n w
+    stop = min((m + 1) * w + right, n * w)
+    for j in range(m + 1, -(-stop // w)):
+        pieces.append(parts[j][..., :min(stop, (j + 1) * w) - j * w])
+    pieces.append(x.new_zeros((*x.shape[:3], (m + 1) * w + right - stop)))
+    received = (m * w - first) + (stop - (m + 1) * w)  # columns
+    EXCHANGES.add(received * x[..., :1].numel() * x.element_size())
+    return torch.cat(pieces, dim=3).contiguous(memory_format=_layout(x))
+
+
+def exchange_halo_nhwc(x: torch.Tensor, left: int, right: int,
+                       model: World) -> torch.Tensor:
+    """``exchange_halo`` of an NHWC strip [B, h, w, C] (viewed as
+    channels_last NCHW, so the exchange keeps its layout): the widened
+    strip, contiguous NHWC."""
+    return exchange_halo(x.permute(0, 3, 1, 2), left, right,
+                         model).permute(0, 2, 3, 1)
 
 
 def conv2d_rows(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -193,15 +222,56 @@ def max_pool2d_w(x: torch.Tensor, model: World | None) -> torch.Tensor:
                         stride=2, padding=(1, 0))
 
 
-def gather_width(x: torch.Tensor, model: World) -> torch.Tensor:
-    """Every rank's NCHW strip, concatenated along the width (equal shapes
-    on every rank): the full-width tensor, contiguous."""
+def gather_width(x: torch.Tensor, model: World, dim: int = -1
+                 ) -> torch.Tensor:
+    """Every rank's strip, concatenated along the width ``dim`` (equal
+    shapes on every rank; NCHW's last by default): the full-width tensor,
+    contiguous."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(model.size)]
     dist.all_gather(parts, x, group=model.group)
-    return torch.cat(parts, dim=3)
+    return torch.cat(parts, dim=dim)
 
 
-__all__ = ["EXCHANGES", "STEM_HALO", "STRIP_MULTIPLE", "conv2d_rows",
-           "conv2d_w", "exchange_halo", "gather_width", "halo", "is_split",
-           "max_pool2d_w", "stem_columns", "stem_edge_pads", "strip_range"]
+def _sum_rows_f32(x: torch.Tensor) -> torch.Tensor:
+    """NCHW [B, C, H, w] -> the float32 column sums [B, C, w], the rows
+    added pairwise in one order whatever the width (row r and row r + H/2,
+    halving; an odd row left over joins the next round). Each column is
+    its own chain of elementwise adds, so a strip's sums are the full
+    map's columns bit for bit; a reduction's order (``x.sum(2)``) depends
+    on the width on the CPU."""
+    x = x.to(torch.float32)
+    while x.shape[2] > 1:
+        half = x.shape[2] // 2
+        y = x[:, :, :half] + x[:, :, half:2 * half]
+        x = y if x.shape[2] % 2 == 0 else torch.cat(
+            [y, x[:, :, 2 * half:]], dim=2)
+    return x[:, :, 0]
+
+
+def sum_width_f32(x: torch.Tensor, model: World | None) -> torch.Tensor:
+    """The float32 sum of an NCHW map over its rows and columns, [B, C]:
+    the column sums over the rows (``_sum_rows_f32``), [B, C, W], summed
+    over the full width in one order. On a strip the column sums are
+    gathered from the model group first, so the split's sum is the one
+    process's bit for bit."""
+    cols = _sum_rows_f32(x)
+    if is_split(model):
+        cols = gather_width(cols, model)
+        REDUCTIONS.add(cols.numel() * cols.element_size())
+    return cols.contiguous().sum(-1)
+
+
+def all_reduce_int32(x: torch.Tensor, model: World) -> torch.Tensor:
+    """``x`` (int32) summed over the model group, in place: an integer
+    sum, exact in any order."""
+    dist.all_reduce(x, group=model.group)
+    REDUCTIONS.add(x.numel() * x.element_size())
+    return x
+
+
+__all__ = ["EXCHANGES", "REDUCTIONS", "STEM_HALO", "STRIP_MULTIPLE",
+           "all_reduce_int32", "conv2d_rows", "conv2d_w", "exchange_halo",
+           "exchange_halo_nhwc", "gather_width", "halo", "is_split",
+           "max_pool2d_w", "stem_columns", "stem_edge_pads", "strip_range",
+           "sum_width_f32"]

@@ -48,14 +48,17 @@ halos (parallel/spatial.py) and gather the logits to the full width;
 ``shard_map`` runs it, and the maps are gathered over the data group.
 With more than one rank, one pump worker issues every step's
 collectives, in chunk order. Grid rank 0 alone postprocesses and writes;
-``predict`` returns None on the other ranks. ``predict_streaming``, the
-server and int8 run on one process; the model axis takes the dilated
-ResNets with the FCN head (models/segmentation.check_width_split).
+``predict`` returns None on the other ranks. The model axis takes the
+dilated ResNets with the FCN or the DeepLab head, in float and in int8
+(models/segmentation.check_width_split refuses EfficientNet);
+``predict_streaming`` and the server run on one process.
 
 int8 (``PredictConfig.quantize_int8``, opt-in and approximate; JAX
 pipeline/predict.py): the first chunk's first images calibrate the folded
 model at the engine's dtype before the pump submits any chunk
-(``_calibrate_first``), then the engine runs the int8 model
+(``_calibrate_first``; under a mesh on grid rank 0 alone, at full width,
+its stats shared with every rank: ``quantize``), then the engine runs the
+int8 model
 (models/quantize.py): the float stem, cuBLAS int8 GEMMs, float32
 requantizing epilogues, float32 logits into ``upsample_argmax``.
 """
@@ -80,10 +83,11 @@ from ..io.native import image_info, load_image_u8, remove_small_zones_host2
 from ..models.convert import (load_jax_checkpoint, load_state_dict_into,
                               load_torch_checkpoint)
 from ..models.fold import fold_model
-from ..models.quantize import (check_quantizable,
+from ..models.quantize import (calibrate, check_quantizable,
                                is_jax_quantized_checkpoint,
                                is_quantized_checkpoint, load_jax_quantized,
-                               load_quantized, quantize_model)
+                               load_quantized, quantize_model, stat_paths,
+                               state_digest)
 from ..models.resnet import row_mask
 from ..models.segmentation import MODEL_FACTORIES, check_width_split
 from ..ops.ccl import remove_small_zones_ragged
@@ -137,14 +141,11 @@ class NeuralBarkCalculator:
         self._quantize_pending = False
         self._quant_lock = threading.Lock()
         kind = _load_checkpoint_kind(model_path)
-        if self.mesh.n_devices > 1 and (
-                kind in ("int8", "jax_int8") or self.config.quantize_int8):
-            raise ValueError("int8 runs on one process: its calibration "
-                             "and scales are one process's")
         if kind in ("int8", "jax_int8"):
             # an offline int8 checkpoint: no folding, no calibration
             load = load_quantized if kind == "int8" else load_jax_quantized
             self.model = load(model_path, model_name).to(self.device)
+            self._check_int8_state()
         else:
             model = MODEL_FACTORIES[model_name]()
             if self.config.quantize_int8:
@@ -458,14 +459,28 @@ class NeuralBarkCalculator:
         every rank."""
         if self.mesh.n_devices == 1:
             return
-        digest = hashlib.sha256(repr((names, chunks)).encode()).digest()
+        self._check_agree(
+            hashlib.sha256(repr((names, chunks)).encode()).digest(),
+            "planned different chunks (images or their sizes differ "
+            "between them)")
+
+    def _check_int8_state(self) -> None:
+        """Under a mesh of more than one rank: raise unless every rank's
+        int8 weights and scales are the same, bit for bit (a digest of the
+        state dict, gathered from every rank)."""
+        if self.mesh.n_devices > 1:
+            self._check_agree(state_digest(self.model),
+                              "hold different int8 weights or scales")
+
+    def _check_agree(self, digest: bytes, differ: str) -> None:
+        """Gather ``digest`` from every rank of the mesh and raise unless
+        they are equal; reading them back waits for every rank."""
         mine = torch.tensor(list(digest), dtype=torch.uint8,
                             device=self.device)
         every = self.mesh.world.gather_rows(mine[None]).cpu()
         if not bool((every == every[0]).all()):
-            raise RuntimeError(
-                f"rank {self.mesh.world.rank}: the ranks planned different "
-                f"chunks (images or their sizes differ between them)")
+            raise RuntimeError(f"rank {self.mesh.world.rank}: the ranks "
+                               f"{differ}")
 
     def _run_chunks(self, chunks, decode_chunk, exclude_nodes: bool,
                     postprocess: bool = True):
@@ -547,11 +562,41 @@ class NeuralBarkCalculator:
         device step normalizes, run at the engine's dtype on its device
         without row masks), quantize the folded float32 host weights and
         swap the engine to the int8 model; the host copy is freed. Needs
-        ``quantize_int8`` and no calibration yet."""
+        ``quantize_int8`` and no calibration yet.
+
+        Under a mesh every rank calls this with the same images: grid rank
+        0 alone calibrates, at full width with no split, as one process
+        does (JAX calibrates once, on the host); its stats reach every
+        rank as one float64 vector in ``stat_paths`` order, each rank
+        quantizes its own host weights with them, and a gathered digest
+        of the int8 state dicts checks that every rank holds the same."""
         if not self._quantize_pending:
             raise RuntimeError("quantize: the engine is not waiting for an "
                                "int8 calibration (quantize_int8 off, an "
                                "int8 checkpoint, or calibrated already)")
+        world = self.mesh.world
+        with stage_timer("predict/quantize_calibration"):
+            stats = (calibrate(self.model, self._calibration_batches(
+                groups, pad_h)) if world.is_main else None)
+            if world.size > 1:
+                paths = stat_paths(self.model)
+                mine = torch.tensor(
+                    [stats[p] for p in paths] if stats is not None
+                    else [0.0] * len(paths),
+                    dtype=torch.float64, device=self.device)
+                stats = dict(zip(paths, world.gather_rows(
+                    mine[None])[0].tolist()))  # rank 0's
+            qmodel = quantize_model(self.model, stats=stats,
+                                    folded_state=self._host_state)
+        self.model = qmodel.to(self.device)
+        del self._host_state
+        self._quantize_pending = False
+        self._check_int8_state()
+
+    def _calibration_batches(self, groups, pad_h: int | None
+                             ) -> list[torch.Tensor]:
+        """``quantize``'s groups as normalized NHWC batches at the
+        engine's dtype on its device."""
         batches = []
         for items in groups:
             height = pad_h or max(it.image.shape[0] for it in items)
@@ -563,12 +608,7 @@ class NeuralBarkCalculator:
                               dtype=torch.int32, device=self.device)
             x = self._normalize(torch.from_numpy(batch).to(self.device), vh)
             batches.append(x.to(self.dtype))
-        with stage_timer("predict/quantize_calibration"):
-            qmodel = quantize_model(self.model, batches,
-                                    folded_state=self._host_state)
-        self.model = qmodel.to(self.device)
-        del self._host_state
-        self._quantize_pending = False
+        return batches
 
     def _finish_batch_raw(self, exclude_nodes, chunk_idxs, items, valid_h,
                           out):

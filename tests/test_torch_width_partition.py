@@ -29,7 +29,9 @@ compare in this process:
 - lockstep: under (1, 2), a folder with three height buckets (more chunks
   than the pump's PREFETCH) and a resumed pass after deleting one output,
   both equal to the one process's CSV;
-- a 1x1 mesh issues no collective, and the refusals raise ValueError.
+- a 1x1 mesh issues no collective, and the refusals raise ValueError
+  (EfficientNet, predict_streaming and the server; DeepLab and int8 split
+  since tests/test_torch_width_zoo.py).
 """
 import os
 import shutil
@@ -533,13 +535,6 @@ def _refuse_strip():
     strip_range(60, _fake_mesh().model)  # strips of 30: no multiple of 8
 
 
-def _refuse_halo():
-    from neuralbarkcalculator_tpu_torch.parallel.spatial import exchange_halo
-
-    # W / n = 16: 2 feature columns a rank under layer4's dilation 4
-    exchange_halo(torch.zeros(1, 8, 4, 2), 4, 4, _fake_mesh().model)
-
-
 def _refuse_mesh():
     from neuralbarkcalculator_tpu_torch.parallel.distributed import (
         World, make_mesh)
@@ -555,19 +550,14 @@ def _refuse_model(pt, name):
                          device="cpu", mesh=_fake_mesh())
 
 
-def _refuse_int8(pt):
-    from neuralbarkcalculator_tpu_torch.models import segmentation as tseg
+def _refuse_int8_efficientnet(pt):
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
 
     config = _config(pt)
     config.quantize_int8 = True
-    tseg.MODEL_FACTORIES["_tiny_test"] = tiny_torch_model
-    try:
-        NeuralBarkCalculator(pt, config=config, model_name="_tiny_test",
-                             device="cpu", mesh=_fake_mesh())
-    finally:
-        tseg.MODEL_FACTORIES.pop("_tiny_test", None)
+    NeuralBarkCalculator(pt, config=config, model_name="fcn_efficientnet_b0",
+                         device="cpu", mesh=_fake_mesh())
 
 
 def _refuse_streaming(pt):
@@ -591,19 +581,18 @@ def _refuse_head_logits(pt):
 
 
 @pytest.mark.parametrize("case", [
-    "strip", "halo", "mesh", "deeplabv3_resnet50", "fcn_efficientnet_b0",
-    "int8", "streaming", "server", "head_logits"])
+    "strip", "mesh", "fcn_efficientnet_b0", "int8 fcn_efficientnet_b0",
+    "streaming", "server", "head_logits"])
 def test_refusals(jobs, case):
-    """Each raises ValueError: a strip width that is no multiple of 8, a
-    halo wider than the neighbour's strip, n_data x n_model != the world's
-    size, and under a model axis of 2 DeepLab, EfficientNet (in the engine
-    and in head_logits), int8, predict_streaming and the server."""
+    """Each raises ValueError: a strip width that is no multiple of 8,
+    n_data x n_model != the world's size, and under a model axis of 2
+    EfficientNet (in the engine, float and int8, and in head_logits),
+    predict_streaming and the server."""
     pt = jobs["pt"]
-    run = {"strip": _refuse_strip, "halo": _refuse_halo,
-           "mesh": _refuse_mesh,
-           "deeplabv3_resnet50": lambda: _refuse_model(pt, case),
+    run = {"strip": _refuse_strip, "mesh": _refuse_mesh,
            "fcn_efficientnet_b0": lambda: _refuse_model(pt, case),
-           "int8": lambda: _refuse_int8(pt),
+           "int8 fcn_efficientnet_b0": lambda: _refuse_int8_efficientnet(
+               pt),
            "streaming": lambda: _refuse_streaming(pt),
            "server": lambda: _refuse_server(pt),
            "head_logits": lambda: _refuse_head_logits(pt)}[case]
