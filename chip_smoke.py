@@ -193,6 +193,33 @@ reductions' bytes equal the shapes' count; the int8 ranks' digests of
 their int8 weights and scales are equal (and printed beside the int8
 phase's one-process digest).
 
+The width effnet phase runs after the width zoo phase: EfficientNet under
+the mesh's model axis (TF-SAME halos on strips of 32 columns, the
+squeeze-excite pool summed over the full width), as the width phase's
+child ranks over gloo on the one card, with the zoo phase's checkpoints:
+fcn_efficientnet_b0 in float32 under (1, 2) over the 16 images and
+deeplabv3_efficientnet_b7 in float32 under (1, 2) over 8, each image's
+mask >= 99.9 % a one-process float32 pass's of the same model and images
+(made here); fcn_efficientnet_b0 in bf16 under (1, 4) over 8, >= 95 % a
+one-process bf16 pass's masks. Each rank launches upsample_argmax (at
+stride 32 on the gathered full-width logits); its halo bytes and its
+squeeze-excite (and ASPP) reductions' bytes equal the shapes' count. The
+zoo phase times the one-process device step of fcn_efficientnet_b0 and
+deeplabv3_efficientnet_b7 in turns with squeeze-excite's pool as one
+process takes it (the mean) and as a split rank takes it (the column
+sums).
+Then the mesh stream and serve phase (``--mesh-rank``, internal children
+over gloo): predict_streaming of fcn_resnet50 in float32 under (2, 1) and
+(1, 2) over copies of phase 5's raw scans, grid rank 0 reading and
+preprocessing them (host backend) and broadcasting each chunk's plan and
+pixels, its CSV's rows in the one-process streaming run's order and each
+image's mask >= 99.9 % that run's; then a (2, 1) float32 server, grid rank
+0's cli/serve.make_server and the other rank's BatchingPredictor.follow:
+warm-up, serving_bench's sequential and concurrent phases over the 16
+images (requests/s and p50 logged, not held: the ranks take turns on one
+card), each image's mask answer >= 99.9 % a direct one-process float32
+predict_images call's; every rank launches upsample_argmax.
+
 The entry points and tools of the port: after phase 3's profile, the
 trace phase wraps one warm folder pass in utils.device_trace and finds
 upsample_argmax's kernel in the Chrome trace it writes, once a launch.
@@ -438,6 +465,30 @@ WIDTH_ZOO_RUNS = (("deeplabv3_resnet50", False, 1, 2, "float32", N_IMAGES),
                   ("deeplabv3_resnet50", False, 1, 4, "bf16", 8),
                   ("fcn_resnet50", True, 2, 1, "bf16", N_IMAGES),
                   ("deeplabv3_resnet50", True, 1, 2, "bf16", N_IMAGES))
+# The width effnet phase (after the width zoo phase): (model, n_data,
+# n_model, dtype, images) of each mesh over the main path's folder, the
+# zoo phase's checkpoints. fcn_efficientnet_b0 (1, 2) float32 over the 16
+# images and deeplabv3_efficientnet_b7 (1, 2) float32 over 8, each image's
+# mask >= F32_AGREE_FLOOR a one-process float32 pass's of the same model
+# over the same images (made here); fcn_efficientnet_b0 (1, 4) bf16 over
+# 8 (strips of 256 columns, 8 feature columns: B0's head and its last
+# stages' halos span ranks) against a one-process bf16 B0 pass's masks,
+# WIDTH_BF16_FLOOR over the images.
+WIDTH_EFFNET_RUNS = (("fcn_efficientnet_b0", 1, 2, "float32", N_IMAGES),
+                     ("deeplabv3_efficientnet_b7", 1, 2, "float32", 8),
+                     ("fcn_efficientnet_b0", 1, 4, "bf16", 8))
+# The mesh stream and serve phase (after the width effnet phase), float32
+# fcn_resnet50 (phase 3's checkpoint): predict_streaming under each
+# MESH_STREAMS mesh (the meshes at once) over copies of phase 5's raw
+# scans (grid rank 0 reads and preprocesses them, host backend), against
+# a one-process streaming
+# run (the CSV's rows in its order, masks >= F32_AGREE_FLOOR an image);
+# then a MESH_SERVE server (grid rank 0's make_server, the other ranks
+# following) through serving_bench's sequential and concurrent phases
+# over the 16 images, then each image as a mask answer against a direct
+# one-process float32 predict_images call (>= F32_AGREE_FLOOR an image).
+MESH_STREAMS = ((2, 1), (1, 2))
+MESH_SERVE = (2, 1)
 # The two-rank phase: cli/train at global batch 10 (each of 2 ranks the
 # main path's 5), samples factor 2: 24 * 2 // 10 = 4 steps. Its first step
 # starts from equal weights and is held to the one-process step: the loss
@@ -2327,18 +2378,24 @@ def expected_halo_bytes(model_name: str, rows: int, pad_h: int,
                         int8: bool = False) -> int:
     """The halo bytes model rank ``rank`` of ``n_model`` receives from
     other ranks in one launch of ``rows`` images at ``pad_h``, worked out
-    from the factory's shapes alone: the max pool's (1, 0) columns on the
-    stem's 64 channels (``elem``-byte elements, the engine's dtype), each
-    block's conv2, then the FCN head's 3x3, or the ASPP's one exchange at
-    the widest rate that reads past its centre tap (float: unless the
-    rate reaches past the map's height and width; int8: past its width)
-    and the DeepLab head's 3x3; 1-byte elements after the stem for int8.
-    A halo wider than a strip takes columns from as many ranks as it
-    spans, none past the image (the stem's halo comes with the input)."""
+    from the factory's shapes alone. The dilated ResNets: the max pool's
+    (1, 0) columns on the stem's 64 channels (``elem``-byte elements, the
+    engine's dtype), each block's conv2 (1-byte elements after the stem
+    for int8). EfficientNet: each block's depthwise SAME conv, its
+    ``same_halo`` on its expanded channels at the block's input height
+    (the 3x3/2 stem's halo comes with the input). Then the FCN head's 3x3,
+    or the ASPP's one exchange at the widest rate that reads past its
+    centre tap (float: unless the rate reaches past the map's height and
+    width; int8: past its width) and the DeepLab head's 3x3. A halo wider
+    than a strip takes columns from as many ranks as it spans, none past
+    the image."""
+    from neuralbarkcalculator_tpu_torch.models.efficientnet import (
+        EfficientNetBackbone)
     from neuralbarkcalculator_tpu_torch.models.heads import (
         ASPP_CHANNELS, ASPP_RATES, DeepLabHead)
     from neuralbarkcalculator_tpu_torch.models.segmentation import (
         MODEL_FACTORIES)
+    from neuralbarkcalculator_tpu_torch.parallel.spatial import same_halo
     import torch
 
     with torch.device("meta"):  # the layout only
@@ -2348,16 +2405,27 @@ def expected_halo_bytes(model_name: str, rows: int, pad_h: int,
         cols = min(left, rank * w) + min(right, (n_model - 1 - rank) * w)
         return e * rows * channels * height * cols
 
-    total = received(1, 0, 64, pad_h // 2, WIDTH // 2 // n_model, elem)
     q = 1 if int8 else elem
-    height, w = pad_h // 4, WIDTH // 4 // n_model
-    for stage in range(4):
-        for block in getattr(layout.backbone, f"layer{stage + 1}"):
-            c = block.conv2
-            s_, d = c.stride[1], c.dilation[1]
-            total += received(d, d - s_ + 1, c.in_channels, height, w, q)
-            height //= s_
-            w //= s_
+    if isinstance(layout.backbone, EfficientNetBackbone):
+        total = 0
+        height, w = -(-pad_h // 2), WIDTH // 2 // n_model
+        for block in layout.backbone.model._blocks:
+            c = block._depthwise_conv
+            s_ = c.stride[1]
+            total += received(*same_halo(c.kernel_size[1], s_),
+                              c.in_channels, height, w, elem)
+            height, w = -(-height // s_), w // s_
+    else:
+        total = received(1, 0, 64, pad_h // 2, WIDTH // 2 // n_model, elem)
+        height, w = pad_h // 4, WIDTH // 4 // n_model
+        for stage in range(4):
+            for block in getattr(layout.backbone, f"layer{stage + 1}"):
+                c = block.conv2
+                s_, d = c.stride[1], c.dilation[1]
+                total += received(d, d - s_ + 1, c.in_channels, height, w,
+                                  q)
+                height //= s_
+                w //= s_
     head = layout.classifier
     if not isinstance(head, DeepLabHead):
         return total + received(1, 1, head[0].in_channels, height, w, q)
@@ -2370,12 +2438,31 @@ def expected_halo_bytes(model_name: str, rows: int, pad_h: int,
 
 
 def expected_reduced_bytes(model_name: str, rows: int, int8: bool) -> int:
-    """The pooled branch's reduction over the model group in one launch
-    of ``rows`` images: DeepLab's column sums [rows, 2048, WIDTH / 8]
-    float32, or its int8 map's sums [rows, 2048] int32; none for FCN."""
-    if not model_name.startswith("deeplabv3"):
-        return 0
-    return rows * 2048 * 4 * (1 if int8 else WIDTH // 8)
+    """The reductions over the model group in one launch of ``rows``
+    images, in bytes of the full-width tensor each reduces: EfficientNet's
+    squeeze-excite column sums [rows, C, W] float32 of every block (C its
+    expanded channels, W the full width after its stride), and DeepLab's
+    pooled branch, its column sums [rows, C, WIDTH / stride] float32 or
+    its int8 map's sums [rows, C] int32."""
+    from neuralbarkcalculator_tpu_torch.models.efficientnet import (
+        EfficientNetBackbone)
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        MODEL_FACTORIES)
+    import torch
+
+    with torch.device("meta"):  # the layout only
+        layout = MODEL_FACTORIES[model_name]()
+    total = 0
+    if isinstance(layout.backbone, EfficientNetBackbone):
+        w = WIDTH // 2
+        for block in layout.backbone.model._blocks:
+            c = block._depthwise_conv
+            w //= c.stride[1]
+            total += rows * c.out_channels * w * 4
+    if model_name.startswith("deeplabv3"):
+        total += rows * layout.classifier.in_channels * 4 * (
+            1 if int8 else WIDTH // layout.backbone.feature_stride)
+    return total
 
 
 def width_rank_child(torch, argv: list[str]) -> dict:
@@ -2442,14 +2529,18 @@ def width_rank_child(torch, argv: list[str]) -> dict:
                                for r in local_rows) if n_model > 1 else 0
 
         # one launch batch of BATCH images at PAD_H: this rank's rows and
-        # strip under the mesh, against the same model on one process
+        # strip under the mesh, against the same model on one process (the
+        # exact-height path, EfficientNet's, without row masks)
         items = folder_items(root, range(BATCH))
         full = engine._pad_group(items, PAD_H, BATCH)
         heights = np.array([it.image.shape[0] for it in items], np.int32)
         rows = mesh.data.rank_slice(BATCH)
-        vh = torch.from_numpy(heights[rows]).to(engine.device)
-        strip = np.ascontiguousarray(
-            full[rows][:, :, stem_columns(WIDTH, mesh.model)])
+        vh = (None if engine._exact_heights
+              else torch.from_numpy(heights[rows]).to(engine.device))
+        backbone = engine.model.backbone
+        strip = np.ascontiguousarray(full[rows][:, :, stem_columns(
+            WIDTH, mesh.model, backbone.stem_halo,
+            backbone.strip_multiple)])
         with torch.inference_mode():
             got = engine._logits(torch.from_numpy(strip).to(engine.device),
                                  vh)
@@ -2680,6 +2771,381 @@ def phase_width_zoo(torch, workdir: str, main_root: str, ckpts: dict,
             torch, workdir, main_root, ckpts[model_name], model_name, int8,
             n_data, n_model, dtype, n_images, single_rows, want_dual,
             against, card)
+    return out
+
+
+def phase_width_effnet(torch, workdir: str, main_root: str, ckpts: dict,
+                       single_root: str, card: str) -> dict:
+    """EfficientNet under the mesh's model axis on the card
+    (WIDTH_EFFNET_RUNS, ``width_run``): the zoo phase's
+    fcn_efficientnet_b0 and deeplabv3_efficientnet_b7 checkpoints
+    (``ckpts``), each run against a one-process pass of the same model,
+    dtype and images over a copy of the folder (made here). Returns each
+    run's upsample_argmax launches by rank."""
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+
+    single_rows = _read_csv_rows(single_root)
+    refs = {}
+    for model_name, _, _, dtype, n_images in WIDTH_EFFNET_RUNS:
+        key = (model_name, dtype, n_images)
+        if key in refs:
+            continue
+        root = os.path.join(workdir, f"width_effnet_single_{model_name}_"
+                            f"{dtype}_{n_images}")
+        copy_folder(main_root, root, False)
+        for i in range(n_images, N_IMAGES):
+            os.remove(os.path.join(root, "processed", "samples", "sapin",
+                                   f"img{i:02d}.png"))
+        t0 = time.perf_counter()
+        engine = NeuralBarkCalculator(
+            ckpts[model_name], model_name=model_name, config=PredictConfig(
+                model_path=ckpts[model_name], figure_dpi=DPI,
+                use_bfloat16=dtype == "bf16"))
+        engine.predict(root, progress=False)
+        del engine
+        torch.cuda.empty_cache()
+        log(f"width effnet: one-process {dtype} {model_name} over "
+            f"{n_images} images {time.perf_counter() - t0:.3f} s (load and "
+            f"cold pass; {card})")
+        refs[key] = root
+    out = {}
+    for model_name, n_data, n_model, dtype, n_images in WIDTH_EFFNET_RUNS:
+        ref_root = refs[(model_name, dtype, n_images)]
+
+        def want_dual(fname, wood, ref_root=ref_root):
+            return load_image_u8(os.path.join(ref_root, "results",
+                                              "outputs", wood, fname),
+                                 grayscale=True)
+        out[f"{model_name} float ({n_data}, {n_model}) {dtype}"] = \
+            width_run(torch, workdir, main_root, ckpts[model_name],
+                      model_name, False, n_data, n_model, dtype, n_images,
+                      single_rows, want_dual,
+                      f"the one-process {dtype} {model_name} engine", card)
+    return out
+
+
+def mesh_rank_child(torch, argv: list[str]) -> dict:
+    """The mesh stream and serve phase's child (``--mesh-rank RANK N_DATA
+    N_MODEL PORT MODE ROOT CKPT``): rank RANK of an N_DATA x N_MODEL mesh
+    over gloo on the one card, the float32 fcn_resnet50 of CKPT. MODE
+    ``stream``: predict_streaming over ROOT's raw scans, grid rank 0
+    reading Preprocessor(backend="host").preprocess_stream(ROOT). MODE
+    ``serve``: grid rank 0 runs ``mesh_serve_main`` over ROOT's processed
+    images, the other ranks ``BatchingPredictor.follow``. Every launch
+    count is set to 0 just before and read just after."""
+    from neuralbarkcalculator_tpu_torch.cli.serve import (build_parser,
+                                                          make_engine)
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.parallel.distributed import (
+        initialize_distributed, make_mesh, shutdown_distributed)
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+    from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
+        Preprocessor)
+    from neuralbarkcalculator_tpu_torch.pipeline.serving import (
+        BatchingPredictor)
+
+    rank, n_data, n_model, port = (int(a) for a in argv[:4])
+    mode, root, ckpt = argv[4:7]
+    os.environ.update(torchrun_env(rank, n_data * n_model, port))
+    world = initialize_distributed(backend="gloo")
+    try:
+        mesh = make_mesh(n_data, n_model, world)
+        if mode == "stream":
+            engine = NeuralBarkCalculator(ckpt, mesh=mesh, config=PredictConfig(
+                model_path=ckpt, figure_dpi=DPI, use_bfloat16=False))
+            world.barrier()
+            counters = reset_counters()
+            t0 = time.perf_counter()
+            csv = engine.predict_streaming(
+                root, Preprocessor(backend="host").preprocess_stream(root)
+                if world.is_main else None, progress=False)
+            torch.cuda.synchronize()
+            result = {"csv": csv, "seconds": time.perf_counter() - t0}
+        else:
+            args = build_parser().parse_args(
+                [ckpt, "--port", "0", "--batch_size", str(SERVE_BATCH),
+                 "--max_wait_ms", str(SERVE_WAIT_MS), "--fixed_height",
+                 str(PAD_H), "--float32"])
+            if world.is_main:
+                counters, result = mesh_serve_main(torch, args, mesh, root)
+            else:
+                calc = make_engine(args, mesh)
+                counters = reset_counters()
+                t0 = time.perf_counter()
+                BatchingPredictor.follow(calc)
+                result = {"seconds": time.perf_counter() - t0}
+        result.update(rank=rank, mesh=[mesh.data_rank, mesh.model_rank],
+                      launches={k: c.count for k, c in counters.items()})
+        world.barrier()
+    finally:
+        shutdown_distributed()
+    return result
+
+
+def mesh_serve_main(torch, args, mesh, root: str) -> tuple[dict, dict]:
+    """Grid rank 0 of the mesh server: make_server under ``mesh``, the
+    warm-up (every rank launches it), one request, serving_bench's
+    sequential and concurrent phases over ROOT's processed images, then
+    each image as a mask answer (written to ROOT/mesh_masks/), /v1/stats;
+    ``close()`` stops the followers. Returns (the launch counters, set to
+    0 before the warm-up; the numbers)."""
+    from neuralbarkcalculator_tpu_torch.cli.serve import (make_server,
+                                                          serve_in_thread)
+    from neuralbarkcalculator_tpu_torch.tools import serving_bench
+
+    srv = make_server(args, mesh=mesh)
+    predictor = srv.state.predictor
+    counters = reset_counters()
+    t_start = t0 = time.perf_counter()
+    predictor.warmup(PAD_H, WIDTH)
+    warm_s = time.perf_counter() - t0
+    thread = serve_in_thread(srv)
+    port = srv.server_address[1]
+    samples = os.path.join(root, "processed", "samples", "sapin")
+    pngs = []
+    for i in range(N_IMAGES):
+        with open(os.path.join(samples, f"img{i:02d}.png"), "rb") as f:
+            pngs.append(f.read())
+    device = serving_bench.device_name(predictor.calc.device)
+    masks = os.path.join(root, "mesh_masks")
+    os.makedirs(masks)
+    try:
+        check_answer("warm", 200, serving_bench.one_request(port, pngs[0])[1])
+        t0 = time.perf_counter()
+        seq_row, seq_answers = serving_bench.sequential(
+            port, pngs, SERVE_SEQ, "float32", device)
+        seq_s = time.perf_counter() - t0
+        conc_row, conc_answers = serving_bench.concurrent(
+            port, pngs, SERVE_CLIENTS, SERVE_PER_CLIENT, "float32", device)
+        for i, a in enumerate(seq_answers + conc_answers):
+            check_answer(f"mesh request {i}", 200, a)
+        with ThreadPoolExecutor(max_workers=SERVE_BATCH) as pool:
+            answers = list(pool.map(lambda b: http_call(
+                port, "POST", "/v1/predict?format=mask", b), pngs))
+        for i, (status, _, data, _) in enumerate(answers):
+            if status != 200:
+                raise AssertionError(f"mesh mask {i}: HTTP {status}")
+            with open(os.path.join(masks, f"img{i:02d}.png"), "wb") as f:
+                f.write(data)
+        stats = predictor.snapshot_stats()
+    finally:
+        stop_server(srv, thread)
+    return counters, {"warm_s": warm_s, "seq": seq_row, "seq_s": seq_s,
+                      "seconds": time.perf_counter() - t_start,
+                      "conc": conc_row, "stats": stats,
+                      "sent": 1 + SERVE_SEQ + SERVE_CLIENTS
+                      * SERVE_PER_CLIENT + N_IMAGES}
+
+
+def start_mesh_children(n_data: int, n_model: int, mode: str, root: str,
+                        ckpt: str) -> list:
+    """One mesh's ranks as ``--mesh-rank`` children of this script on the
+    one card, started."""
+    port = free_port()
+    size = n_data * n_model
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+         str(rank), str(n_data), str(n_model), str(port), mode, root, ckpt],
+        cwd=REPO, env={**os.environ, **torchrun_env(rank, size, port)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(size)]
+
+
+def finish_mesh_children(procs: list, label: str, t0: float
+                         ) -> tuple[list[dict], float]:
+    """Wait for a mesh's children; raises unless every rank exits 0.
+    Returns (each rank's result, the wall time from ``t0`` to every
+    exit)."""
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank, (p, (stdout, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{label}: rank {rank} exited "
+                               f"{p.returncode}: {err[-3000:]}")
+        ranks.append(json.loads(stdout.strip().splitlines()[-1]))
+    return ranks, wall
+
+
+def scan_copy(scan_root: str, root: str) -> int:
+    """Phase 5's raw scans (``scan_root``/samples) under a new predict
+    root with empty processed/ and results/ folders; returns the count."""
+    import shutil
+
+    shutil.copytree(os.path.join(scan_root, "samples"),
+                    os.path.join(root, "samples"))
+    n = 0
+    for wood in os.listdir(os.path.join(root, "samples")):
+        n += len(os.listdir(os.path.join(root, "samples", wood)))
+        for sub in ("processed/samples", "results/combined_images",
+                    "results/outputs"):
+            os.makedirs(os.path.join(root, sub, wood))
+    return n
+
+
+def dual_agreement(a_root: str, b_root: str, rows: list[str]
+                   ) -> tuple[float, float]:
+    """(share of equal pixels over ``rows``' dual masks, least image's)
+    between two predict roots."""
+    from neuralbarkcalculator_tpu_torch.io.native import load_image_u8
+
+    least, same, total = 1.0, 0, 0
+    for row in rows:
+        fname, wood = row.split("\t")[:2]
+        a, b = (load_image_u8(os.path.join(r, "results", "outputs", wood,
+                                           fname), grayscale=True)
+                for r in (a_root, b_root))
+        n = int((a == b).sum())
+        least = min(least, n / b.size)
+        same += n
+        total += b.size
+    return same / total, least
+
+
+def phase_mesh_stream_serve(torch, workdir: str, main_root: str, ckpt: str,
+                            scan_root: str, card: str) -> dict:
+    """predict_streaming and the server over a (data, model) grid of
+    child processes on the one card (MESH_STREAMS, MESH_SERVE): every
+    rank launches upsample_argmax; the streams' CSVs hold the one-process
+    streaming run's rows in its order and masks >= F32_AGREE_FLOOR an
+    image; every mask answer of the server >= F32_AGREE_FLOOR a direct
+    one-process float32 predict_images call's. requests/s and p50 are
+    logged, not held (the ranks take turns on one card). Returns the
+    upsample_argmax launches by run and rank."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from neuralbarkcalculator_tpu_torch.config import PredictConfig
+    from neuralbarkcalculator_tpu_torch.pipeline.predict import (
+        NeuralBarkCalculator)
+    from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
+        ProcessedImage, Preprocessor)
+
+    ref_root = os.path.join(workdir, "mesh_stream_single")
+    n = scan_copy(scan_root, ref_root)
+    t0 = time.perf_counter()
+    engine = NeuralBarkCalculator(ckpt, config=PredictConfig(
+        model_path=ckpt, figure_dpi=DPI, use_bfloat16=False))
+    engine.predict_streaming(
+        ref_root, Preprocessor(backend="host").preprocess_stream(ref_root),
+        total=n, progress=False)
+    del engine
+    torch.cuda.empty_cache()
+    ref_rows = _read_csv_rows(ref_root)
+    log(f"mesh stream: one-process float32 predict_streaming over the {n} "
+        f"raw scans {time.perf_counter() - t0:.3f} s (load, host "
+        f"preprocess and cold pass; {card})")
+    out = {}
+    # the streaming meshes run at once (their times are logged, not held)
+    t0 = time.perf_counter()
+    jobs = []
+    for n_data, n_model in MESH_STREAMS:
+        root = os.path.join(workdir, f"mesh_stream_{n_data}x{n_model}")
+        scan_copy(scan_root, root)
+        jobs.append((n_data, n_model, root, start_mesh_children(
+            n_data, n_model, "stream", root, ckpt)))
+    results = []
+    try:
+        for n_data, n_model, root, procs in jobs:
+            label = f"mesh stream ({n_data}, {n_model}) float32"
+            results.append((n_data, n_model, root, label,
+                            *finish_mesh_children(procs, label, t0)))
+    finally:  # a failed mesh leaves none of the other's ranks running
+        for *_, procs in jobs:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for n_data, n_model, root, label, ranks, wall in results:
+        rows = _read_csv_rows(root)
+        same_names = ([r.split("\t")[:2] for r in rows]
+                      == [r.split("\t")[:2] for r in ref_rows])
+        agree, least = dual_agreement(root, ref_root, ref_rows[1:])
+        for r in ranks:
+            log(f"{label} rank {r['rank']} (data, model) {r['mesh']}: "
+                f"upsample_argmax launches {r['launches']['upsample_argmax']}"
+                f" (all {r['launches']}); predict_streaming "
+                f"{r['seconds']:.3f} s; CSV {r['csv']}")
+        log(f"{label} ({card}): {n_data * n_model} processes on one card "
+            f"over gloo beside the other streaming mesh's, {n} raw scans "
+            f"read by grid rank 0: wall {wall:.3f} s from launch to every "
+            f"exit; CSV {len(rows) - 1} rows, names "
+            f"and order equal to the one-process stream's {same_names}; "
+            f"dual masks agree on {agree:.6f} of pixels, least image "
+            f"{least:.6f} (floor {F32_AGREE_FLOOR} an image)")
+        if not same_names or least < F32_AGREE_FLOOR or any(
+                r["launches"]["upsample_argmax"] == 0
+                or (r["csv"] is None) != (r["rank"] != 0) for r in ranks):
+            raise AssertionError(f"{label}: {ranks}")
+        out[label] = [r["launches"]["upsample_argmax"] for r in ranks]
+
+    n_data, n_model = MESH_SERVE
+    label = f"mesh serve ({n_data}, {n_model}) float32"
+    root = os.path.join(workdir, "mesh_serve")
+    copy_folder(main_root, root, False)
+    ranks, wall = finish_mesh_children(start_mesh_children(
+        n_data, n_model, "serve", root, ckpt), label, time.perf_counter())
+    main = ranks[0]
+    pngs = []
+    for i in range(N_IMAGES):
+        with open(os.path.join(root, "processed", "samples", "sapin",
+                               f"img{i:02d}.png"), "rb") as f:
+            pngs.append(f.read())
+    host_pre = Preprocessor(backend="host")
+    items = [ProcessedImage(host_pre.preprocess_one(np.asarray(
+        Image.open(io.BytesIO(b)).convert("RGB"))), f"d{i}", "serving")
+        for i, b in enumerate(pngs)]
+    direct = NeuralBarkCalculator(ckpt, config=PredictConfig(
+        model_path=ckpt, use_bfloat16=False, batch_size=SERVE_BATCH,
+        fixed_pad_height=PAD_H))
+    want = {it.fname: m for it, m in direct.predict_images(items)}
+    del direct
+    torch.cuda.empty_cache()
+    least = 1.0
+    for i in range(N_IMAGES):
+        dual = np.asarray(Image.open(os.path.join(root, "mesh_masks",
+                                                  f"img{i:02d}.png")))
+        got = np.select([dual == 127, dual == 255], [1, 2], 0)
+        if got.shape != want[f"d{i}"].shape:
+            raise AssertionError(f"{label}: mask {i} shape {got.shape}")
+        least = min(least, float((got == want[f"d{i}"]).mean()))
+    stats = main["stats"]
+    for r in ranks:
+        log(f"{label} rank {r['rank']} (data, model) {r['mesh']}: "
+            f"upsample_argmax launches {r['launches']['upsample_argmax']} "
+            f"(all {r['launches']}; the warm-up's included); "
+            f"{'served' if r['rank'] == 0 else 'followed'} "
+            f"{r['seconds']:.3f} s")
+    log(f"serving_bench under {label}: {json.dumps(main['seq'])}")
+    log(f"serving_bench under {label}: {json.dumps(main['conc'])}")
+    log(f"{label} ({card}): {n_data * n_model} processes on one card over "
+        f"gloo (grid rank 0 serves, the other ranks follow): warm-up "
+        f"{main['warm_s']:.3f} s; sequential {SERVE_SEQ} requests "
+        f"{SERVE_SEQ / main['seq_s']:.3f} requests/s, p50 "
+        f"{main['seq']['p50_ms']:.3f} ms; {SERVE_CLIENTS} clients x "
+        f"{SERVE_PER_CLIENT} {main['conc']['req_per_s']:.3f} requests/s, "
+        f"p50 {main['conc']['p50_ms']:.3f} ms (logged, not held: the ranks "
+        f"take turns on one card); stats {stats}; the {N_IMAGES} mask "
+        f"answers against a direct one-process float32 predict_images "
+        f"call, least image {least:.6f} (floor {F32_AGREE_FLOOR}); wall "
+        f"{wall:.3f} s from launch to every exit")
+    if least < F32_AGREE_FLOOR or stats["errors"] \
+            or stats["served"] != main["sent"] or any(
+                r["launches"]["upsample_argmax"] == 0 for r in ranks):
+        raise AssertionError(f"{label}: {ranks}")
+    out[label] = [r["launches"]["upsample_argmax"] for r in ranks]
     return out
 
 
@@ -4279,6 +4745,11 @@ def random_checkpoint(torch, name: str, seed: int, root: str, path: str,
 def zoo_step_ms(torch, engine) -> float:
     """The engine's device step alone on a batch of BATCH random 1024 x
     1024 images (the exact-height path at that height), back to back."""
+    return zoo_step_runner(torch, engine)()
+
+
+def zoo_step_runner(torch, engine):
+    """A function timing ``zoo_step_ms``'s step, its inputs made once."""
     import numpy as np
 
     from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
@@ -4288,9 +4759,42 @@ def zoo_step_ms(torch, engine) -> float:
                                             np.uint8)
     batch, valid_h, rows = step_inputs(
         torch, engine, [ProcessedImage(img, "step", "zoo")] * BATCH)
-    with torch.inference_mode():
-        return time_ms(torch, lambda: engine._device_step(
-            batch, valid_h, rows, pack=True), reps=3, runs=3)
+
+    def run() -> float:
+        with torch.inference_mode():
+            return time_ms(torch, lambda: engine._device_step(
+                batch, valid_h, rows, pack=True), reps=3, runs=3)
+    return run
+
+
+def squeeze_pool_step_ms(torch, engine) -> tuple[float, float]:
+    """An EfficientNet engine's device step alone (``zoo_step_ms``) with
+    squeeze-excite's pool as one process takes it (the float32 mean) and,
+    in turns with it, as a rank of a split takes it (the column sums of
+    parallel/spatial.sum_width_f32, here without the gather): mean, column
+    sums, column sums, mean. Returns the two times, each the mean of its
+    two turns."""
+    from neuralbarkcalculator_tpu_torch.models.efficientnet import (
+        MBConvBlock)
+    from neuralbarkcalculator_tpu_torch.parallel.spatial import (
+        sum_width_f32)
+
+    def column_sums(block, h, width):
+        total = sum_width_f32(h, None)[:, :, None, None]
+        return (total / (h.shape[2] * h.shape[3])).to(h.dtype)
+
+    mean_pool = MBConvBlock._squeeze
+    run = zoo_step_runner(torch, engine)
+    times: dict = {"mean": [], "column sums": []}
+    for turn in ("mean", "column sums", "column sums", "mean"):
+        MBConvBlock._squeeze = (column_sums if turn == "column sums"
+                                else mean_pool)
+        try:
+            times[turn].append(run())
+        finally:
+            MBConvBlock._squeeze = mean_pool
+    return (statistics.mean(times["mean"]),
+            statistics.mean(times["column sums"]))
 
 
 def atrous_times(torch, engine) -> None:
@@ -4395,6 +4899,11 @@ def phase_zoo(torch, seed: int, workdir: str, root: str,
         log(f"zoo {name}: device step alone {step_ms:.3f} ms per batch of "
             f"{BATCH} at {PAD_H}x{WIDTH} = {BATCH / step_ms * 1e3:.1f} "
             f"images/s ceiling")
+        if name.startswith(("fcn_efficientnet", "deeplabv3_efficientnet")):
+            mean_ms, cols_ms = squeeze_pool_step_ms(torch, engine)
+            log(f"zoo {name}: device step alone in turns, squeeze-excite's "
+                f"pool the one process's mean {mean_ms:.3f} ms, a split "
+                f"rank's column sums (no gather) {cols_ms:.3f} ms")
         if name == "deeplabv3_resnet50":
             atrous_times(torch, engine)
         f32_agree = phase_reference(torch, engine, ckpt,
@@ -5298,6 +5807,11 @@ def main() -> int:
                                  "CKPT", "DTYPE", "MODEL", "INT8"),
                         default=None,
                         help=argparse.SUPPRESS)  # a width-phase child
+    parser.add_argument("--mesh-rank", dest="mesh_rank", nargs=7,
+                        metavar=("RANK", "N_DATA", "N_MODEL", "PORT", "MODE",
+                                 "ROOT", "CKPT"),
+                        default=None,
+                        help=argparse.SUPPRESS)  # a mesh stream/serve child
     parser.add_argument("--train-rank", dest="train_rank", nargs=4,
                         metavar=("RANK", "PORT", "WORKDIR", "SEED"),
                         default=None,
@@ -5331,6 +5845,10 @@ def main() -> int:
         return 0
     if args.width_rank:
         print(json.dumps(width_rank_child(torch, args.width_rank)),
+              flush=True)
+        return 0
+    if args.mesh_rank:
+        print(json.dumps(mesh_rank_child(torch, args.mesh_rank)),
               flush=True)
         return 0
     if args.train_rank:
@@ -5402,6 +5920,14 @@ def main() -> int:
              "deeplabv3_resnet50": zoo["deeplabv3_resnet50"]["ckpt"]},
             int8, sharded["single_root"], card)
         del int8
+        kernel["width_effnet_launches"] = timed(
+            "width effnet", phase_width_effnet, torch, workdir, main_root,
+            {name: zoo[name]["ckpt"] for name in (
+                "fcn_efficientnet_b0", "deeplabv3_efficientnet_b7")},
+            sharded["single_root"], card)
+        kernel["mesh_launches"] = timed(
+            "mesh stream and serve", phase_mesh_stream_serve, torch,
+            workdir, main_root, ckpt, scans["root"], card)
         kernel["jax_checkpoint_launches"] = timed(
             "jax checkpoints", phase_jax_checkpoints, torch, workdir,
             main_root, ckpt, card)

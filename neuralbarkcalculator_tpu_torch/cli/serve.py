@@ -41,6 +41,11 @@ each request thread decodes, preprocesses on the host and blocks on its
 future, while the one batcher thread makes every call into the engine.
 Backpressure: a bounded queue answers 503 with Retry-After instead of
 buffering without bound.
+
+Over a ``(data, model)`` mesh of processes (a library API, no flag, as in
+JAX): grid rank 0 calls ``make_server(args, mesh=mesh)`` and serves; every
+other rank calls ``BatchingPredictor.follow(make_engine(args, mesh))``
+with the same arguments (pipeline/serving.py).
 """
 from __future__ import annotations
 
@@ -277,13 +282,11 @@ def _combined_png_bytes(res, dpi: int) -> bytes:
         os.unlink(path)
 
 
-def make_server(args: argparse.Namespace) -> ThreadingHTTPServer:
-    """Build the engine, the batcher and the HTTP server (not serving
-    yet); apart from main() so tests can run it on an ephemeral port."""
+def make_engine(args: argparse.Namespace, mesh=None):
+    """The server's engine for ``args``, under ``mesh`` (this rank's
+    place in a ``(data, model)`` grid; None: one process)."""
     from ..config import PredictConfig
     from ..pipeline.predict import NeuralBarkCalculator
-    from ..pipeline.preprocess import Preprocessor
-    from ..pipeline.serving import BatchingPredictor
 
     config = PredictConfig(model_path=args.model_path)
     if args.batch_size is not None:
@@ -294,8 +297,20 @@ def make_server(args: argparse.Namespace) -> ThreadingHTTPServer:
         config.quantize_int8 = True
     if args.fixed_height:
         config.fixed_pad_height = args.fixed_height
-    calc = NeuralBarkCalculator(args.model_path, config=config,
-                                model_name=args.model, device=args.device)
+    return NeuralBarkCalculator(args.model_path, config=config,
+                                model_name=args.model, device=args.device,
+                                mesh=mesh)
+
+
+def make_server(args: argparse.Namespace, mesh=None) -> ThreadingHTTPServer:
+    """Build the engine, the batcher and the HTTP server (not serving
+    yet); apart from main() so tests can run it on an ephemeral port.
+    ``mesh``: as ``make_engine``'s; grid rank 0 serves."""
+    from ..pipeline.preprocess import Preprocessor
+    from ..pipeline.serving import BatchingPredictor
+
+    calc = make_engine(args, mesh)
+    config = calc.config
     predictor = BatchingPredictor(calc, batch_size=config.batch_size,
                                   max_wait_ms=args.max_wait_ms,
                                   queue_limit=args.queue_limit)

@@ -32,6 +32,22 @@ the true height's parity, so a zero-padded batch cannot reproduce each
 image's own conv phase; the predict engine runs these backbones at exact
 heights.
 
+Width partitioning (``width``, the model group of a mesh, JAX's ``model``
+axis; eval mode only): each rank holds a strip of the width, a multiple
+of 32 columns (``strip_multiple``, the feature stride), so every stage's
+strips and full width divide by its strides. A SAME conv's height padding
+stays its own; its width padding is the full width's, which on such a
+width is the halo ``parallel/spatial.same_halo(k, s)``: the strip is
+widened by the neighbours' columns (``exchange_halo``) and the conv runs
+with width padding 0. The stem's halo, (0, 1), comes with the input
+(``stem_halo``), as the ResNets' does. The 1x1 convs run on the strip as
+they are. Squeeze-excite's pool on a strip is the float32 sum of the
+column sums gathered over the group (``parallel/spatial.sum_width_f32``,
+one pooled reduction a block) divided by H x the full width; without a
+split it stays the plain float32 mean, one reduction, so the one
+process pays nothing for the split and the two pools differ by float32
+rounding only.
+
 The tables are the JAX package's (neuralbarkcalculator_tpu/models/
 efficientnet.py), which mirror efficientnet_pytorch's params; the port
 keeps its own copy.
@@ -44,6 +60,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.distributed import World
+from ..parallel.spatial import (exchange_halo, is_split, same_halo,
+                                sum_width_f32)
 from .seeding import BACKBONE_STREAM, drop_path, layer_generator
 
 # (width_mult, depth_mult) per variant b0..b7 (efficientnet_pytorch params)
@@ -99,7 +118,18 @@ class SameConv2d(nn.Conv2d):
     asymmetric padding (a stride-2 conv on an even size) is an explicit
     ``F.pad`` first."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, width: World | None = None
+                ) -> torch.Tensor:
+        """``width``: the model group whose strips make ``x``'s width; the
+        rank's columns of the full-width conv (``x`` a strip that its
+        stride divides, widened here by the SAME halo)."""
+        if is_split(width):
+            if x.shape[3] % self.stride[1]:
+                raise ValueError(
+                    f"a strip of {x.shape[3]} columns is no multiple of "
+                    f"the SAME conv's stride {self.stride[1]}")
+            left, right = same_halo(self.kernel_size[1], self.stride[1])
+            return self.rows_only(exchange_halo(x, left, right, width))
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
         top, bottom = same_padding(x.shape[2], kh, sh)
         left, right = same_padding(x.shape[3], kw, sw)
@@ -108,6 +138,17 @@ class SameConv2d(nn.Conv2d):
                             (top, left), 1, self.groups)
         x = F.pad(x, (left, right, top, bottom))
         return F.conv2d(x, self.weight, self.bias, self.stride, 0, 1,
+                        self.groups)
+
+    def rows_only(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv with its SAME height padding and width padding 0: on
+        a strip that already carries its width halo."""
+        top, bottom = same_padding(x.shape[2], self.kernel_size[0],
+                                   self.stride[0])
+        if top != bottom:
+            x = F.pad(x, (0, 0, top, bottom))
+            top = 0
+        return F.conv2d(x, self.weight, self.bias, self.stride, (top, 0), 1,
                         self.groups)
 
 
@@ -144,14 +185,15 @@ class MBConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None,
-                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
-        """``shard``: (rank, size) of a data-parallel batch."""
+                shard: tuple[int, int] = (0, 1),
+                width: World | None = None) -> torch.Tensor:
+        """``shard``: (rank, size) of a data-parallel batch; ``width``:
+        the model group that splits the width in eval mode, or None."""
         h = x
         if self._expand_conv is not None:
             h = F.silu(self._bn0(self._expand_conv(h)))
-        h = F.silu(self._bn1(self._depthwise_conv(h)))
-        # the pool in float32, as the ASPP's (models/heads.py)
-        s = h.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(h.dtype)
+        h = F.silu(self._bn1(self._depthwise_conv(h, width)))
+        s = self._squeeze(h, width)
         s = self._se_expand(F.silu(self._se_reduce(s)))
         h = h * torch.sigmoid(s)
         h = self._bn2(self._project_conv(h))
@@ -160,6 +202,18 @@ class MBConvBlock(nn.Module):
         if self.training and self.drop_rate > 0:
             h = drop_path(h, self.drop_rate, generator, shard)
         return h + x
+
+    def _squeeze(self, h: torch.Tensor, width: World | None
+                 ) -> torch.Tensor:
+        """Squeeze-excite's pool, [B, C, 1, 1] in ``h``'s dtype, taken in
+        float32. Without a split, the mean; on a strip, the sum of the
+        column sums gathered over the full width (``sum_width_f32``) over
+        H x the full width, the mean up to float32 rounding."""
+        if not is_split(width):
+            return h.mean(dim=(2, 3), keepdim=True,
+                          dtype=torch.float32).to(h.dtype)
+        total = sum_width_f32(h, width)[:, :, None, None]
+        return (total / (h.shape[2] * h.shape[3] * width.size)).to(h.dtype)
 
 
 class EfficientNetFeatures(nn.Module):
@@ -189,10 +243,16 @@ class EfficientNetFeatures(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None,
-                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
-        x = F.silu(self._bn0(self._conv_stem(x)))
+                shard: tuple[int, int] = (0, 1),
+                width: World | None = None) -> torch.Tensor:
+        """``width``: the model group that splits the width; then ``x`` is
+        this rank's strip with the stem's halo (``EfficientNetBackbone.
+        stem_halo``) and the features are its strip."""
+        x = (self._conv_stem.rows_only(x) if is_split(width)
+             else self._conv_stem(x))
+        x = F.silu(self._bn0(x))
         for block in self._blocks:
-            x = block(x, generator, shard)
+            x = block(x, generator, shard, width)
         return F.silu(self._bn1(self._conv_head(x)))
 
 
@@ -202,6 +262,10 @@ class EfficientNetBackbone(nn.Module):
 
     supports_ragged = False  # TF-SAME phase: exact heights only
     feature_stride = 32
+    # width partitioning: strips of the feature stride, so every strided
+    # stage divides them; the 3x3/2 SAME stem's halo comes with the input
+    strip_multiple = 32
+    stem_halo = same_halo(3, 2)  # (0, 1)
     bn_eps = BN_EPS
 
     def __init__(self, variant: int = 0, folded: bool = False):
@@ -216,9 +280,24 @@ class EfficientNetBackbone(nn.Module):
         return EfficientNetBackbone(self.variant, folded=True)
 
     def forward(self, x: torch.Tensor, dropout_seed: int | None = None,
-                shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
+                shard: tuple[int, int] = (0, 1),
+                width: World | None = None) -> torch.Tensor:
         """In train mode ``dropout_seed`` (the step's) keys the stochastic
-        depth; ``shard``: (rank, size) of a data-parallel batch."""
+        depth; ``shard``: (rank, size) of a data-parallel batch;
+        ``width``: the model group that splits the width (eval mode; ``x``
+        the rank's strip with ``stem_halo``, the strip a multiple of
+        ``strip_multiple``)."""
+        if is_split(width):
+            if self.training:
+                raise ValueError("width partitioning is inference-only: "
+                                 "EfficientNet in train mode does not "
+                                 "split the width")
+            strip = x.shape[3] - sum(self.stem_halo)
+            if strip % self.strip_multiple:
+                raise ValueError(
+                    f"a strip of {strip} columns is no multiple of "
+                    f"EfficientNet's strip_multiple {self.strip_multiple} "
+                    f"(its feature stride)")
         generator = None
         if self.training and any(b.drop_rate > 0 for b in self.model._blocks):
             if dropout_seed is None:
@@ -227,7 +306,7 @@ class EfficientNetBackbone(nn.Module):
                                  "depth")
             generator = layer_generator(dropout_seed, BACKBONE_STREAM,
                                         x.device)
-        return self.model(x, generator, shard)
+        return self.model(x, generator, shard, width)
 
     def valid_feature_height(self, valid_h):
         raise NotImplementedError(

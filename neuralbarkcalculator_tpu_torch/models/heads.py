@@ -69,7 +69,6 @@ def _norm(channels: int, folded: bool) -> nn.Module:
 
 class FCNHead(nn.Sequential):
     supports_quantize = True  # an int8 twin (QuantizedFCNHead)
-    supports_width = True  # its 3x3 conv takes a halo in eval mode
 
     def __init__(self, in_channels: int, channels: int,
                  dropout: float = 0.1, folded: bool = False):
@@ -266,7 +265,6 @@ class DeepLabHead(nn.Sequential):
     dropout."""
 
     supports_quantize = True  # an int8 twin (QuantizedDeepLabHead)
-    supports_width = True  # halo exchanges and a pooled sum, in eval mode
 
     def __init__(self, in_channels: int, channels: int,
                  folded: bool = False):
@@ -315,7 +313,6 @@ class QuantizedFCNHead(nn.Module):
     NHWC logits. The row mask zeroes the 3x3 conv's input; the dropout is
     an inference no-op and left out."""
 
-    supports_width = True  # its 3x3 conv takes an int8 halo
 
     def __init__(self, in_channels: int, channels: int):
         super().__init__()
@@ -402,7 +399,6 @@ class QuantizedDeepLabHead(nn.Module):
     the int8 ASPP, the row mask, the 3x3 ``conv`` and the 1x1
     ``classifier`` -> float32 NHWC logits."""
 
-    supports_width = True  # int8 halos and an all-reduced pooled sum
 
     def __init__(self, in_channels: int, channels: int):
         super().__init__()

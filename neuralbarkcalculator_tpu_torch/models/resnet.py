@@ -47,7 +47,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.distributed import World
-from ..parallel.spatial import conv2d_rows, conv2d_w, is_split, max_pool2d_w
+from ..parallel.spatial import (STEM_HALO, STRIP_MULTIPLE, conv2d_rows,
+                                conv2d_w, is_split, max_pool2d_w)
 from .qops import QConv, mask_rows, quantize_act, widen
 
 BN_EPS = 1e-5  # torchvision BatchNorm2d default
@@ -124,6 +125,10 @@ class _ResNetLayers(nn.Module):
     forward."""
 
     supports_ragged = True  # row masks make padded batches exact
+    # width partitioning: a strip is a multiple of the stride before
+    # layer3, and the 7x7/2 stem's halo comes with the input
+    strip_multiple = STRIP_MULTIPLE
+    stem_halo = STEM_HALO
 
     def _build_layers(self, stage_sizes: Sequence[int],
                       replace_stride_with_dilation: Sequence[bool],
@@ -187,7 +192,6 @@ class DilatedResNet(_ResNetLayers):
     layer4 feature map."""
 
     supports_quantize = True  # an int8 twin (QuantizedResNet)
-    supports_width = True  # halo exchanges split the width
     bn_eps = BN_EPS
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
@@ -222,7 +226,7 @@ class DilatedResNet(_ResNetLayers):
         ResNet has no random layer: ``dropout_seed`` and ``shard`` are
         taken, as every backbone takes them, and ignored. ``width``: the
         model group that splits the width; then ``x`` is this rank's
-        strip with the stem's halo (parallel/spatial.STEM_HALO columns,
+        strip with the stem's halo (``stem_halo`` columns,
         zero past the image's edges) and the features are its strip."""
         if is_split(width):
             x = conv2d_rows(self.conv1, x)
@@ -284,7 +288,6 @@ class QuantizedResNet(_ResNetLayers):
     post-ReLU values, so quantizing after it equals quantizing before it)
     and every block runs int8. NHWC in, int8 NHWC features out."""
 
-    supports_width = True  # halo exchanges split the width
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  replace_stride_with_dilation: Sequence[bool] = (

@@ -20,9 +20,12 @@ Width partitioning (``width``, the model group of a mesh; JAX's
 ``model`` axis): ``head_logits`` runs the backbone and head on this
 rank's strip of the width (parallel/spatial.py) and gathers the logits
 to the full width, as JAX's ``shard_map`` gathers them for
-``upsample_argmax`` (JAX pipeline/predict.py:870-882). Inference only:
-the dilated ResNets with the FCN or the DeepLab head, in float and in
-int8; ``check_width_split`` refuses EfficientNet.
+``upsample_argmax`` (JAX pipeline/predict.py:870-882). Inference only,
+every factory: the dilated ResNets with the FCN or the DeepLab head, in
+float and in int8, and EfficientNet (float only: int8 EfficientNet is
+refused by models/quantize.check_quantizable, as in JAX) on strips of
+its feature stride (models/efficientnet.py). The input strip carries the
+backbone's ``stem_halo``.
 """
 from __future__ import annotations
 
@@ -36,24 +39,10 @@ import torch.nn as nn
 from ..config import NUM_CLASSES
 from ..ops.resize import bicubic_resize_matrix, bicubic_upsample_ragged
 from ..parallel.distributed import World
-from ..parallel.spatial import STEM_HALO, gather_width, is_split
+from ..parallel.spatial import gather_width, is_split
 from .efficientnet import SCALING, EfficientNetBackbone
 from .heads import DeepLabHead, FCNHead
 from .resnet import resnet101_dilated, resnet50_dilated
-
-
-def check_width_split(model: nn.Module) -> None:
-    """Raise ``ValueError`` unless ``model``'s backbone and head can split
-    the width: EfficientNet cannot yet (squeeze-excite pools over the
-    whole width in every block; TF-SAME pads asymmetrically)."""
-    for label, part in (("backbone", model.backbone),
-                        ("head", model.classifier)):
-        if not getattr(part, "supports_width", False):
-            raise ValueError(
-                f"width partitioning: the {label} {type(part).__name__} "
-                f"cannot split the width: EfficientNet does not split yet "
-                f"(supported: the dilated ResNets with the FCN or the "
-                f"DeepLab head, in float and in int8)")
 
 
 class SegmentationModel(nn.Module):
@@ -84,15 +73,14 @@ class SegmentationModel(nn.Module):
         dropout and a backbone's stochastic depth (models/seeding.py);
         ``shard``, (rank, size), places a data-parallel rank's rows in the
         global batch's draws. ``width``: the model group that splits the
-        width; then ``x`` is this rank's strip with the stem's halo
-        (models/resnet.py), and the logits are the full width's."""
+        width; then ``x`` is this rank's strip with the backbone's
+        ``stem_halo``, and the logits are the full width's."""
         split = is_split(width)
         if split:
             if self.training:
                 raise ValueError("width partitioning is inference-only (the "
                                  "JAX package never splits a training "
                                  "step's width)")
-            check_width_split(self)
         width_kw = {"width": width} if split else {}
         x = x.permute(0, 3, 1, 2)
         if self.training:
@@ -132,7 +120,7 @@ class SegmentationModel(nn.Module):
         logits are the full width's."""
         in_h, in_w = x.shape[1], x.shape[2]
         if is_split(width):
-            in_w = (in_w - sum(STEM_HALO)) * width.size
+            in_w = (in_w - sum(self.backbone.stem_halo)) * width.size
         logits = self.head_logits(x, valid_h, dropout_seed, shard, width)
         if row_upsample is None:
             rows = torch.as_tensor(

@@ -31,13 +31,17 @@ gloo on the CPU.
 Folder prediction runs on a ``Mesh`` (``make_mesh``), the JAX mesh's
 ``(data, model)`` grid of processes: the launch batch's rows split over
 ``data`` and the image width over ``model`` (parallel/spatial.py,
-pipeline/predict.py). Its ``--shard K/N`` processes are another thing:
-independent, they meet only on the filesystem (pipeline/multihost.py).
+pipeline/predict.py). Streaming prediction and the server read their
+images on grid rank 0 alone, which hands every rank each chunk's plan
+and pixels (``World.broadcast_ints``, ``World.broadcast_u8``). Its
+``--shard K/N`` processes are another thing: independent, they meet
+only on the filesystem (pipeline/multihost.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -146,6 +150,41 @@ class World:
         for g in grads:
             g.copy_(flat[start:start + g.numel()].view_as(g))
             start += g.numel()
+
+    def broadcast_ints(self, values: Sequence[int] | None) -> list[int]:
+        """Rank 0's ``values`` (a short header of int64s; None on the other
+        ranks) on every rank: its length, then the values, each one
+        broadcast."""
+        if self.group is None:
+            return list(values)
+        src = dist.get_global_rank(self.group, 0)
+        n = torch.tensor([len(values) if self.rank == 0 else 0],
+                         dtype=torch.int64, device=self.device)
+        dist.broadcast(n, src, group=self.group)
+        buf = (torch.tensor(list(values), dtype=torch.int64,
+                            device=self.device) if self.rank == 0
+               else torch.empty(int(n.item()), dtype=torch.int64,
+                                device=self.device))
+        dist.broadcast(buf, src, group=self.group)
+        return buf.tolist()
+
+    def broadcast_u8(self, data: np.ndarray | None, nbytes: int
+                     ) -> np.ndarray:
+        """Rank 0's ``nbytes`` bytes (``data``, any uint8 array; None on
+        the other ranks) on every rank, as a flat uint8 array on the
+        host."""
+        if self.group is None:
+            return np.ascontiguousarray(data).reshape(-1)
+        buf = (torch.from_numpy(np.ascontiguousarray(data).reshape(-1))
+               .to(self.device) if self.rank == 0
+               else torch.empty(nbytes, dtype=torch.uint8,
+                                device=self.device))
+        if buf.numel() != nbytes:
+            raise ValueError(f"broadcast_u8: {buf.numel()} bytes, the "
+                             f"header says {nbytes}")
+        dist.broadcast(buf, dist.get_global_rank(self.group, 0),
+                       group=self.group)
+        return buf.cpu().numpy()
 
     def barrier(self) -> None:
         """Return once every rank has reached this point: a one-element

@@ -24,20 +24,31 @@ float and in int8 (models/qops.py):
 | FCN head 3x3, DeepLab head 3x3 | 1 | 1 |
 | ASPP atrous 3x3 at rate 12 / 24 / 36 | 36 | 36 (one exchange, sliced) |
 | 1x1 convs, the strided 1x1 downsample too | 0 | 0 |
+| EfficientNet stem 3x3/2 SAME | 0 | 1 (its ``stem_halo``, from the input) |
+| SAME 3x3/1 / 5x5/1 (depthwise) | 1 / 2 | 1 / 2 |
+| SAME 3x3/2 / 5x5/2 (depthwise) | 0 / 1 | 1 / 2 |
 
 An ASPP branch whose rate is at least the map's height and full width
-reads only its centre tap (models/heads.py) and takes no halo.
+reads only its centre tap (models/heads.py) and takes no halo. A TF-SAME
+conv (models/efficientnet.py) of kernel k and stride s on a width that s
+divides pads (k - s) // 2 columns before and the rest after, so its halo
+is ``same_halo(k, s)`` = ``halo(k, s, 1, (k - s) // 2)``, the SAME
+padding of the full width: EfficientNet's strips are multiples of its
+feature stride 32, so every stage's full width and strips divide by its
+strides.
 
 The max pool's zeros at the outer edges equal its -inf padding because
 its input is post-ReLU (models/resnet.py relies on the same for rows).
 The stem's halo comes with the input: every rank reads the whole image,
-so the engine uploads the rank's columns with 3 + 2 more
-(``stem_columns``) and the zeros at the image's edges
-(``stem_edge_pads``) are added after normalization.
+so the engine uploads the rank's columns with the backbone's
+``stem_halo`` more (3 + 2 for the ResNets' 7x7/2, 0 + 1 for
+EfficientNet's 3x3/2; ``stem_columns``) and the zeros at the image's
+edges (``stem_edge_pads``) are added after normalization.
 
-A strip's width must be a multiple of 8, the stride before layer3, so
-that each strided op's strip starts on a multiple of its stride; it
-raises ``ValueError`` otherwise.
+A strip's width must be a multiple of the backbone's ``strip_multiple``
+(8 for the dilated ResNets, the stride before layer3; 32 for
+EfficientNet, its feature stride), so that each strided op's strip
+starts on a multiple of its stride; it raises ``ValueError`` otherwise.
 
 The exchange is one ``all_gather`` over the model group of each rank's
 two edge strips, made contiguous first (a channels_last tensor's column
@@ -53,8 +64,9 @@ Two reductions over the model group take the whole width and do not
 depend on the split: ``sum_width_f32``, the float32 sum over rows and
 columns as the column sums over the rows (added pairwise, each column on
 its own), gathered to the full width and summed over it in one order
-(the one process computes the same thing, so the split's sum is
-bit-equal to it); and ``all_reduce_int32``, an integer sum, exact in any
+(DeepLab's pooled branch takes the same sum on one process, so its
+split is bit-equal to it; EfficientNet's squeeze-excite takes it on a
+strip only and keeps the plain mean on one process); and ``all_reduce_int32``, an integer sum, exact in any
 order. ``REDUCTIONS`` counts them and the bytes of the full-width tensor
 each reduces.
 """
@@ -69,7 +81,7 @@ import torch.nn.functional as F
 
 from .distributed import World
 
-# the backbone's stride before layer3 (its last strided op)
+# the dilated ResNets' stride before layer3 (their last strided op)
 STRIP_MULTIPLE = 8
 
 
@@ -79,7 +91,13 @@ def halo(kernel: int, stride: int, dilation: int, padding: int
     return padding, dilation * (kernel - 1) - padding - stride + 1
 
 
-STEM_HALO = halo(7, 2, 1, 3)  # (3, 2)
+def same_halo(kernel: int, stride: int) -> tuple[int, int]:
+    """The halo of a TF-SAME conv on a width its stride divides: the
+    full width's SAME padding, (k - s) // 2 before and the rest after."""
+    return halo(kernel, stride, 1, (kernel - stride) // 2)
+
+
+STEM_HALO = halo(7, 2, 1, 3)  # (3, 2), the ResNets' 7x7/2 stem
 
 
 class ExchangeCounter:
@@ -112,32 +130,39 @@ def is_split(model: World | None) -> bool:
     return model is not None and model.size > 1
 
 
-def strip_range(width: int, model: World) -> tuple[int, int]:
+def strip_range(width: int, model: World, multiple: int
+                ) -> tuple[int, int]:
     """The global columns [start, stop) of this rank's strip of an image
-    ``width`` wide."""
+    ``width`` wide; each strip must be a multiple of ``multiple`` columns
+    (the backbone's ``strip_multiple``)."""
     strip = width // model.size
-    if width % model.size or strip % STRIP_MULTIPLE:
+    if width % model.size or strip % multiple:
         raise ValueError(
             f"width {width} over {model.size} ranks: each strip must be a "
-            f"multiple of {STRIP_MULTIPLE} columns (the backbone's stride "
-            f"before layer3)")
+            f"multiple of {multiple} columns (the backbone's "
+            f"strip_multiple, the stride of its last strided op)")
     return model.rank * strip, (model.rank + 1) * strip
 
 
-def stem_edge_pads(model: World) -> tuple[int, int]:
+def stem_edge_pads(model: World, stem_halo: tuple[int, int]
+                   ) -> tuple[int, int]:
     """The stem's zero columns past the image's outer edges: on the left
-    of the first strip, on the right of the last."""
-    left, right = STEM_HALO
+    of the first strip, on the right of the last. ``stem_halo``: the
+    backbone's."""
+    left, right = stem_halo
     return (left if model.rank == 0 else 0,
             right if model.rank == model.size - 1 else 0)
 
 
-def stem_columns(width: int, model: World) -> slice:
+def stem_columns(width: int, model: World, stem_halo: tuple[int, int],
+                 multiple: int) -> slice:
     """The image columns this rank's stem reads: its strip and the stem's
-    halo, clipped to the image (``stem_edge_pads`` adds the rest)."""
-    start, stop = strip_range(width, model)
-    return slice(max(start - STEM_HALO[0], 0),
-                 min(stop + STEM_HALO[1], width))
+    halo (the backbone's ``stem_halo``; its strips multiples of
+    ``multiple``), clipped to the image (``stem_edge_pads`` adds the
+    rest)."""
+    start, stop = strip_range(width, model, multiple)
+    return slice(max(start - stem_halo[0], 0),
+                 min(stop + stem_halo[1], width))
 
 
 def _layout(x: torch.Tensor) -> torch.memory_format:
@@ -273,5 +298,5 @@ def all_reduce_int32(x: torch.Tensor, model: World) -> torch.Tensor:
 __all__ = ["EXCHANGES", "REDUCTIONS", "STEM_HALO", "STRIP_MULTIPLE",
            "all_reduce_int32", "conv2d_rows", "conv2d_w", "exchange_halo",
            "exchange_halo_nhwc", "gather_width", "halo", "is_split",
-           "max_pool2d_w", "stem_columns", "stem_edge_pads", "strip_range",
-           "sum_width_f32"]
+           "max_pool2d_w", "same_halo", "stem_columns", "stem_edge_pads",
+           "strip_range", "sum_width_f32"]

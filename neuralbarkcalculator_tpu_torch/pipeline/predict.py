@@ -42,16 +42,20 @@ model)`` mesh): every rank plans the same chunks (checked by a digest
 of the plan, gathered from every rank) and reads the whole chunk from
 disk; a launch batch is padded to a multiple of the data size and each
 rank uploads its rows (``data``) and its strip of the width (``model``)
-with the stem's halo of 3 + 2 columns. The backbone and head exchange
-halos (parallel/spatial.py) and gather the logits to the full width;
-``upsample_argmax`` runs at full width on every model rank, as JAX's
-``shard_map`` runs it, and the maps are gathered over the data group.
-With more than one rank, one pump worker issues every step's
-collectives, in chunk order. Grid rank 0 alone postprocesses and writes;
-``predict`` returns None on the other ranks. The model axis takes the
-dilated ResNets with the FCN or the DeepLab head, in float and in int8
-(models/segmentation.check_width_split refuses EfficientNet);
-``predict_streaming`` and the server run on one process.
+with the backbone's stem halo (3 + 2 columns for the ResNets, 0 + 1 for
+EfficientNet). The backbone and head exchange halos (parallel/spatial.py)
+and gather the logits to the full width; ``upsample_argmax`` runs at full
+width on every model rank, as JAX's ``shard_map`` runs it, and the maps
+are gathered over the data group. With more than one rank, one pump
+worker issues every step's collectives, in chunk order (and
+``predict_streaming``'s plan, whose next chunk is fetched on that worker
+too). Grid rank 0 alone postprocesses and writes; ``predict`` returns
+None on the other ranks. The model axis takes every factory: the dilated ResNets with the FCN or the DeepLab
+head, in float and in int8, and EfficientNet on the exact-height path
+(strips of 32 columns; float only, as in JAX). ``predict_streaming``
+reads its stream on grid rank 0, which broadcasts each chunk's plan and
+pixels; the server (pipeline/serving.py) does the same for each
+micro-batch, its other ranks following.
 
 int8 (``PredictConfig.quantize_int8``, opt-in and approximate; JAX
 pipeline/predict.py): the first chunk's first images calibrate the folded
@@ -89,7 +93,7 @@ from ..models.quantize import (calibrate, check_quantizable,
                                load_quantized, quantize_model, stat_paths,
                                state_digest)
 from ..models.resnet import row_mask
-from ..models.segmentation import MODEL_FACTORIES, check_width_split
+from ..models.segmentation import MODEL_FACTORIES
 from ..ops.ccl import remove_small_zones_ragged
 from ..ops.resize import column_operator_t, embedded_bicubic_rows
 from ..ops.upsample_argmax import column_windows, upsample_argmax
@@ -150,8 +154,6 @@ class NeuralBarkCalculator:
             model = MODEL_FACTORIES[model_name]()
             if self.config.quantize_int8:
                 check_quantizable(model)  # raises for EfficientNet
-            if is_split(self.mesh.model):
-                check_width_split(model)  # before reading the weights
             load_state_dict_into(model, (
                 load_torch_checkpoint(model_path) if kind == "float"
                 else load_jax_checkpoint(model_path, model_name)))
@@ -300,13 +302,9 @@ class NeuralBarkCalculator:
         pixel count the native postprocess already produced (counted here
         without the native library). Under a mesh every rank calls this
         with the same images and yields every map."""
-        chunks = self._plan_chunks(
-            [(i, *im.image.shape[:2]) for i, im in enumerate(images)])
-        self._check_plan([(im.fname, im.wood_type) for im in images],
-                         chunks)
         for _, item, cmap, counts in self._run_chunks(
-                chunks, lambda idxs: [images[i] for i in idxs],
-                exclude_nodes):
+                self._plan_images(images),
+                lambda idxs: [images[i] for i in idxs], exclude_nodes):
             if not with_counts:
                 yield item, cmap
                 continue
@@ -314,26 +312,42 @@ class NeuralBarkCalculator:
                 counts = np.bincount(cmap.ravel(), minlength=3)
             yield item, cmap, counts
 
+    def launch_images(self, images: Sequence[ProcessedImage]) -> None:
+        """``predict_images``' plan and launches without its postprocess:
+        under a mesh, the other ranks' side of a ``predict_images`` call
+        on grid rank 0 with the same images (the server's followers,
+        pipeline/serving.py), whose maps grid rank 0 postprocesses."""
+        for _ in self._run_chunks(self._plan_images(images),
+                                  lambda idxs: [images[i] for i in idxs],
+                                  False, postprocess=False):
+            pass
+
     def predict_streaming(self, root_path: str, stream,
                           exclude_nodes: bool = False,
                           total: int | None = None,
-                          progress: bool = True) -> str:
+                          progress: bool = True) -> str | None:
         """Full-pipeline fusion: consume a live (manifest_idx,
         ProcessedImage) stream (Preprocessor.preprocess_stream) and feed
         the pump as images arrive, so preprocess and predict overlap, with
         at most (open buckets x batch_size) images buffered in the planner
         plus ``PREFETCH`` chunks in flight. CSV rows land in manifest
         order through the stream's indices: the output equals the
-        sequential path's. One process only: each rank's plan would
-        depend on when its files arrive."""
+        sequential path's.
+
+        Under a mesh every rank calls this; grid rank 0 alone consumes
+        ``stream`` (the other ranks' may be None and is not read), plans
+        every chunk as its images arrive and hands each chunk's plan, then
+        its pixels, to every rank before any rank launches it
+        (``World.broadcast_ints``, ``broadcast_images``): a rank's plan
+        cannot depend on when its own files arrive, and the folder is
+        preprocessed once. The end of the stream, or its failure, reaches
+        every rank the same way, so a stream that raises makes every rank
+        raise. Grid rank 0 writes and returns the CSV path; the other
+        ranks return None."""
         import queue as _queue
 
-        if self.mesh.n_devices > 1:
-            raise ValueError("predict_streaming runs on one process: its "
-                             "plan depends on when each rank's files "
-                             "arrive")
-
-        reporter = self._reporter(root_path)
+        main = self.mesh.is_main
+        split = self.mesh.n_devices > 1
         bs = self.config.batch_size
         chunk_q: _queue.Queue = _queue.Queue(
             maxsize=PREFETCH)
@@ -361,23 +375,55 @@ class NeuralBarkCalculator:
                 chunk_q.put(None)
 
         def take_items(idxs):
-            with items_lock:
-                return [items_by_idx.pop(i) for i in idxs]
+            items = None
+            if main:
+                with items_lock:
+                    items = [items_by_idx.pop(i) for i in idxs]
+            if not split:
+                return items
+            images = broadcast_images(
+                self.mesh, None if items is None else
+                [it.image for it in items])
+            return items if main else [
+                ProcessedImage(im, f"#{i}", "") for i, im in zip(idxs,
+                                                                 images)]
 
         def chunk_iter():
             while True:
-                c = chunk_q.get()
+                c = chunk_q.get() if main else None
+                if split:
+                    # grid rank 0's decision, on every rank before any
+                    # launches the chunk (on the pump's one worker, in
+                    # order with the steps' collectives)
+                    header = None
+                    if main:
+                        header = ([c[0], *c[1]] if c is not None else
+                                  [_STREAM_FAILED if planner_err
+                                   else _STREAM_END])
+                    header = self.mesh.world.broadcast_ints(header)
+                    if header[0] == _STREAM_FAILED and not main:
+                        raise RuntimeError(
+                            "predict_streaming: grid rank 0's stream failed")
+                    c = None if header[0] < 0 else (header[0], header[1:])
                 if c is None:
                     if planner_err:
                         raise planner_err[0]
                     return
                 yield c
 
+        if not main:
+            for _ in self._run_chunks(chunk_iter(), take_items,
+                                      exclude_nodes, postprocess=False,
+                                      fetch_on_worker=True):
+                pass
+            return None
+        reporter = self._reporter(root_path)
         t = threading.Thread(target=planner, daemon=True)
         t.start()
         bar = _progress_bar(progress and bool(total), total)
         for idx, item, cmap, counts3 in self._run_chunks(
-                chunk_iter(), take_items, exclude_nodes):
+                chunk_iter(), take_items, exclude_nodes,
+                fetch_on_worker=split):
             reporter.add(item.image, cmap, item.fname, item.wood_type,
                          order=idx, counts3=counts3)
             if bar is not None:
@@ -450,6 +496,16 @@ class NeuralBarkCalculator:
                 for (pad_h, _w), idxs in sorted(buckets.items())
                 for s in range(0, len(idxs), bs)]
 
+    def _plan_images(self, images: Sequence[ProcessedImage]
+                     ) -> list[tuple[int, list[int]]]:
+        """``_plan_chunks`` of in-memory images, checked under a mesh
+        (``_check_plan``)."""
+        chunks = self._plan_chunks(
+            [(i, *im.image.shape[:2]) for i, im in enumerate(images)])
+        self._check_plan([(im.fname, im.wood_type) for im in images],
+                         chunks)
+        return chunks
+
     def _check_plan(self, names: list[tuple[str, str]],
                     chunks: list[tuple[int, list[int]]]) -> None:
         """Under a mesh of more than one rank: gather a digest of the
@@ -483,7 +539,7 @@ class NeuralBarkCalculator:
                                f"{differ}")
 
     def _run_chunks(self, chunks, decode_chunk, exclude_nodes: bool,
-                    postprocess: bool = True):
+                    postprocess: bool = True, fetch_on_worker: bool = False):
         """The pump: each chunk's round trip (decode -> pad -> upload ->
         device step -> pull) runs as one worker task, ``PREFETCH`` chunks
         in flight, consumed in submission order; the caller's thread
@@ -492,7 +548,9 @@ class NeuralBarkCalculator:
         the current CUDA stream, so the device runs the steps in
         submission order. Under a mesh of more than one rank a single
         worker runs the tasks, so every rank issues its collectives in
-        chunk order from one thread."""
+        chunk order from one thread; ``fetch_on_worker``: ``chunks``
+        issues collectives too (predict_streaming's plan), so each next
+        chunk is fetched on that worker, in order with the steps'."""
         it = iter(chunks)
         if self._quantize_pending:
             # int8 calibration needs real pixels before the first step
@@ -507,15 +565,17 @@ class NeuralBarkCalculator:
             valid_h, out = self._launch_batch(items, pad_h)
             return items, valid_h, out
 
-        workers = PREFETCH if self.mesh.n_devices == 1 else 1
-        with ThreadPoolExecutor(max_workers=workers) as pool:
+        single = self.mesh.n_devices == 1
+        with ThreadPoolExecutor(max_workers=PREFETCH if single else 1
+                                ) as pool:
             window: deque = deque()
 
             def submit_next() -> bool:
-                try:
-                    pad_h, idxs = next(it)
-                except StopIteration:
+                nxt = (pool.submit(next, it, None).result()
+                       if fetch_on_worker else next(it, None))
+                if nxt is None:
                     return False
+                pad_h, idxs = nxt
                 window.append((idxs, pool.submit(pump_one, pad_h, idxs)))
                 return True
 
@@ -708,7 +768,9 @@ class NeuralBarkCalculator:
                            + [items[0].image.shape[0]] * (n_pad - n),
                            np.int32)
         rows = self.mesh.data.rank_slice(n_pad)
-        cols = (stem_columns(w, self.mesh.model)
+        backbone = self.model.backbone
+        cols = (stem_columns(w, self.mesh.model, backbone.stem_halo,
+                             backbone.strip_multiple)
                 if is_split(self.mesh.model) else slice(None))
         batch = np.ascontiguousarray(
             self._pad_group(items, pad_h, n_pad)[rows, :, cols])
@@ -791,14 +853,15 @@ class NeuralBarkCalculator:
         """[B, pad_h, W, 3] uint8 -> float32 head logits at the feature
         stride [B, F, Wf, 3], in the engine's dtype and layout. Under a
         mesh that splits the width, ``batch_u8`` is the rank's strip with
-        the stem's halo clipped to the image, and the logits are the full
-        width's."""
+        the backbone's stem halo clipped to the image, and the logits are
+        the full width's."""
         x = self._normalize(batch_u8, valid_h)
         width = self.mesh.model
         if is_split(width):
             # the stem's zero padding past the image's edges, after the
             # normalization (as the rows past valid_h)
-            x = F.pad(x, (0, 0, *stem_edge_pads(width)))
+            x = F.pad(x, (0, 0, *stem_edge_pads(
+                width, self.model.backbone.stem_halo)))
         return self.model.head_logits(x.to(self.dtype), valid_h,
                                       width=width)
 
@@ -816,6 +879,33 @@ class NeuralBarkCalculator:
             x = x * row_mask(valid_h, x.shape[1], x.dtype).view(
                 x.shape[0], x.shape[1], 1, 1)
         return x
+
+
+# predict_streaming's header under a mesh: a chunk's (pad_h, indices),
+# or one of these
+_STREAM_END = -1
+_STREAM_FAILED = -2
+
+
+def broadcast_images(mesh: Mesh, images: Sequence[np.ndarray] | None
+                     ) -> list[np.ndarray]:
+    """Grid rank 0's uint8 [h, w, 3] images (None on the other ranks) on
+    every rank of ``mesh``: a header of their sizes, then their pixels in
+    one broadcast. Rank 0 gets its own arrays back."""
+    sizes = mesh.world.broadcast_ints(
+        None if images is None else
+        [d for im in images for d in im.shape[:2]])
+    shapes = [(h, w, 3) for h, w in zip(sizes[0::2], sizes[1::2])]
+    nbytes = [h * w * 3 for h, w, _ in shapes]
+    flat = mesh.world.broadcast_u8(
+        None if images is None else np.concatenate(
+            [np.ascontiguousarray(im).reshape(-1) for im in images]),
+        sum(nbytes))
+    if images is not None:
+        return list(images)
+    offsets = np.cumsum([0, *nbytes])
+    return [flat[a:b].reshape(shape)
+            for a, b, shape in zip(offsets[:-1], offsets[1:], shapes)]
 
 
 # the host's inverse of pack2bit: byte -> its 4 pixels (JAX
@@ -892,4 +982,4 @@ def _load_checkpoint_kind(path: str) -> str:
     return "jax_float"
 
 
-__all__ = ["NeuralBarkCalculator", "pack2bit"]
+__all__ = ["NeuralBarkCalculator", "broadcast_images", "pack2bit"]

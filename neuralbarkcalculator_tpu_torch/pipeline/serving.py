@@ -27,6 +27,22 @@ remove_small_zones and the reference's write-back hold per request.
   callers (the HTTP handler threads of cli/serve.py) only decode,
   preprocess on the host and wait on their futures.
 
+Under a mesh (the engine's ``mesh``, parallel/distributed.make_mesh;
+JAX's server runs under its ``make_mesh(n_data=2)``) grid rank 0 serves:
+it holds the queue, the batcher thread and the HTTP server, checks each
+request in ``submit`` before anything is sent, resolves the futures and
+counts the stats. Every rank launches every micro-batch: for each one
+(the warm-up's too) rank 0 broadcasts a header, then the images' sizes
+and pixels (pipeline/predict.broadcast_images), and every rank runs the
+engine on them (``exclude_nodes`` is rank 0's remap after the batch, so
+it is not sent); the other ranks call ``BatchingPredictor.follow(calc)``, which
+returns when rank 0's ``close()`` sends the stop. A failed micro-batch
+under a mesh is fatal, since the ranks' collectives no longer pair up:
+rank 0 fails that batch's futures and every queued one, refuses new
+requests, and ``close()`` raises. A rank that fails leaves the process
+group (the caller's ``shutdown_distributed``), which makes the other
+ranks' pending collectives raise (gloo) instead of waiting.
+
 The HTTP layer lives in cli/serve.py; this module is transport-free so it
 can be embedded (the tests drive it directly).
 """
@@ -40,7 +56,13 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from ..parallel.spatial import is_split, strip_range
+from .predict import broadcast_images
 from .preprocess import ProcessedImage
+
+# a mesh server's header: a micro-batch follows, or the stop
+_BATCH = 1
+_STOP = 0
 
 
 @dataclasses.dataclass
@@ -73,10 +95,11 @@ class BatchingPredictor:
                  max_wait_ms: float = 25.0, queue_limit: int = 256,
                  mm_per_pix: float | None = None):
         mesh = getattr(calc, "mesh", None)
-        if mesh is not None and mesh.n_devices > 1:
-            raise ValueError("the server runs on one process: a request "
-                             "reaches one rank, and a mesh's ranks must "
-                             "all launch every batch")
+        self._mesh = mesh if mesh is not None and mesh.n_devices > 1 \
+            else None
+        if self._mesh is not None and not mesh.is_main:
+            raise ValueError("under a mesh grid rank 0 serves; the other "
+                             "ranks call BatchingPredictor.follow(calc)")
         self.calc = calc
         self.batch_size = batch_size or calc.config.batch_size
         self.max_wait_ms = max_wait_ms
@@ -94,6 +117,10 @@ class BatchingPredictor:
             "batch_size_sum": 0, "max_batch": 0, "rejected": 0,
         }
         self._latencies: list[float] = []  # ring of the last total ms
+        # one micro-batch at a time reaches the engine (and, under a mesh,
+        # the other ranks): the batcher's and the warm-up's
+        self._launch_lock = threading.Lock()
+        self._error: BaseException | None = None  # a mesh server's failure
         self._closed = False
         self._stopping = False  # worker side: the close() sentinel seen
         self._worker = threading.Thread(target=self._run, daemon=True,
@@ -114,8 +141,15 @@ class BatchingPredictor:
             raise ValueError(
                 f"expected uint8 [h, w, 3] image, got {image_u8.dtype} "
                 f"{image_u8.shape}")
+        if self._mesh is not None and is_split(self._mesh.model):
+            # a width the model group cannot split is refused here, before
+            # any rank sees it
+            strip_range(image_u8.shape[1], self._mesh.model,
+                        self.calc.model.backbone.strip_multiple)
         fut: Future = Future()
         with self._open_lock:
+            if self._error is not None:
+                raise RuntimeError("the mesh server failed") from self._error
             if self._closed:
                 raise RuntimeError("predictor is closed")
             try:
@@ -150,10 +184,7 @@ class BatchingPredictor:
         sizes = [n for n in self.calc.launch_item_counts()
                  if n <= self.batch_size] or [self.batch_size]
         for b in sorted(sizes, reverse=True):
-            items = [ProcessedImage(img, f"__warm{b}_{i}", "serving")
-                     for i in range(b)]
-            for _ in self.calc.predict_images(items):
-                pass
+            self._predict([img] * b)
         self.reset_stats()
 
     def reset_stats(self) -> None:
@@ -170,11 +201,25 @@ class BatchingPredictor:
         a submit racing close either lands before the sentinel (served) or
         sees ``_closed`` and raises."""
         with self._open_lock:
-            if self._closed:
-                return
-            self._closed = True
-        self._queue.put(None)  # sentinel
+            closed, self._closed = self._closed, True
+        if not closed:
+            self._queue.put(None)  # sentinel
         self._worker.join(timeout=timeout)
+        if self._error is not None:
+            raise RuntimeError("the mesh server failed") from self._error
+
+    @staticmethod
+    def follow(calc) -> None:
+        """A mesh server's other ranks: launch every micro-batch grid rank
+        0 sends (``calc.launch_images``; rank 0 postprocesses), until rank
+        0's ``close()`` sends the stop. ``calc``: this rank's engine under
+        the same mesh, model and config as rank 0's."""
+        mesh = calc.mesh
+        if mesh.n_devices == 1 or mesh.is_main:
+            raise ValueError("follow: for the ranks of a mesh other than "
+                             "grid rank 0, which serves")
+        while mesh.world.broadcast_ints(None)[0] == _BATCH:
+            calc.launch_images(_items(broadcast_images(mesh, None)))
 
     def snapshot_stats(self) -> dict:
         """Counters, the mean batch and latency percentiles (of the last
@@ -227,27 +272,55 @@ class BatchingPredictor:
             batch, stop = self._next_batch()
             if batch:
                 self._serve_batch(batch)
-            if stop:
+            if self._error is not None:
                 return
+            if stop:
+                if self._mesh is not None:
+                    with self._launch_lock:
+                        self._mesh.world.broadcast_ints([_STOP])
+                return
+
+    def _predict(self, images: list[np.ndarray]) -> dict[str, tuple]:
+        """One micro-batch through the engine, without the remap: {"req<i>":
+        (class map, counts)}. Under a mesh every rank gets the batch first
+        (the header, then ``broadcast_images``) and launches it too."""
+        with self._launch_lock:
+            if self._mesh is not None:
+                self._mesh.world.broadcast_ints([_BATCH])
+                broadcast_images(self._mesh, images)
+            return {item.fname: (cmap, counts)
+                    for item, cmap, counts in self.calc.predict_images(
+                        _items(images), with_counts=True)}
+
+    def _fail(self, error: BaseException) -> None:
+        """A mesh server's failure: refuse new requests and fail every
+        queued one; ``close()`` raises ``error``."""
+        with self._open_lock:
+            self._error = error
+            self._closed = True
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if req is not None and not req[2].cancelled():
+                req[2].set_exception(error)
 
     def _serve_batch(self, batch: list) -> None:
         t_launch = time.perf_counter()
-        images = [ProcessedImage(img, f"req{i}", "serving")
-                  for i, (img, _, _, _) in enumerate(batch)]
         try:
             # the batch runs without the remap; each request's remap
             # follows (the reference remaps after remove_small_zones,
             # models.py:270-276)
-            results: dict[str, tuple] = {
-                item.fname: (cmap, counts)
-                for item, cmap, counts in self.calc.predict_images(
-                    images, with_counts=True)}
+            results = self._predict([img for img, _, _, _ in batch])
         except Exception as e:  # resolve every future, keep serving
             with self._stats_lock:
                 self.stats["errors"] += len(batch)
             for _, _, fut, _ in batch:
                 if not fut.cancelled():
                     fut.set_exception(e)
+            if self._mesh is not None:  # the ranks' collectives are lost
+                self._fail(e)
             return
         t_done = time.perf_counter()
         compute_ms = (t_done - t_launch) * 1000.0
@@ -280,6 +353,13 @@ class BatchingPredictor:
                     del self._latencies[:256]
             if not fut.cancelled():
                 fut.set_result(res)
+
+
+def _items(images: list[np.ndarray]) -> list[ProcessedImage]:
+    """A micro-batch's images as the engine's items, named alike on
+    every rank of a mesh (the plan's digest holds the names)."""
+    return [ProcessedImage(img, f"req{i}", "serving")
+            for i, img in enumerate(images)]
 
 
 __all__ = ["BatchingPredictor", "ServeResult"]

@@ -144,13 +144,15 @@ def concurrent(port: int, bodies: list[bytes], conc: int, conc_m: int,
 
 
 def run_config(argv: list[str], seq_n: int, conc: int, conc_m: int,
-               size: int = 1024) -> list[dict]:
+               size: int = 1024, mesh=None) -> list[dict]:
     """The sequential and concurrent phases against an in-process server
-    built from cli/serve arguments `argv`, with size x size requests."""
+    built from cli/serve arguments `argv`, with size x size requests.
+    ``mesh``: grid rank 0's place in a mesh whose other ranks follow
+    (cli/serve.make_server)."""
     from ..cli.serve import build_parser, make_server, serve_in_thread
 
     args = build_parser().parse_args(argv)
-    server = make_server(args)
+    server = make_server(args, mesh=mesh)
     state = server.state
     serve_in_thread(server)
     port = server.server_address[1]

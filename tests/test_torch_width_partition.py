@@ -30,8 +30,11 @@ compare in this process:
   than the pump's PREFETCH) and a resumed pass after deleting one output,
   both equal to the one process's CSV;
 - a 1x1 mesh issues no collective, and the refusals raise ValueError
-  (EfficientNet, predict_streaming and the server; DeepLab and int8 split
-  since tests/test_torch_width_zoo.py).
+  (strips off the backbone's multiple, int8 EfficientNet, a split in
+  train mode, a mesh server's unsplittable request; DeepLab and int8
+  split since tests/test_torch_width_zoo.py, EfficientNet,
+  predict_streaming and the server since tests/test_torch_width_effnet.py
+  and tests/test_torch_mesh_serving.py).
 """
 import os
 import shutil
@@ -158,20 +161,21 @@ def _halo_outputs(mesh) -> dict:
     import torch.nn.functional as F
 
     from neuralbarkcalculator_tpu_torch.parallel.spatial import (
-        conv2d_rows, conv2d_w, max_pool2d_w, stem_columns, stem_edge_pads,
-        strip_range)
+        STEM_HALO, STRIP_MULTIPLE, conv2d_rows, conv2d_w, max_pool2d_w,
+        stem_columns, stem_edge_pads, strip_range)
 
     model = mesh.model
     x, convs = _halo_case(model.size)
-    start, stop = strip_range(x.shape[3], model)
+    start, stop = strip_range(x.shape[3], model, STRIP_MULTIPLE)
     strip = x[..., start:stop]
     out = {}
     with torch.inference_mode():
         for name, conv in convs.items():
             if name.startswith("stem"):
                 # the stem's halo comes with the input
-                wide = F.pad(x[..., stem_columns(x.shape[3], model)],
-                             stem_edge_pads(model))
+                wide = F.pad(x[..., stem_columns(x.shape[3], model,
+                                                 STEM_HALO, STRIP_MULTIPLE)],
+                             stem_edge_pads(model, STEM_HALO))
                 out[name] = conv2d_rows(conv, wide)
             elif conv.kernel_size[1] == 1:
                 out[name] = conv(strip)  # no halo: the strip as it is
@@ -196,11 +200,13 @@ def _model_outputs(mesh, out_dir) -> np.ndarray:
     load_state_dict_into(model, torch.load(
         os.path.join(out_dir, "fcn_resnet50.pt")))
     model.eval()
+    halo = model.backbone.stem_halo
     x = np.load(os.path.join(out_dir, "x.npy"))
     rows = mesh.data.rank_slice(x.shape[0])
     strip = torch.from_numpy(np.ascontiguousarray(
-        x[rows][:, :, stem_columns(x.shape[2], mesh.model)]))
-    strip = F.pad(strip, (0, 0, *stem_edge_pads(mesh.model)))
+        x[rows][:, :, stem_columns(x.shape[2], mesh.model, halo,
+                                   model.backbone.strip_multiple)]))
+    strip = F.pad(strip, (0, 0, *stem_edge_pads(mesh.model, halo)))
     with torch.inference_mode():
         return model(strip, width=mesh.model).numpy()
 
@@ -530,9 +536,11 @@ def _fake_mesh(n_model: int = 2):
 
 
 def _refuse_strip():
-    from neuralbarkcalculator_tpu_torch.parallel.spatial import strip_range
+    from neuralbarkcalculator_tpu_torch.parallel.spatial import (
+        STRIP_MULTIPLE, strip_range)
 
-    strip_range(60, _fake_mesh().model)  # strips of 30: no multiple of 8
+    # strips of 30: no multiple of 8
+    strip_range(60, _fake_mesh().model, STRIP_MULTIPLE)
 
 
 def _refuse_mesh():
@@ -542,12 +550,23 @@ def _refuse_mesh():
     make_mesh(2, 2, World(0, 2, torch.device("cpu")))
 
 
-def _refuse_model(pt, name):
+def _refuse_effnet_strip(tmp_path):
+    """The B0 engine under a model axis of 2 on 80-wide images: strips
+    of 40 columns, a multiple of 8 but not of EfficientNet's 32."""
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        fcn_efficientnet)
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
+    from neuralbarkcalculator_tpu_torch.pipeline.preprocess import (
+        ProcessedImage)
 
-    NeuralBarkCalculator(pt, config=_config(pt), model_name=name,
-                         device="cpu", mesh=_fake_mesh())
+    pt = str(tmp_path / "b0.pt")
+    torch.save(fcn_efficientnet(0).state_dict(), pt)
+    engine = NeuralBarkCalculator(pt, config=_config(pt),
+                                  model_name="fcn_efficientnet_b0",
+                                  device="cpu", mesh=_fake_mesh())
+    list(engine.predict_images([ProcessedImage(
+        np.zeros((64, 80, 3), np.uint8), "a.png", "sapin")]))
 
 
 def _refuse_int8_efficientnet(pt):
@@ -560,41 +579,56 @@ def _refuse_int8_efficientnet(pt):
                          device="cpu", mesh=_fake_mesh())
 
 
-def _refuse_streaming(pt):
-    engine = _tiny_engine(pt, _fake_mesh())
-    engine.predict_streaming("unused", iter(()), progress=False)
-
-
-def _refuse_server(pt):
+def _refuse_server_submit(pt):
+    """A mesh server's submit of a 60-wide image (strips of 30), refused
+    on grid rank 0 before anything is sent."""
     from neuralbarkcalculator_tpu_torch.pipeline.serving import (
         BatchingPredictor)
 
-    BatchingPredictor(_tiny_engine(pt, _fake_mesh()))
+    predictor = BatchingPredictor(_tiny_engine(pt, _fake_mesh()))
+    try:
+        predictor.submit(np.zeros((64, 60, 3), np.uint8))
+    finally:
+        predictor.close()
 
 
-def _refuse_head_logits(pt):
+def _refuse_head_logits():
+    """EfficientNet's head_logits on a strip of 48 columns (with its stem
+    halo of 0 + 1)."""
     from neuralbarkcalculator_tpu_torch.models.segmentation import (
         fcn_efficientnet)
 
-    fcn_efficientnet(0).eval().head_logits(torch.zeros(1, 69, 69, 3),
+    fcn_efficientnet(0).eval().head_logits(torch.zeros(1, 64, 49, 3),
                                            width=_fake_mesh().model)
 
 
+def _refuse_effnet_train():
+    """EfficientNet split in train mode."""
+    from neuralbarkcalculator_tpu_torch.models.segmentation import (
+        fcn_efficientnet)
+
+    fcn_efficientnet(0).train().backbone(torch.zeros(1, 3, 64, 65),
+                                         dropout_seed=1,
+                                         width=_fake_mesh().model)
+
+
 @pytest.mark.parametrize("case", [
-    "strip", "mesh", "fcn_efficientnet_b0", "int8 fcn_efficientnet_b0",
-    "streaming", "server", "head_logits"])
-def test_refusals(jobs, case):
+    "strip", "mesh", "fcn_efficientnet_b0 strip", "int8 fcn_efficientnet_b0",
+    "effnet train", "server submit", "head_logits"])
+def test_refusals(jobs, case, tmp_path):
     """Each raises ValueError: a strip width that is no multiple of 8,
     n_data x n_model != the world's size, and under a model axis of 2
-    EfficientNet (in the engine, float and int8, and in head_logits),
-    predict_streaming and the server."""
+    EfficientNet on strips that are no multiple of 32 (in the engine and
+    in head_logits), int8 EfficientNet, EfficientNet's backbone split in
+    train mode, and a mesh server's request whose width does not split."""
     pt = jobs["pt"]
     run = {"strip": _refuse_strip, "mesh": _refuse_mesh,
-           "fcn_efficientnet_b0": lambda: _refuse_model(pt, case),
+           "fcn_efficientnet_b0 strip": lambda: _refuse_effnet_strip(
+               tmp_path),
            "int8 fcn_efficientnet_b0": lambda: _refuse_int8_efficientnet(
                pt),
-           "streaming": lambda: _refuse_streaming(pt),
-           "server": lambda: _refuse_server(pt),
-           "head_logits": lambda: _refuse_head_logits(pt)}[case]
+           "effnet train": _refuse_effnet_train,
+           "server submit": lambda: _refuse_server_submit(pt),
+           "head_logits": _refuse_head_logits}[case]
     with pytest.raises(ValueError):
         run()

@@ -185,11 +185,12 @@ def _halo_outputs(model) -> dict:
     """Every HALOS exchange of this rank's strip of ``_halo_case``, in
     each dtype and layout: (widened strip, bytes counted)."""
     from neuralbarkcalculator_tpu_torch.parallel.spatial import (
-        EXCHANGES, exchange_halo, exchange_halo_nhwc, strip_range)
+        EXCHANGES, STRIP_MULTIPLE, exchange_halo, exchange_halo_nhwc,
+        strip_range)
 
     out = {}
     for dtype, x in _halo_case(model.size).items():
-        start, stop = strip_range(x.shape[3], model)
+        start, stop = strip_range(x.shape[3], model, STRIP_MULTIPLE)
         strip = x[..., start:stop]
         for left, right in HALOS:
             for layout in ("nchw", "channels_last", "nhwc"):
@@ -280,11 +281,13 @@ def _deeplab_outputs(mesh, out_dir) -> np.ndarray:
         stem_columns, stem_edge_pads)
 
     model = _deeplab_model(out_dir)
+    halo = model.backbone.stem_halo
     x = np.load(os.path.join(out_dir, "x.npy"))
     rows = mesh.data.rank_slice(x.shape[0])
     strip = torch.from_numpy(np.ascontiguousarray(
-        x[rows][:, :, stem_columns(x.shape[2], mesh.model)]))
-    strip = F.pad(strip, (0, 0, *stem_edge_pads(mesh.model)))
+        x[rows][:, :, stem_columns(x.shape[2], mesh.model, halo,
+                                   model.backbone.strip_multiple)]))
+    strip = F.pad(strip, (0, 0, *stem_edge_pads(mesh.model, halo)))
     with torch.inference_mode():
         return model(strip, width=mesh.model).numpy()
 
