@@ -267,6 +267,7 @@ when any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -619,6 +620,36 @@ def reset_counters() -> dict:
     for counter in counters.values():
         counter.reset()
     return counters
+
+
+@contextlib.contextmanager
+def step_clock(torch):
+    """Step times on the card's clock: a CUDA event before and after each
+    ``train/loop.train_step`` call of the block; the yielded list holds
+    their intervals (seconds) after the block."""
+    from neuralbarkcalculator_tpu_torch.train import loop
+
+    real = loop.train_step
+    marks: list = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    seconds: list[float] = []
+    loop.train_step = timed
+    try:
+        yield seconds
+    finally:
+        loop.train_step = real
+        if marks:
+            marks[-1][1].synchronize()
+        seconds += [a.elapsed_time(b) / 1e3 for a, b in marks]
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 20, runs: int = 5
@@ -1773,9 +1804,10 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     counters = reset_counters()
     t0 = time.perf_counter()
-    exp = train_main(build_parser().parse_args(
-        [root, "--seed", str(seed), "--epochs", "1", "--samples_factor",
-         str(TRAIN_SAMPLES_FACTOR), "--report_dpi", str(DPI)]))
+    with step_clock(torch) as step_s:
+        exp = train_main(build_parser().parse_args(
+            [root, "--seed", str(seed), "--epochs", "1", "--samples_factor",
+             str(TRAIN_SAMPLES_FACTOR), "--report_dpi", str(DPI)]))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: c.count for name, c in counters.items()}
@@ -1805,20 +1837,20 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     if len(rows) != 1 + n_images or any(len(r) != 15 for r in rows):
         raise AssertionError(f"report CSV: {len(rows) - 1} rows, column "
                              f"counts {sorted({len(r) for r in rows})}")
-    warm = exp.step_seconds[1:]
+    warm = step_s[1:]
     log(f"train path: {steps} steps of batch {exp.config.batch_size} at "
         f"crop {exp.config.crop_size} (fcn_resnet50, float32, TF32 off, "
         f"dropout {exp.config.dropout}) in an epoch of "
         f"{exp.history[0].time_s:.3f} s; whole CLI run {seconds:.3f} s; "
         f"launches {launches}")
     log(f"train path: step times (device clock) "
-        f"{[round(s * 1e3, 3) for s in exp.step_seconds]} ms; warm steps "
+        f"{[round(s * 1e3, 3) for s in step_s]} ms; warm steps "
         f"2..{steps}: median {statistics.median(warm) * 1e3:.3f} ms; peak "
         f"memory allocated {peak / 2 ** 30:.3f} GiB")
     log(f"train path: losses {[round(x, 6) for x in exp.step_losses]}; "
         f"epoch log {exp.history[0].as_dict()}")
     log(f"train path: epoch minus steps (validation and the loop's host "
-        f"work) {exp.history[0].time_s - sum(exp.step_seconds):.3f} s; ccl "
+        f"work) {exp.history[0].time_s - sum(step_s):.3f} s; ccl "
         f"launched {launches['ccl']} times (validation, test and the "
         f"report's PixelWiseF1)")
     eval_f1_card_vs_cpu(torch, exp)
@@ -2095,7 +2127,8 @@ def zoo_train_model(torch, seed: int, data_dir: str, root: str,
                          seed=seed, epochs=1, use_bfloat16=bf16,
                          samples_per_epoch_factor=ZOO_TRAIN_SAMPLES_FACTOR),
                      model_name=name, device="cuda")
-    exp.train()
+    with step_clock(torch) as step_s:
+        exp.train()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: c.count for k, c in counters.items()}
@@ -2110,13 +2143,13 @@ def zoo_train_model(torch, seed: int, data_dir: str, root: str,
     if fdm != want or launches["upsample_argmax"]:
         raise AssertionError(f"zoo train {label}: launches {launches}, "
                              f"fused_dropout_matmul expected {want}")
-    warm = statistics.median(exp.step_seconds[1:]) * 1e3
+    warm = statistics.median(step_s[1:]) * 1e3
     log(f"zoo train {label}: {steps} steps (batch {exp.config.batch_size}, "
         f"crop {exp.config.crop_size}, {'bf16' if bf16 else 'float32'}, "
         f"TF32 off) in an epoch of "
         f"{exp.history[0].time_s:.3f} s; Experiment + epoch {seconds:.3f} "
         f"s; step times (device clock) "
-        f"{[round(x * 1e3, 3) for x in exp.step_seconds]} ms; warm median "
+        f"{[round(x * 1e3, 3) for x in step_s]} ms; warm median "
         f"{warm:.3f} ms; peak memory allocated {peak:.3f} GiB; losses "
         f"{[round(x, 6) for x in exp.step_losses]}; launches {launches}")
     groups = profile_train_step(torch, exp, f"zoo train {label}")
@@ -2171,14 +2204,15 @@ def zoo_train_cli(torch, seed: int, data_dir: str, workdir: str) -> dict:
                                     "--no_report"])):
         counters = reset_counters()
         t0 = time.perf_counter()
-        exp = train_main(build_parser().parse_args(common + extra))
+        with step_clock(torch) as step_s:
+            exp = train_main(build_parser().parse_args(common + extra))
         torch.cuda.synchronize()
         launches = {k: c.count for k, c in counters.items()}
         log(f"zoo train CLI {run} run ({' '.join(extra)}): epochs "
             f"{[h.epoch for h in exp.history]}, lr "
             f"{[h.lr for h in exp.history]}, steps {exp.step_count}, step "
             f"times (device clock) "
-            f"{[round(x * 1e3, 3) for x in exp.step_seconds]} ms, losses "
+            f"{[round(x * 1e3, 3) for x in step_s]} ms, losses "
             f"{[round(x, 6) for x in exp.step_losses]}, "
             f"{time.perf_counter() - t0:.3f} s, launches {launches}")
         if not exp.config.use_bfloat16 or not all(
@@ -3346,7 +3380,8 @@ def recorded_train_run(torch, argv: list[str], env: dict,
     counters = reset_counters()
     t0 = time.perf_counter()
     try:
-        exp = train_main(build_parser().parse_args(argv))
+        with step_clock(torch) as step_s:
+            exp = train_main(build_parser().parse_args(argv))
         torch.cuda.synchronize()
     finally:
         for k in env:
@@ -3357,7 +3392,7 @@ def recorded_train_run(torch, argv: list[str], env: dict,
     rec["launches"] = {name: c.count for name, c in counters.items()}
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     rec["steps"] = exp.step_count
-    rec["step_s"] = exp.step_seconds
+    rec["step_s"] = step_s
     rec["epoch"] = exp.history[0].as_dict()
     rec["cross_rank_bn"] = sum(isinstance(m, CrossRankBatchNorm2d)
                                for m in exp.model.modules())

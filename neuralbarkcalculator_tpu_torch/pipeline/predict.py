@@ -101,7 +101,7 @@ from ..parallel.distributed import (Mesh, make_mesh, pad_to_multiple,
                                     single_process)
 from ..parallel.spatial import is_split, stem_columns, stem_edge_pads
 from ..utils.device import resolve_device, set_float32_exact
-from ..utils.profiling import stage_timer
+from ..utils.profiling import chunk_scope, stage_timer
 from .preprocess import ProcessedImage
 from .report import PredictReporter
 
@@ -247,51 +247,53 @@ class NeuralBarkCalculator:
         if shard is not None and not 0 <= shard[0] < shard[1]:
             raise ValueError(f"shard {shard[0]}/{shard[1]}: need "
                              f"0 <= k < n")
-        processed_path = os.path.join(root_path, "processed")
-        reporter = self._reporter(root_path)
-        if images is None:
-            records = make_dataset(processed_path)
-            names = [(r.fname, r.wood_type) for r in records]
+        with stage_timer("predict/plan"):
+            reporter = self._reporter(root_path)
+            if images is None:
+                records = make_dataset(os.path.join(root_path, "processed"))
+                names = [(r.fname, r.wood_type) for r in records]
 
-            def size_of(i: int) -> tuple[int, int]:
-                return _header_size(records[i].sample_path)
+                def size_of(i: int) -> tuple[int, int]:
+                    return _header_size(records[i].sample_path)
 
-            def decode_chunk(idxs):
-                return [ProcessedImage(
-                    load_image_u8(records[i].sample_path),
-                    records[i].fname, records[i].wood_type) for i in idxs]
-        else:
-            names = [(im.fname, im.wood_type) for im in images]
+                def decode_chunk(idxs):
+                    return [ProcessedImage(
+                        load_image_u8(records[i].sample_path),
+                        records[i].fname, records[i].wood_type)
+                        for i in idxs]
+            else:
+                names = [(im.fname, im.wood_type) for im in images]
 
-            def size_of(i: int) -> tuple[int, int]:
-                return images[i].image.shape[:2]
+                def size_of(i: int) -> tuple[int, int]:
+                    return images[i].image.shape[:2]
 
-            def decode_chunk(idxs):
-                return [images[i] for i in idxs]
+                def decode_chunk(idxs):
+                    return [images[i] for i in idxs]
 
-        mine = (range(len(names)) if shard is None
-                else range(shard[0], len(names), shard[1]))
-        done = (self._scan_resume(names, reporter, only=mine) if resume
-                else set())
-        chunks = self._plan_chunks([(i, *size_of(i)) for i in mine
-                                    if i not in done])
-        # also a barrier: no rank writes before every rank has scanned
-        self._check_plan(names, chunks)
+            mine = (range(len(names)) if shard is None
+                    else range(shard[0], len(names), shard[1]))
+            done = (self._scan_resume(names, reporter, only=mine) if resume
+                    else set())
+            chunks = self._plan_chunks([(i, *size_of(i)) for i in mine
+                                        if i not in done])
+            # also a barrier: no rank writes before every rank has scanned
+            self._check_plan(names, chunks)
         if not self.mesh.is_main:
             for _ in self._run_chunks(chunks, decode_chunk, exclude_nodes,
                                       postprocess=False):
                 pass
             return None
         bar = _progress_bar(progress, sum(len(c[1]) for c in chunks))
-        for idx, item, cmap, counts3 in self._run_chunks(
+        for idx, item, cmap, counts3, chunk in self._run_chunks(
                 chunks, decode_chunk, exclude_nodes):
             reporter.add(item.image, cmap, item.fname, item.wood_type,
-                         order=idx, counts3=counts3)
+                         order=idx, counts3=counts3, chunk=chunk)
             if bar is not None:
                 bar.update(1)
         if bar is not None:
             bar.close()
-        return reporter.finalize(shard=shard)
+        with stage_timer("predict/finalize"):
+            return reporter.finalize(shard=shard)
 
     def predict_images(self, images: Sequence[ProcessedImage],
                        exclude_nodes: bool = False,
@@ -302,7 +304,7 @@ class NeuralBarkCalculator:
         pixel count the native postprocess already produced (counted here
         without the native library). Under a mesh every rank calls this
         with the same images and yields every map."""
-        for _, item, cmap, counts in self._run_chunks(
+        for _, item, cmap, counts, _ in self._run_chunks(
                 self._plan_images(images),
                 lambda idxs: [images[i] for i in idxs], exclude_nodes):
             if not with_counts:
@@ -421,17 +423,18 @@ class NeuralBarkCalculator:
         t = threading.Thread(target=planner, daemon=True)
         t.start()
         bar = _progress_bar(progress and bool(total), total)
-        for idx, item, cmap, counts3 in self._run_chunks(
+        for idx, item, cmap, counts3, chunk in self._run_chunks(
                 chunk_iter(), take_items, exclude_nodes,
                 fetch_on_worker=split):
             reporter.add(item.image, cmap, item.fname, item.wood_type,
-                         order=idx, counts3=counts3)
+                         order=idx, counts3=counts3, chunk=chunk)
             if bar is not None:
                 bar.update(1)
         t.join()
         if bar is not None:
             bar.close()
-        return reporter.finalize()
+        with stage_timer("predict/finalize"):
+            return reporter.finalize()
 
     def cache_stats(self) -> dict:
         """Telemetry: ``launch_shapes`` counts distinct (pad_h, batch,
@@ -544,7 +547,9 @@ class NeuralBarkCalculator:
         device step -> pull) runs as one worker task, ``PREFETCH`` chunks
         in flight, consumed in submission order; the caller's thread
         postprocesses and yields (index, ProcessedImage, class_map,
-        counts3), or nothing without ``postprocess``. The workers share
+        counts3, chunk), ``chunk`` the first index of the image's chunk
+        (what its stage timers carry), or nothing without
+        ``postprocess``. The workers share
         the current CUDA stream, so the device runs the steps in
         submission order. Under a mesh of more than one rank a single
         worker runs the tasks, so every rank issues its collectives in
@@ -561,8 +566,10 @@ class NeuralBarkCalculator:
             it = itertools.chain([first], it)
 
         def pump_one(pad_h, idxs):
-            items = decode_chunk(idxs)
-            valid_h, out = self._launch_batch(items, pad_h)
+            with chunk_scope(idxs[0]):
+                with stage_timer("predict/decode"):
+                    items = decode_chunk(idxs)
+                valid_h, out = self._launch_batch(items, pad_h)
             return items, valid_h, out
 
         single = self.mesh.n_devices == 1
@@ -584,7 +591,8 @@ class NeuralBarkCalculator:
                     break
             while window:
                 idxs, fut = window.popleft()
-                items, valid_h, out = fut.result()
+                with stage_timer("predict/wait", idxs[0]):
+                    items, valid_h, out = fut.result()
                 submit_next()
                 if postprocess:
                     yield from self._finish_batch_raw(exclude_nodes, idxs,
@@ -678,7 +686,7 @@ class NeuralBarkCalculator:
         pad_h = out.shape[1]
         w = items[0].image.shape[1]
         packed = out.shape[2] != w  # 2-bit packed device pull
-        with stage_timer(f"predict/postprocess_h{pad_h}"):
+        with stage_timer(f"predict/postprocess_h{pad_h}", chunk_idxs[0]):
             # one native pass: unpack + remove_small_zones + exclude_nodes
             # remap + per-class counts
             res = remove_small_zones_host2(
@@ -693,7 +701,7 @@ class NeuralBarkCalculator:
                 counts = None
         for i, (idx, item) in enumerate(zip(chunk_idxs, items)):
             yield (idx, item, out[i, :item.image.shape[0]],
-                   None if counts is None else counts[i])
+                   None if counts is None else counts[i], chunk_idxs[0])
 
     def _postprocess(self, preds_u8: np.ndarray, valid_h: np.ndarray,
                      exclude_nodes: bool) -> np.ndarray:
@@ -783,11 +791,13 @@ class NeuralBarkCalculator:
             self._cache_stats["bytes_h2d"] += batch.nbytes
         with stage_timer(f"predict/dispatch_h{pad_h}"), \
                 torch.inference_mode():
-            x = torch.from_numpy(batch).to(self.device)
-            vh = None if exact else torch.from_numpy(valid_h[rows]).to(
-                self.device)
-            out = self._device_step(x, vh, torch.stack(ops),
-                                    pack=w % 4 == 0)
+            with stage_timer(f"predict/upload_h{pad_h}"):
+                x = torch.from_numpy(batch).to(self.device)
+                vh = None if exact else torch.from_numpy(valid_h[rows]).to(
+                    self.device)
+            with stage_timer(f"predict/launch_h{pad_h}"):
+                out = self._device_step(x, vh, torch.stack(ops),
+                                        pack=w % 4 == 0)
         with stage_timer(f"predict/pull_h{pad_h}"):
             out = out.cpu().numpy()  # waits for the device step
         return valid_h, out

@@ -35,6 +35,7 @@ import numpy as np
 
 from ..config import CLASS_NAMES, DEFAULT_MM_PER_PIXEL
 from ..io.native import save_image_u8
+from ..utils.profiling import stage_timer
 from .compositor import render_combined_fast
 
 CSV_HEADER = [
@@ -151,6 +152,12 @@ def save_dual(class_map: np.ndarray, out_path: str) -> None:
     save_image_u8(out_path, dual, zlevel=2)
 
 
+def _timed(stage: str, chunk: int | None, fn, *args) -> None:
+    """``fn(*args)`` under the stage timer ``stage``."""
+    with stage_timer(stage, chunk):
+        fn(*args)
+
+
 def write_final_stats(rows: list[list[str]], out_path: str) -> None:
     """Tab-delimited final_stats.csv (models.py:360-364)."""
     with open(out_path, "w") as f:
@@ -187,13 +194,16 @@ class PredictReporter:
 
     def add(self, input_img: np.ndarray, class_map: np.ndarray,
             fname: str, wood_type: str, order: int | None = None,
-            counts3: np.ndarray | None = None) -> None:
+            counts3: np.ndarray | None = None,
+            chunk: int | None = None) -> None:
         """Render artifacts + record the CSV row. ``order`` fixes the row's
         position in final_stats.csv (the reference writes rows in dataset
         order, models.py:358; batched compute may finish out of order).
         ``counts3``: per-class pixel counts of class_map if the caller
         already has them (the native postprocess counts during its
-        write-back sweep — remove_small_zones_host2)."""
+        write-back sweep — remove_small_zones_host2). The pool's tasks
+        run under the stage timers ``report/figure`` and ``report/dual``,
+        which carry ``chunk`` (the prediction pump's chunk)."""
         if counts3 is None:
             counts3 = np.bincount(class_map.ravel(), minlength=3)
         percents = self.add_row_only(class_map, fname, wood_type, order,
@@ -206,13 +216,14 @@ class PredictReporter:
             # only (models.py:298-311) and would otherwise re-count the map
             values = [v for v in range(3) if counts3[v] > 0]
             self._futures.append(self._pool.submit(
-                render_combined_fast, input_img, class_map, combined,
-                percents, self.dpi, values))
+                _timed, "report/figure", chunk, render_combined_fast,
+                input_img, class_map, combined, percents, self.dpi, values))
         else:
             self._futures.append(self._pool.submit(
-                render_combined, input_img, class_map, combined,
-                percents, self.dpi))
-        self._futures.append(self._pool.submit(save_dual, class_map, dual))
+                _timed, "report/figure", chunk, render_combined, input_img,
+                class_map, combined, percents, self.dpi))
+        self._futures.append(self._pool.submit(
+            _timed, "report/dual", chunk, save_dual, class_map, dual))
 
     def add_row_only(self, class_map: np.ndarray, fname: str,
                      wood_type: str, order: int | None = None,

@@ -124,34 +124,6 @@ def _draw_seed(generator: torch.Generator) -> int:
     return (hi << 32) | lo
 
 
-class _StepClock:
-    """Marks taken after each train step, read at the end of an epoch:
-    CUDA events on a card (no sync inside the loop; the intervals are the
-    device's step-to-step times), host wall time on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: list = []
-
-    def mark(self) -> None:
-        if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            self.marks.append(event)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def intervals(self) -> list[float]:
-        """Seconds between consecutive marks; clears the marks."""
-        marks, self.marks = self.marks, []
-        if len(marks) < 2:
-            return []
-        if self.cuda:
-            marks[-1].synchronize()
-            return [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
-        return [b - a for a, b in zip(marks, marks[1:])]
-
-
 class Experiment:
     """Training harness over a reference-layout dataset directory
     (root/samples/<wood_type>/*.png|bmp + root/duals/...). ``world``: this
@@ -251,7 +223,6 @@ class Experiment:
         self.dropout_gen = torch.Generator()
         self.dropout_gen.manual_seed(cfg.seed + 1)
         self.history: list[EpochLog] = []
-        self.step_seconds: list[float] = []  # every train step so far
         self.step_losses: list[float] = []
         self.sampler_stats: dict | None = None  # the prioritized sampler's
 
@@ -297,7 +268,6 @@ class Experiment:
                 len(self.train_split), cfg.batch_size,
                 len(self.train_split) * cfg.samples_per_epoch_factor,
                 self._rng, metric_mode=cfg.monitor_mode)
-        clock = _StepClock(self.device)
 
         for epoch in range(start_epoch, epochs + 1):
             t0 = time.time()
@@ -309,7 +279,6 @@ class Experiment:
                        weighted_batch_iterator(
                            self.train_weights, cfg.batch_size, self._rng,
                            cfg.samples_per_epoch_factor))
-            clock.mark()
             for batch_pos in batches:
                 # every rank draws the same global batch and takes its rows
                 images, labels, idx = self.batch_inputs(
@@ -322,13 +291,11 @@ class Experiment:
                     cfg.jitter_brightness, cfg.jitter_saturation,
                     self.loss_fn, cfg.use_bfloat16, cfg.train_f1_postprocess,
                     world=world)
-                clock.mark()
                 self.step_count += 1
                 if prioritized is not None:
                     prioritized.update(batch_pos,
                                        float(metrics["miou"]) / 100.0)
                 batch_metrics.append(metrics)
-            self.step_seconds += clock.intervals()
             self.step_losses += [float(m["loss"]) for m in batch_metrics]
             train_metrics = {
                 k: float(np.mean([float(m[k]) for m in batch_metrics]))

@@ -42,6 +42,7 @@ from ..data.augment import gather_augment_batch
 from ..ops import losses as L
 from ..parallel.distributed import World
 from ..ops.metrics import confusion_matrix, iou_from_confusion, pixelwise_f1
+from ..utils.profiling import stage_timer
 
 LossFn = Callable[..., torch.Tensor]
 LOSS_NAMES = ("lovasz", "lovasz_hist", "cwe", "mixed", "jaccard")
@@ -101,22 +102,28 @@ def step_on_batch(model: torch.nn.Module, opt: torch.optim.Optimizer,
     ``world``); ``seed`` keys the model's random layers. Returns 0-d
     device tensors of the global batch: loss, miou and the F1, without
     the connected-component postprocess unless ``f1_postprocess`` (the
-    JAX step's default for train batches)."""
+    JAX step's default for train batches). Stage timers: ``train/forward``
+    (the model and the loss), ``train/backward`` (clearing the gradients,
+    the backward pass and, under ``world``, their all-reduce),
+    ``train/optimizer`` (the Adam step), ``train/metrics``."""
     loss_fn = loss_fn or make_loss_fn("lovasz")
     model.train()
-    with _autocast(imgs.device, bf16):
-        logits = model(imgs, dropout_seed=seed,
-                       shard=(0, 1) if world is None else (world.rank,
-                                                           world.size))
-    if world is not None:
-        logits, labs = world.gather_rows(logits), world.gather_rows(labs)
-    loss = loss_fn(logits, labs)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    if world is not None:
-        world.all_reduce_grads(model.parameters())
-    opt.step()
-    with torch.no_grad():
+    with stage_timer("train/forward"):
+        with _autocast(imgs.device, bf16):
+            logits = model(imgs, dropout_seed=seed,
+                           shard=(0, 1) if world is None else (world.rank,
+                                                               world.size))
+        if world is not None:
+            logits, labs = world.gather_rows(logits), world.gather_rows(labs)
+        loss = loss_fn(logits, labs)
+    with stage_timer("train/backward"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if world is not None:
+            world.all_reduce_grads(model.parameters())
+    with stage_timer("train/optimizer"):
+        opt.step()
+    with stage_timer("train/metrics"), torch.no_grad():
         cm = confusion_matrix(logits.argmax(dim=-1), labs, NUM_CLASSES)
         return {"loss": loss.detach(),
                 "miou": iou_from_confusion(cm).mean(),
@@ -134,12 +141,13 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                ) -> dict[str, torch.Tensor]:
     """Gather + augment the dataset rows idx (under ``world``, this rank's
     rows of the global batch: the augmentation draws the global batch's
-    parameters), then ``step_on_batch``."""
+    parameters; stage timer ``train/augment``), then ``step_on_batch``."""
     b = idx.shape[0]
     rows = None if world is None else (world.rank * b, world.size * b)
-    imgs, labs = gather_augment_batch(images_u8, labels_u8, idx, crop, mean,
-                                      std, generator, brightness, saturation,
-                                      batch_rows=rows)
+    with stage_timer("train/augment"):
+        imgs, labs = gather_augment_batch(images_u8, labels_u8, idx, crop,
+                                          mean, std, generator, brightness,
+                                          saturation, batch_rows=rows)
     return step_on_batch(model, opt, imgs, labs, seed, loss_fn, bf16,
                          f1_postprocess, world)
 

@@ -4,6 +4,18 @@ a profiler trace of a block of work.
 
 Stages that end in a device pull (``predict/pull_h*``) include the device
 work they wait for; the others are host time.
+
+While a ``torch.profiler`` session records, each stage is also a range
+of the profiler's (a host event on the thread that ran it, on the clock
+of the device events), so a trace shows which host stage was open at
+every device event and every idle gap; and the stage's interval is kept
+in a bounded log (``spans()``) on that clock (the wall clock, in ns), for
+tools that read a trace in memory. The range is a plain host event
+(``_RecordFunctionFast``), not a ``record_function`` user annotation,
+whose device-side copy the profiler adds to the device's events. Spans of
+one chunk of the prediction pump carry the chunk's first manifest index:
+the range's input, shown as "Concrete Inputs" when the session records
+shapes.
 """
 from __future__ import annotations
 
@@ -11,11 +23,21 @@ import contextlib
 import os
 import threading
 import time
-from collections import defaultdict
+from collections import deque
 
-_STAGES: dict[str, list[float]] = defaultdict(list)
+import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
+
+# name -> [calls, total seconds]
+_STAGES: dict[str, list] = {}
 _LOCK = threading.Lock()
 _ENABLED = True
+# (name, start ns, end ns, chunk) of the spans run while a profiler records
+SPAN_LOG = 1 << 16
+_SPANS: deque = deque(maxlen=SPAN_LOG)
+# the chunk of the prediction pump a thread works on (``chunk_scope``)
+_LOCAL = threading.local()
 
 
 def enable(on: bool = True) -> None:
@@ -24,29 +46,77 @@ def enable(on: bool = True) -> None:
 
 
 @contextlib.contextmanager
-def stage_timer(name: str):
-    """Accumulate wall time under ``name`` (see ``report()``)."""
+def stage_timer(name: str, chunk: int | None = None):
+    """Accumulate wall time under ``name`` (see ``report()``); while a
+    profiler records, also a profiler range named ``name`` (with ``chunk``,
+    the first manifest index of the pump's chunk, or else the thread's
+    ``chunk_scope``, as its input) and an entry of ``spans()``."""
     if not _ENABLED:
         yield
         return
-    t0 = time.perf_counter()
+    if not _profiler._is_profiler_enabled:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _add(name, time.perf_counter() - t0)
+        return
+    if chunk is None:
+        chunk = getattr(_LOCAL, "chunk", None)
+    # no input at all where there is no chunk (None is refused)
+    args = (name,) if chunk is None else (name, (chunk,))
+    with _RecordFunctionFast(*args):
+        t0 = time.perf_counter()
+        w0 = time.time_ns()
+        try:
+            yield
+        finally:
+            w1 = time.time_ns()
+            dt = time.perf_counter() - t0
+            _SPANS.append((name, w0, w1, chunk))
+            _add(name, dt)
+
+
+@contextlib.contextmanager
+def chunk_scope(chunk: int):
+    """The stage timers this thread runs inside the block carry ``chunk``
+    (a chunk's first manifest index) unless they name their own."""
+    before = getattr(_LOCAL, "chunk", None)
+    _LOCAL.chunk = chunk
     try:
         yield
     finally:
-        dt = time.perf_counter() - t0
-        with _LOCK:
-            _STAGES[name].append(dt)
+        _LOCAL.chunk = before
+
+
+def _add(name: str, seconds: float) -> None:
+    with _LOCK:
+        row = _STAGES.get(name)
+        if row is None:
+            _STAGES[name] = [1, seconds]
+        else:
+            row[0] += 1
+            row[1] += seconds
 
 
 def report(reset: bool = False) -> dict[str, dict[str, float]]:
-    """{stage: {calls, total_s, mean_s}} for all stages so far."""
+    """{stage: {calls, total_s, mean_s}} for all stages so far; ``reset``
+    also empties ``spans()``."""
     with _LOCK:
-        out = {name: {"calls": len(times), "total_s": sum(times),
-                      "mean_s": sum(times) / len(times)}
-               for name, times in _STAGES.items()}
+        out = {name: {"calls": calls, "total_s": total,
+                      "mean_s": total / calls}
+               for name, (calls, total) in _STAGES.items()}
         if reset:
             _STAGES.clear()
+            _SPANS.clear()
     return out
+
+
+def spans() -> list[tuple[str, int, int, int | None]]:
+    """(name, start ns, end ns, chunk) of the latest ``SPAN_LOG`` stages
+    run while a profiler recorded, on the wall clock the profiler's events
+    use (``time.time_ns``)."""
+    return list(_SPANS)
 
 
 def print_report(reset: bool = False) -> None:
@@ -59,19 +129,31 @@ def print_report(reset: bool = False) -> None:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """Trace the block with ``torch.profiler``: CPU activity, and CUDA
-    activity (kernels, copies) when a card is present; on exit, export
-    one Chrome trace (``trace-<pid>-<ns>.json``, open it in Perfetto or
-    chrome://tracing) into ``log_dir``. The counterpart of the JAX
-    package's ``jax.profiler`` trace."""
-    import torch
+    """Trace the block with ``torch.profiler``: CPU activity on every
+    thread, with the stage timers' ranges, and CUDA activity (kernels,
+    copies) when a card is present; on exit, export one Chrome trace
+    (``trace-<pid>-<ns>.json``, open it in Perfetto or chrome://tracing)
+    into ``log_dir``. The counterpart of the JAX package's
+    ``jax.profiler`` trace."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=True,
+                 **_all_threads()) as prof:
         yield
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+
+def _all_threads() -> dict:
+    """The profiler's option to record every thread (the prediction pump's
+    workers, the artifact pool), where this torch has it."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return {"experimental_config":
+                _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}

@@ -1,0 +1,9 @@
+"""augment_ms.train: the device time of the events launched inside the
+program's ``train/augment`` spans (the device-side gather and augmentation
+of a step's batch), matched through the profiler's correlation ids
+(lib/program.py), per step, in ms."""
+from portbench.lib.program import step_device_ms
+
+
+def read(readings: dict) -> float | None:
+    return step_device_ms(readings, "train/augment")

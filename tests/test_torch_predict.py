@@ -7,7 +7,11 @@ wrapper takes the plain version for CPU tensors). Class maps must be
 equal; the only tolerated difference would be at pixels whose top-2 logit
 margin is under 1e-5, and the test asserts there are none on its inputs.
 The artifacts must match: final_stats.csv byte for byte, the dual PNGs
-decoded, and the same set of combined figures.
+decoded, and the same set of combined figures. A pass's stage timers:
+one plan and one finalize a pass, one decode, dispatch (upload, launch),
+pull, wait and postprocess a launch batch, one figure and one dual an
+image, each a profiler range in a session, a chunk's carrying its first
+index.
 """
 import os
 import shutil
@@ -168,6 +172,89 @@ def test_launch_ladder_and_unported_options(engines, tmp_path):
     # of range is refused before the folder is read
     with pytest.raises(ValueError, match="shard"):
         port_engine.predict("unused", shard=(2, 2))
+
+
+# the stage timers of a predict() pass: (name or prefix, calls per pass,
+# per chunk (a launch batch) or per image)
+STAGES = [("predict/plan", "pass"), ("predict/finalize", "pass"),
+          ("predict/decode", "chunk"), ("predict/dispatch_h", "chunk"),
+          ("predict/upload_h", "chunk"), ("predict/launch_h", "chunk"),
+          ("predict/pull_h", "chunk"), ("predict/wait", "chunk"),
+          ("predict/postprocess_h", "chunk"), ("report/figure", "image"),
+          ("report/dual", "image")]
+
+
+@pytest.fixture(scope="module")
+def stage_run(engines, tmp_path_factory):
+    """One predict() pass over a processed folder inside a CPU profiler
+    session: (the stage report, the profiled spans' log, the profiler's
+    events of the program's stages by name, the planned chunks' first
+    indices and sizes, the number of images)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuralbarkcalculator_tpu_torch.data.dataset import make_dataset
+    from neuralbarkcalculator_tpu_torch.utils import profiling
+
+    _, port_engine = engines
+    root = tmp_path_factory.mktemp("stages")
+    items = _items(seed=11)
+    write_processed(str(root), items)
+    profiling.report(reset=True)
+    with profile(activities=[ProfilerActivity.CPU],
+                 **profiling._all_threads()) as prof:
+        port_engine.predict(str(root), progress=False)
+    log = profiling.spans()
+    stages = profiling.report(reset=True)
+    annotations: dict[str, int] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(("predict/", "report/")):
+            annotations[e.name()] = annotations.get(e.name(), 0) + 1
+    records = make_dataset(os.path.join(str(root), "processed"))
+    height = {(it.fname, it.wood_type): it.image.shape[0] for it in items}
+    chunks = port_engine._plan_chunks(
+        [(i, height[(r.fname, r.wood_type)], WIDTH)
+         for i, r in enumerate(records)])
+    yield (stages, log, annotations,
+           {idxs[0]: len(idxs) for _, idxs in chunks}, len(items))
+    shutil.rmtree(root, ignore_errors=True)
+
+
+@pytest.mark.parametrize("stage, per", STAGES)
+def test_predict_stage_counts(stage_run, stage, per):
+    stages, log, annotations, chunks, n_images = stage_run
+    want = {"pass": 1, "chunk": len(chunks), "image": n_images}[per]
+    rows = {k: v for k, v in stages.items() if k.startswith(stage)}
+    assert rows and sum(v["calls"] for v in rows.values()) == want
+    # each call is a range of the profiler's and an entry of the log
+    for name, row in rows.items():
+        assert annotations[name] == row["calls"]
+        assert sum(1 for n, *_ in log if n == name) == row["calls"]
+
+
+def test_predict_stage_names_and_chunks(stage_run):
+    import re
+
+    stages, log, _, chunks, _ = stage_run
+    assert len(chunks) == 2  # buckets 64 (4 images) and 32 (3)
+    # the names dispatch_ms and postprocess_ms read: nothing else under
+    # their prefixes
+    for name in stages:
+        if name.startswith(("predict/dispatch_h", "predict/postprocess_h")):
+            assert re.fullmatch(r"predict/(dispatch|postprocess)_h\d+", name)
+        assert name.startswith(("predict/", "report/"))
+    # a chunk's spans carry its first manifest index, decode to artifacts
+    by: dict[str, dict] = {}
+    for name, _, _, chunk in log:
+        stage = re.sub(r"_h\d+$", "", name)
+        by.setdefault(stage, {}).setdefault(chunk, 0)
+        by[stage][chunk] += 1
+    for stage in ("predict/decode", "predict/dispatch", "predict/upload",
+                  "predict/launch", "predict/pull", "predict/wait",
+                  "predict/postprocess"):
+        assert by[stage] == dict.fromkeys(chunks, 1), stage
+    for stage in ("report/figure", "report/dual"):
+        assert by[stage] == chunks, stage
+    assert by["predict/plan"] == by["predict/finalize"] == {None: 1}
 
 
 def test_cli_runs_on_cpu(tmp_path):

@@ -20,8 +20,10 @@ package.
 - Adam from identical gradients against the JAX package's optax chain,
   within 1e-7, as tests/test_train.py holds torch.optim.Adam.
 - The eval step's metrics against ``make_eval_step``'s on a padded batch.
+- A ``train_step``'s stage timers: one of each phase a step.
 - One CPU epoch through the CLI (``--device cpu``) on a synthetic 64x64
-  dataset: checkpoints, best_model.pt and the report CSV.
+  dataset: checkpoints, best_model.pt, the report CSV, and one Adam step
+  (``train/optimizer``) a batch.
 """
 import csv
 import os
@@ -232,6 +234,41 @@ def test_dropout_step_runs_the_op_with_the_step_seed(monkeypatch):
     assert all(np.isfinite(losses))
 
 
+TRAIN_STAGES = ("train/augment", "train/forward", "train/backward",
+                "train/optimizer", "train/metrics")
+
+
+@pytest.fixture(scope="module")
+def step_stages():
+    """The stage report of two ``train_step`` calls of the tiny model on
+    a device-resident uint8 dataset."""
+    from neuralbarkcalculator_tpu_torch.train.optim import adam
+    from neuralbarkcalculator_tpu_torch.train.step import train_step
+    from neuralbarkcalculator_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.integers(0, 256, (4, 48, 48, 3),
+                                           dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 3, (4, 48, 48),
+                                           dtype=np.uint8))
+    model = torch_train_model_with(tiny_variables(seed=0))
+    opt = adam(model.parameters(), 5e-4)
+    gen = torch.Generator().manual_seed(0)
+    mean, std = torch.full((3,), 0.5), torch.full((3,), 0.25)
+    profiling.report(reset=True)
+    for step, rows in enumerate(([0, 1], [2, 3])):
+        m = train_step(model, opt, images, labels, torch.tensor(rows), gen,
+                       step, 32, mean, std)
+        assert np.isfinite(float(m["loss"]))
+    return profiling.report(reset=True)
+
+
+@pytest.mark.parametrize("stage", TRAIN_STAGES)
+def test_train_step_has_one_span_of_each_phase(step_stages, stage):
+    assert step_stages[stage]["calls"] == 2
+    assert set(step_stages) == set(TRAIN_STAGES)
+
+
 def test_build_model_is_deterministic():
     from neuralbarkcalculator_tpu_torch.train.loop import build_model
 
@@ -261,6 +298,9 @@ def test_cli_trains_one_epoch_on_cpu(data_root, tmp_path):
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
 
+    from neuralbarkcalculator_tpu_torch.utils import profiling
+
+    profiling.report(reset=True)
     exp = main(build_parser().parse_args(
         [str(tmp_path), "--device", "cpu", "--data_dir", data_root,
          "--epochs", "1", "--batch_size", "4", "--crop_size", "32",
@@ -268,7 +308,7 @@ def test_cli_trains_one_epoch_on_cpu(data_root, tmp_path):
     assert exp.device == torch.device("cpu")
     assert exp.step_count == 24 // 4 and len(exp.step_losses) == 6
     assert all(np.isfinite(exp.step_losses))
-    assert len(exp.step_seconds) == 6
+    assert profiling.report(reset=True)["train/optimizer"]["calls"] == 6
 
     # splits: the JAX package's for the same seed
     ds = BarkDataset(data_root)
