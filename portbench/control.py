@@ -7,8 +7,9 @@ cell's own size; each must come out as not correct.
   the precision below bf16, run as the cell's run with a short window
   (``--seconds``) and judged by the same comparison.
 - ``tf32`` (the training cells, float32 with TF32 off): the reference with
-  TF32-rounded convolutions (reference/control.py) in the program's place,
-  on the run's inputs, weights and seeds, through the same comparison.
+  TF32-rounded products (reference/control.py) in the program's place, on
+  the run's inputs, weights and seeds (the whole global batch on one
+  card), through the same comparison.
 
     python3 portbench/control.py --workload fcn_resnet50.folder \
         --control int8 --seeds 11,12,13 --seconds 5
@@ -44,8 +45,8 @@ def control_run(cell, seed: int, name: str, device,
                         device=device, workdir=workdir,
                         t0=time.perf_counter())
         if name == "tf32":
-            from portbench.reference.control import tf32_conv
-            checks, per, reads = driver.control(r, tf32_conv)
+            from portbench.reference.control import TF32
+            checks, per, reads = driver.control(r, TF32)
         else:
             cell.config["predict"]["int8"] = True
             out = driver.run(r)

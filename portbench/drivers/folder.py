@@ -37,11 +37,11 @@ import time
 
 import numpy as np
 
+from portbench import reference
 from portbench.lib import common, flops, inputs
 from portbench.lib.harness import Outcome, Run
 from portbench.lib.spans import Spans
 from portbench.lib.trace import Trace
-from portbench.reference import model as M
 from portbench.reference import postprocess as ref
 
 
@@ -163,7 +163,7 @@ def compare(run: Run, records: list[dict], ckpt: str, got) -> tuple:
     (class map, [bark %, bark mm^2, node %, node mm^2]). Every number read
     is returned; those the cell's limits name are the checks."""
     cfg = run.cell.config
-    M.exact_float32()
+    reference.exact_float32()
     state = common.reference_state(ckpt, run.device)
     refs: dict[int, tuple] = {}
     worst = dict.fromkeys(READINGS, 0.0)
@@ -172,9 +172,7 @@ def compare(run: Run, records: list[dict], ckpt: str, got) -> tuple:
         rec = records[i]
         if rec["drawing"] not in refs:
             img = common.read_rgb(rec["path"])
-            logits, want = ref.logits_and_map(
-                state, img, cfg["model"], cfg["mean"], cfg["std"],
-                run.device)
+            logits, want = ref.logits_and_map(state, img, cfg, run.device)
             refs[rec["drawing"]] = (img, logits, want)
         img, logits, want = refs[rec["drawing"]]
         cmap, row = got(rec, img)
@@ -217,6 +215,9 @@ def run(r: Run) -> Outcome:
     from neuralbarkcalculator_tpu_torch.ops import upsample_argmax as UA
     from neuralbarkcalculator_tpu_torch.pipeline import predict as P
     from neuralbarkcalculator_tpu_torch.utils import profiling
+
+    if r.world is not None:
+        raise ValueError("the folder driver runs in one process")
 
     cfg, tr = r.cell.config, r.cell.traffic
     pred = cfg["predict"]
@@ -302,7 +303,7 @@ def run(r: Run) -> Outcome:
                   'harness/upsample_argmax', 'upsample_argmax_kernel')} for "
               f"{len(calls)} calls")
     heights = [rec["height"] for rec in records]
-    image_flops = sum(flops.model_flops(cfg["model"], h, tr["width"])
+    image_flops = sum(flops.model_flops(cfg, h, tr["width"])
                       for h in heights) / len(heights)
     readings = {
         "kind": "folder", "images": n_images, "seconds": t_all,

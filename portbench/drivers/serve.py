@@ -48,11 +48,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from portbench import reference
 from portbench.lib import common, inputs
 from portbench.lib.harness import BENCH, Outcome, Run
 from portbench.lib.spans import Spans
 from portbench.lib.trace import Trace
-from portbench.reference import model as M
 from portbench.reference import postprocess as ref
 
 
@@ -98,7 +98,7 @@ class Reference:
     """The reference's trim, logits and map of each body, computed once."""
 
     def __init__(self, run: Run, bodies: list[str], ckpt: str):
-        M.exact_float32()
+        reference.exact_float32()
         self.run, self.bodies = run, bodies
         self.state = common.reference_state(ckpt, run.device)
         self.trims: dict[int, tuple[int, int]] = {}
@@ -117,8 +117,8 @@ class Reference:
             first, last = self.trims[b]
             cfg = self.run.cell.config
             self.maps[b] = ref.logits_and_map(
-                self.state, common.read_rgb(self.bodies[b])[first:last],
-                cfg["model"], cfg["mean"], cfg["std"], self.run.device)
+                self.state, common.read_rgb(self.bodies[b])[first:last], cfg,
+                self.run.device)
         return self.maps[b]
 
 
@@ -278,6 +278,8 @@ def latencies(records: list[dict], horizon_ms: float) -> list[float]:
 
 
 def run(r: Run) -> Outcome:
+    if r.world is not None:
+        raise ValueError("the serving driver runs in one process")
     tr = r.cell.traffic
     svc = Service(r)
     try:

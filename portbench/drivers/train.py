@@ -14,9 +14,21 @@ Window: steps until the window's seconds have passed, then one device
 synchronise: ``train_step_ms`` is the window's wall time over its steps,
 ``train_peak_gib`` the allocator's peak over the window.
 
+Data-parallel traffic (``global_batch`` in the traffic file; harness.py
+runs the cell as ``chips`` ranks) is driven as ``train/loop.py`` drives it
+under a world: the model's BatchNorms converted to the cross-rank
+BatchNorm (``convert_batchnorm``), each rank's rows of every global batch
+(``World.rank_slice``), ``train_step(..., world=world)``. Rank 0's clock
+ends the window for every rank (lib/common.Steps); the memory peaks are
+the largest over the ranks and a traced run's busy seconds their mean;
+then every rank leaves the group and rank 0 checks alone. Without
+``global_batch`` the batch is the configuration's.
+
 Correctness, after the window and with the program's state freed: the
-reference (reference/train.run_steps) takes the same initial weights,
-rows, augmentation seed and dropout seeds through the checked steps.
+reference (reference/train.run_steps, on the whole global batch, its
+backbone blocks recomputed in backward where the traffic sets
+``recompute``) takes the same initial weights, rows, augmentation seed and
+dropout seeds through the checked steps.
 Compared: ``loss_gap``, the largest relative gap of a step's loss;
 ``grad_gap``, the worst leaf's gap between the norms of the first gradient
 as Adam holds it (its first moment over 1 - beta1); ``change_gap``, the
@@ -33,11 +45,11 @@ import time
 import numpy as np
 import torch
 
+from portbench import reference
 from portbench.lib import common, flops, inputs, weights
 from portbench.lib.harness import Outcome, Run
 from portbench.lib.spans import Spans
 from portbench.lib.trace import Trace
-from portbench.reference import model as M
 from portbench.reference import train as ref
 
 ZERO_GRAD_SHARE = 1e-3
@@ -91,11 +103,18 @@ def compare(got: dict, want: dict, limits: dict) -> tuple[list, dict,
                     "loss_gaps": losses}, reads
 
 
+def global_batch(r: Run) -> int:
+    return r.cell.traffic.get("global_batch",
+                              r.cell.config["train"]["batch_size"])
+
+
 def run(r: Run) -> Outcome:
     from neuralbarkcalculator_tpu_torch.models.convert import \
         load_state_dict_into
     from neuralbarkcalculator_tpu_torch.models.segmentation import \
         MODEL_FACTORIES
+    from neuralbarkcalculator_tpu_torch.parallel.sync_bn import \
+        convert_batchnorm
     from neuralbarkcalculator_tpu_torch.train.optim import adam
     from neuralbarkcalculator_tpu_torch.train.step import (make_loss_fn,
                                                            train_step)
@@ -104,17 +123,19 @@ def run(r: Run) -> Outcome:
 
     cfg, tr = r.cell.config, r.cell.traffic
     t = cfg["train"]
-    name, dev = cfg["model"], r.device
+    name, dev, world = cfg["model"], r.device, r.world
     if t["dtype"] != "float32" or t["tf32"]:
         raise ValueError("the train driver runs float32 with TF32 off")
     set_float32_exact(dev)
     images, labels = inputs.make_train_set(r.seed, tr)
     images_d = torch.from_numpy(images).to(dev)
     labels_d = torch.from_numpy(labels).to(dev)
-    state0 = weights.random_state_dict(M.param_shapes(name), r.seed, dev)
+    state0 = weights.random_state_dict(cfg, r.seed, dev)
     model = MODEL_FACTORIES[name]()
     load_state_dict_into(model, state0)
     model = model.to(dev)
+    if world is not None and world.group is not None:
+        convert_batchnorm(model, world)
     state0 = {k: v.cpu() for k, v in state0.items()}
     opt = adam(model.parameters(), t["lr"], t["weight_decay"])
     beta1 = opt.param_groups[0]["betas"][0]
@@ -123,16 +144,19 @@ def run(r: Run) -> Outcome:
     gen = torch.Generator(device=dev)
     gen.manual_seed(r.seed)
     loss_fn = make_loss_fn(t["loss"])
-    batches = plan(r.seed, len(images), t["batch_size"])
+    batch = global_batch(r)
+    batches = plan(r.seed, len(images), batch)
     spans = Spans()
 
     def step(rows: np.ndarray, seed: int):
+        if world is not None:
+            rows = rows[world.rank_slice(len(rows))]
         with spans.span("harness/train_step"):
             return train_step(
                 model, opt, images_d, labels_d,
                 torch.as_tensor(rows, device=dev), gen, seed, t["crop"],
                 mean, std, t["brightness"], t["saturation"], loss_fn,
-                bf16=False, f1_postprocess=False)
+                bf16=False, f1_postprocess=False, world=world)
 
     checked = []
     got = {"loss": [], "grad": {}, "change": {}}
@@ -150,33 +174,45 @@ def run(r: Run) -> Outcome:
     got["change"] = {k: float((p.detach().cpu() - state0[k]).norm())
                      for k, p in model.named_parameters()}
     spans.clear()
+    steps_go = common.Steps(world)
+    if world is not None:
+        world.barrier()
     setup_peak = common.reset_peak(dev)
     steps = 0
     with Trace(r.trace) as trace:
         t_start = time.perf_counter()
         setup_s = t_start - r.t0
         with trace.window():
-            while time.perf_counter() - t_start < r.seconds:
+            while steps_go.go(time.perf_counter() - t_start < r.seconds):
                 step(*next(batches))
                 steps += 1
             common.sync(dev)
             seconds = time.perf_counter() - t_start
     window_peak = common.peak(dev)
-    memory_peak = max(setup_peak, window_peak)
+    window_peak, memory_peak = common.max_over(
+        world, window_peak, max(setup_peak, window_peak))
+    busy = (common.mean_over(world, trace.busy_s())
+            if r.trace and world is not None else None)
     del model, opt, gen
     common.free(dev)
+    common.leave(world)
+    if world is not None and world.rank != 0:
+        return Outcome(e2e={}, attempted=steps, failed=0, checks=[],
+                       memory_peak_bytes=memory_peak)
 
     r.log(f"train: {steps} steps in {seconds:.3f} s "
           f"({seconds / steps * 1e3:.3f} ms a step); window peak "
           f"{window_peak / 2 ** 30:.3f} GiB, set-up peak "
           f"{setup_peak / 2 ** 30:.3f} GiB; set-up {setup_s:.3f} s")
-    M.exact_float32()
+    reference.exact_float32()
+    common.reset_peak(dev)
     t_ref = time.perf_counter()
-    want = ref.run_steps(state0, images_d, labels_d, [c[0] for c in checked],
-                         [c[1] for c in checked], r.seed, name, t,
-                         cfg["mean"], cfg["std"], dev)
-    r.log(f"train: reference {len(checked)} steps in "
-          f"{time.perf_counter() - t_ref:.3f} s")
+    want = ref.run_steps(cfg, state0, images_d, labels_d,
+                         [c[0] for c in checked], [c[1] for c in checked],
+                         r.seed, dev, recompute=tr.get("recompute", False))
+    r.log(f"train: reference {len(checked)} steps of {batch} rows in "
+          f"{time.perf_counter() - t_ref:.3f} s, peak "
+          f"{common.peak(dev) / 2 ** 30:.3f} GiB")
     checks, info, reads = compare(got, want, r.cell.limits)
     for i, (a, b) in enumerate(zip(got["loss"], want["loss"])):
         r.log(f"check step {i + 1}: loss {a!r} reference {b!r}")
@@ -184,8 +220,8 @@ def run(r: Run) -> Outcome:
           f"{info['change_at']}, left out {info['left_out']}")
     r.log("check readings: " + json.dumps(reads))
     readings = {"kind": "train", "steps": steps, "seconds": seconds,
-                "step_flops": flops.train_step_flops(name, t["batch_size"],
-                                                     t["crop"]),
+                "step_flops": flops.train_step_flops(cfg, batch, t["crop"]),
+                "chips": r.cell.chips,
                 "spans": spans, "trace": trace if r.trace else None,
                 "peaks": flops.PEAKS, "check_readings": reads}
     return Outcome(
@@ -193,25 +229,24 @@ def run(r: Run) -> Outcome:
              "train_peak_gib": window_peak / 2 ** 30, "setup_s": setup_s},
         attempted=steps, failed=0, checks=checks,
         memory_peak_bytes=memory_peak, readings=readings,
-        trace=trace if r.trace else None)
+        trace=trace if r.trace else None, busy_s=busy)
 
 
-def control(r: Run, conv) -> tuple[list, dict, dict]:
-    """The reference with ``conv`` (reference/control.py) in the program's
-    place, on the run's inputs, weights and seeds, through the same
-    comparison."""
-    cfg, tr = r.cell.config, r.cell.traffic
-    t, name, dev = cfg["train"], cfg["model"], r.device
+def control(r: Run, hooks: dict) -> tuple[list, dict, dict]:
+    """The reference with ``hooks`` (``Ops``' conv and matmul,
+    reference/control.py) in the program's place, on the run's inputs,
+    weights and seeds, through the same comparison."""
+    cfg, tr, dev = r.cell.config, r.cell.traffic, r.device
     images, labels = inputs.make_train_set(r.seed, tr)
     images_d = torch.from_numpy(images).to(dev)
     labels_d = torch.from_numpy(labels).to(dev)
-    state0 = weights.random_state_dict(M.param_shapes(name), r.seed, dev)
-    batches = plan(r.seed, len(images), t["batch_size"])
+    state0 = weights.random_state_dict(cfg, r.seed, dev)
+    batches = plan(r.seed, len(images), global_batch(r))
     checked = [next(batches) for _ in range(tr["checked_steps"])]
-    M.exact_float32()
-    args = (state0, images_d, labels_d, [c[0] for c in checked],
-            [c[1] for c in checked], r.seed, name, t, cfg["mean"],
-            cfg["std"], dev)
-    want = ref.run_steps(*args)
-    got = ref.run_steps(*args, conv=conv)
+    reference.exact_float32()
+    args = (cfg, state0, images_d, labels_d, [c[0] for c in checked],
+            [c[1] for c in checked], r.seed, dev)
+    recompute = tr.get("recompute", False)
+    want = ref.run_steps(*args, recompute=recompute)
+    got = ref.run_steps(*args, hooks=hooks, recompute=recompute)
     return compare(got, want, r.cell.limits)

@@ -16,24 +16,58 @@ functions over a state dict with torchvision's names.
   ``F.interpolate(mode="bicubic", align_corners=False)``, the reference
   application's upsample.
 
-Every convolution goes through ``ops.conv`` (``F.conv2d`` by default), so
-the FLOP counter (lib/flops.py) and the lower-precision controls
-(reference/control.py) see the same graph. Nothing here imports the
-program under test.
+Every convolution goes through ``ops.c`` and every BatchNorm through
+``batch_norm(ops, ...)`` (reference/__init__.py: the interface of a
+reference module, which this one provides), so the FLOP counter
+(lib/flops.py) and the lower-precision control (reference/control.py)
+see the same graph. Nothing here imports the program under test.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 
+from . import Normal, Ops, Uniform, Zeros, batch_norm
+
 NUM_CLASSES = 3
-BN_EPS = 1e-5
 ASPP_RATES = (12, 24, 36)
 ASPP_CHANNELS = 256
 STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+
+
+# the drawn weights (lib/weights.py): He-normal convolutions, a nonzero
+# BatchNorm state (running mean N(0, 0.1), running variance U(0.5, 2), scale
+# U(0.5, 1.5), the scale of a BatchNorm that ends a residual branch U(0.1,
+# 0.3) so that the random network stays in range), biases N(0, 0.1)
+RESIDUAL_END_BN = (".bn3.weight", "downsample.1.weight")
+# calibrated (lib/weights.calibrate_bn): the heads' BatchNorms, less
+# DeepLab's pooled branch, whose batch statistics are over one value an
+# image, a variance of a few samples
+CALIBRATE_PREFIX = "classifier."
+CALIBRATE_EXCLUDE = ("classifier.0.convs.4.2",)
+
+
+def init_rule(name: str, shape: tuple) -> Normal | Uniform | Zeros:
+    """How lib/weights.py draws the entry ``name`` of ``shape``."""
+    if len(shape) == 4:
+        return Normal((2.0 / (shape[1] * shape[2] * shape[3])) ** 0.5)
+    if name.endswith(("running_mean", "bias")):
+        return Normal(0.1)
+    if name.endswith("num_batches_tracked"):
+        return Zeros(torch.int64)
+    if name.endswith("running_var"):
+        return Uniform(0.5, 2.0)
+    if name.endswith(RESIDUAL_END_BN):
+        return Uniform(0.1, 0.3)
+    return Uniform(0.5, 1.5)
+
+
+def trains(model: str) -> bool:
+    """The DeepLab head trains here; the FCN head's dropout is the
+    program's fused kernel, whose mask this reference does not draw."""
+    return split_name(model)[0] == "deeplabv3"
 
 
 def split_name(model: str) -> tuple[str, str]:
@@ -115,94 +149,60 @@ def param_shapes(model: str) -> dict[str, tuple]:
     return s
 
 
-@dataclass
-class Ops:
-    """The operations a forward runs. ``conv(x, w, b, stride, padding,
-    dilation)``; ``train``: BatchNorm on batch statistics and the ASPP's
-    dropout on ``dropout_keep`` (a bool mask, drawn by the caller);
-    ``batch_stats``: BatchNorm on batch statistics alone (for the
-    BatchNorms named ``batch_stats_prefix...``); ``on_conv``, if
-    given, sees every conv's (input, weight, output), and ``on_bn`` every
-    BatchNorm's (name, batch mean, biased batch variance) on batch
-    statistics."""
-    conv: Callable = None
-    train: bool = False
-    batch_stats: bool = False
-    batch_stats_prefix: str = ""
-    dropout_keep: Callable | None = None
-    on_conv: Callable | None = None
-    on_bn: Callable | None = None
-
-    def c(self, x, w, b=None, stride=1, padding=0, dilation=1):
-        fn = self.conv or (lambda x, w, b, s, p, d: F.conv2d(
-            x, w, b, s, p, d))
-        y = fn(x, w, b, stride, padding, dilation)
-        if self.on_conv is not None:
-            self.on_conv(x, w, y)
-        return y
-
-
-def _bn(ops: Ops, st: dict, p: str, x: torch.Tensor) -> torch.Tensor:
-    if ops.train or (ops.batch_stats and p.startswith(ops.batch_stats_prefix)
-                     and x.shape[2] * x.shape[3] > 1):
-        if ops.on_bn is not None:
-            ops.on_bn(p, x.mean((0, 2, 3)), x.var((0, 2, 3), unbiased=False))
-        return F.batch_norm(x, None, None, st[f"{p}.weight"],
-                            st[f"{p}.bias"], True, 0.0, BN_EPS)
-    return F.batch_norm(x, st[f"{p}.running_mean"], st[f"{p}.running_var"],
-                        st[f"{p}.weight"], st[f"{p}.bias"], False, 0.0,
-                        BN_EPS)
-
-
 def backbone_forward(st: dict, x: torch.Tensor, backbone: str,
                      ops: Ops) -> torch.Tensor:
     """NCHW normalized images -> layer4 features (stride 8)."""
     x = ops.c(x, st["backbone.conv1.weight"], None, 2, 3)
-    x = F.relu(_bn(ops, st, "backbone.bn1", x))
+    x = F.relu(batch_norm(ops, st, "backbone.bn1", x))
     x = F.max_pool2d(x, 3, 2, 1)
     for prefix, _, _, stride, dil, down in _blocks(backbone):
-        p = f"backbone.{prefix}"
-        y = F.relu(_bn(ops, st, f"{p}.bn1",
-                       ops.c(x, st[f"{p}.conv1.weight"])))
-        y = F.relu(_bn(ops, st, f"{p}.bn2",
-                       ops.c(y, st[f"{p}.conv2.weight"], None, stride,
-                             dil, dil)))
-        y = _bn(ops, st, f"{p}.bn3", ops.c(y, st[f"{p}.conv3.weight"]))
-        if down:
-            x = _bn(ops, st, f"{p}.downsample.1",
-                    ops.c(x, st[f"{p}.downsample.0.weight"], None, stride))
-        x = F.relu(y + x)
+        x = ops.block(partial(_bottleneck, st, f"backbone.{prefix}", stride,
+                              dil, down, ops), x)
     return x
+
+
+def _bottleneck(st: dict, p: str, stride: int, dil: int, down: bool,
+                ops: Ops, x: torch.Tensor) -> torch.Tensor:
+    y = F.relu(batch_norm(ops, st, f"{p}.bn1",
+                          ops.c(x, st[f"{p}.conv1.weight"])))
+    y = F.relu(batch_norm(ops, st, f"{p}.bn2",
+                          ops.c(y, st[f"{p}.conv2.weight"], None, stride,
+                                dil, dil)))
+    y = batch_norm(ops, st, f"{p}.bn3", ops.c(y, st[f"{p}.conv3.weight"]))
+    if down:
+        x = batch_norm(ops, st, f"{p}.downsample.1",
+                       ops.c(x, st[f"{p}.downsample.0.weight"], None,
+                             stride))
+    return F.relu(y + x)
 
 
 def head_forward(st: dict, x: torch.Tensor, head: str,
                  ops: Ops) -> torch.Tensor:
     """layer4 features -> class logits at the feature stride (NCHW)."""
     if head == "fcn":
-        y = F.relu(_bn(ops, st, "classifier.1",
-                       ops.c(x, st["classifier.0.weight"], None, 1, 1)))
+        y = F.relu(batch_norm(ops, st, "classifier.1", ops.c(
+            x, st["classifier.0.weight"], None, 1, 1)))
         if ops.train:
             raise ValueError("the reference trains the DeepLab head only")
         return ops.c(y, st["classifier.4.weight"], st["classifier.4.bias"])
     a = "classifier.0"
-    branches = [F.relu(_bn(ops, st, f"{a}.convs.0.1",
-                           ops.c(x, st[f"{a}.convs.0.0.weight"])))]
+    branches = [F.relu(batch_norm(ops, st, f"{a}.convs.0.1", ops.c(
+        x, st[f"{a}.convs.0.0.weight"])))]
     for i, rate in enumerate(ASPP_RATES, start=1):
-        branches.append(F.relu(_bn(ops, st, f"{a}.convs.{i}.1", ops.c(
+        branches.append(F.relu(batch_norm(ops, st, f"{a}.convs.{i}.1", ops.c(
             x, st[f"{a}.convs.{i}.0.weight"], None, 1, rate, rate))))
     pooled = F.adaptive_avg_pool2d(x, 1)
-    pooled = F.relu(_bn(ops, st, f"{a}.convs.4.2",
-                        ops.c(pooled, st[f"{a}.convs.4.1.weight"])))
+    pooled = F.relu(batch_norm(ops, st, f"{a}.convs.4.2", ops.c(
+        pooled, st[f"{a}.convs.4.1.weight"])))
     branches.append(F.interpolate(pooled, size=x.shape[-2:],
                                   mode="bilinear", align_corners=False))
-    y = F.relu(_bn(ops, st, f"{a}.project.1",
-                   ops.c(torch.cat(branches, 1),
-                         st[f"{a}.project.0.weight"])))
+    y = F.relu(batch_norm(ops, st, f"{a}.project.1", ops.c(
+        torch.cat(branches, 1), st[f"{a}.project.0.weight"])))
     if ops.train:
         keep = ops.dropout_keep(y)
         y = torch.where(keep, y / 0.5, torch.zeros_like(y))
-    y = F.relu(_bn(ops, st, "classifier.2",
-                   ops.c(y, st["classifier.1.weight"], None, 1, 1)))
+    y = F.relu(batch_norm(ops, st, "classifier.2", ops.c(
+        y, st["classifier.1.weight"], None, 1, 1)))
     return ops.c(y, st["classifier.4.weight"], st["classifier.4.bias"])
 
 
@@ -216,18 +216,3 @@ def logits(st: dict, x: torch.Tensor, model: str,
                         ops)
     return F.interpolate(feat, size=x.shape[-2:], mode="bicubic",
                          align_corners=False)
-
-
-def normalize(images_u8: torch.Tensor, mean, std) -> torch.Tensor:
-    """uint8 NHWC -> normalized float32 NCHW."""
-    x = images_u8.float() / 255.0
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(std, dtype=torch.float32, device=x.device)
-    return ((x - m) / s).permute(0, 3, 1, 2).contiguous()
-
-
-def exact_float32() -> None:
-    """TF32 off for matmuls and cuDNN convolutions: the reference computes
-    in float32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False

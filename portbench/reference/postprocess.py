@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from scipy import ndimage
 
-from . import model as M
+from . import Ops, module_for, normalize
 
 SMALL_ZONE = 150
 MM2_PER_PIXEL = 3.6 * 3.6
@@ -80,25 +80,21 @@ def stats_of_counts(counts, n: int) -> dict:
             "node_area_mm2": counts[2] * MM2_PER_PIXEL}
 
 
-def logits_and_map(state: dict, img_u8: np.ndarray, model: str, mean, std,
-                   device, ops: M.Ops | None = None
+def logits_and_map(state: dict, img_u8: np.ndarray, config: dict, device,
+                   ops: Ops | None = None
                    ) -> tuple[torch.Tensor, np.ndarray]:
     """One trimmed uint8 [H, W, 3] image -> (its float32 logits [3, H, W]
-    on ``device``, its cleaned class map): the forward at the image's own
-    size, the bicubic upsample, the argmax (the first class on a tie), the
-    small-zone clean-up."""
-    x = M.normalize(torch.from_numpy(np.array(img_u8))[None]
-                    .to(device), mean, std)
+    on ``device``, its cleaned class map): the forward of the
+    configuration's reference model at the image's own size, with its
+    upsample, the argmax (the first class on a tie), the small-zone
+    clean-up."""
+    x = normalize(torch.from_numpy(np.array(img_u8))[None].to(device),
+                  config["mean"], config["std"])
     with torch.no_grad():
-        logits = M.logits(state, x, model, ops)[0]
+        logits = module_for(config).logits(state, x, config["model"],
+                                           ops)[0]
     raw = logits.argmax(0).to(torch.uint8).cpu().numpy()
     return logits, remove_small_zones(raw)
-
-
-def class_map(state: dict, img_u8: np.ndarray, model: str, mean, std,
-              device, ops: M.Ops | None = None) -> np.ndarray:
-    """``logits_and_map``'s class map."""
-    return logits_and_map(state, img_u8, model, mean, std, device, ops)[1]
 
 
 TIE = 0.05

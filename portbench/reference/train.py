@@ -1,6 +1,11 @@
-"""The plain reference of a training step of the DeepLabV3 model: the
-augmentation, the forward in train mode with the ASPP's dropout, the
-Lovász-Softmax loss, backward and Adam.
+"""The plain reference of a training step: the augmentation, the forward of
+the configuration's reference model (reference/__init__.py) in train mode
+with its dropout, the Lovász-Softmax loss, backward and Adam, over the
+whole global batch in one process: BatchNorm takes the statistics of all
+of its rows, the semantics that the program's cross-rank BatchNorm
+(parallel/sync_bn.py) claims for a data-parallel step, and each block of
+the backbone can be recomputed in backward so that a large global batch
+fits on one card.
 
 Rules of the program that the reference needs to draw the same random
 numbers, held here as frozen copies (the file each was copied from is
@@ -28,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import model as M
+from . import Ops, module_for
 
 HEAD_STREAM = 2
 
@@ -135,13 +140,19 @@ def trainable(name: str) -> bool:
     return name.endswith(PARAM_SUFFIXES)
 
 
-def run_steps(state0: dict, images_u8, labels_u8, batches, step_seeds,
-              aug_seed: int, model: str, train: dict, mean, std, device,
-              conv=None) -> dict:
-    """The first len(batches) steps from ``state0``. Returns each step's
-    loss, each leaf's first gradient norm as Adam holds it after step 1
-    (its first moment over 1 - beta1), and each leaf's change after the
-    last step."""
+def run_steps(config: dict, state0: dict, images_u8, labels_u8, batches,
+              step_seeds, aug_seed: int, device, hooks: dict | None = None,
+              recompute: bool = False) -> dict:
+    """The first len(batches) steps of the configuration's model and
+    ``train`` recipe from ``state0``, each on the whole global batch of
+    dataset rows ``batches[k]``. ``hooks``: ``Ops``' ``conv`` and
+    ``matmul`` (reference/control.py); ``recompute``: each backbone block
+    recomputed in backward. Returns each step's loss, each leaf's first
+    gradient norm as Adam holds it after step 1 (its first moment over 1 -
+    beta1), and each leaf's change after the last step."""
+    ref, model, train = module_for(config), config["model"], config["train"]
+    if not ref.trains(model):
+        raise ValueError(f"the training reference does not train {model!r}")
     params = {k: v.detach().to(device).float().clone().requires_grad_(
         trainable(k)) for k, v in state0.items()}
     leaves = [params[k] for k in params if trainable(k)]
@@ -152,10 +163,12 @@ def run_steps(state0: dict, images_u8, labels_u8, batches, step_seeds,
     g.manual_seed(aug_seed)
     out = {"loss": [], "grad": {}, "change": {}}
     for step, (idx, seed) in enumerate(zip(batches, step_seeds)):
-        x, y = augment(images_u8, labels_u8, idx, train["crop"], mean, std,
-                       g, train["brightness"], train["saturation"])
-        ops = M.Ops(conv=conv, train=True, dropout_keep=dropout_keep(seed))
-        loss = lovasz_softmax(M.logits(params, x, model, ops), y)
+        x, y = augment(images_u8, labels_u8, idx, train["crop"],
+                       config["mean"], config["std"], g, train["brightness"],
+                       train["saturation"])
+        ops = Ops(**(hooks or {}), train=True, recompute=recompute,
+                  dropout_keep=dropout_keep(seed))
+        loss = lovasz_softmax(ref.logits(params, x, model, ops), y)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()

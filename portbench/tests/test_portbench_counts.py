@@ -1,13 +1,15 @@
 """The FLOP and byte counters against hand counts."""
 import torch
 
+from portbench import reference
 from portbench.lib import flops
-from portbench.reference import model as M
+
+FCN, DEEPLAB = {"model": "fcn_resnet50"}, {"model": "deeplabv3_resnet101"}
 
 
 def test_stem_conv_flops_by_hand():
     counts = []
-    ops = M.Ops(on_conv=lambda x, w, y: counts.append(
+    ops = reference.Ops(on_conv=lambda x, w, y: counts.append(
         2 * y.numel() * w.shape[1] * w.shape[2] * w.shape[3]))
     x = torch.empty((1, 3, 960, 1024), device="meta")
     w = torch.empty((64, 3, 7, 7), device="meta")
@@ -16,17 +18,17 @@ def test_stem_conv_flops_by_hand():
 
 
 def test_model_flops_scale_with_the_image():
-    a = flops.model_flops("fcn_resnet50", 512, 512)
-    b = flops.model_flops("fcn_resnet50", 1024, 1024)
+    a = flops.model_flops(FCN, 512, 512)
+    b = flops.model_flops(FCN, 1024, 1024)
     assert abs(b / a - 4.0) < 0.01
     # the classifier's 1x1 conv at stride 8: 2 x 3 x 512 x (128 x 128)
     assert b > 2 * 3 * 512 * 128 * 128
 
 
 def test_train_step_is_three_forwards_less_the_stem_input_gradient():
-    fwd = flops._conv_flops("deeplabv3_resnet101", 5, 512, 512, True)
-    assert flops.train_step_flops("deeplabv3_resnet101", 5, 512) == \
-        3 * sum(fwd) - fwd[0]
+    fwd = flops._product_flops("model", "deeplabv3_resnet101", 5, 512, 512,
+                               True)
+    assert flops.train_step_flops(DEEPLAB, 5, 512) == 3 * sum(fwd) - fwd[0]
 
 
 def test_upsample_argmax_bytes_by_hand():

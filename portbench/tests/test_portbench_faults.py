@@ -92,3 +92,19 @@ def test_wrong_csv_arithmetic_is_not_correct(monkeypatch):
     out = run_small(small_cell("fcn_resnet50.folder"))
     assert not out.correct, out.checks
     assert dict((k, v) for k, v, _ in out.checks)["csv_arith_pp"] > 1e-5
+
+
+def test_per_rank_batchnorm_is_not_correct(tmp_path):
+    """Two ranks whose BatchNorms normalise over each rank's own rows (the
+    plain per-rank BatchNorm in the cross-rank one's place): the run is
+    not correct against the reference on the global batch."""
+    from test_portbench_ranks import SEED, dp2, json_lines
+    copy, name = dp2(tmp_path)
+    entry = copy.entry("per_rank_bn", """
+from neuralbarkcalculator_tpu_torch.parallel import sync_bn
+sync_bn.convert_batchnorm = lambda model, world: model
+""")
+    out = copy.launch(name, SEED, 1.0, entry=entry)
+    assert out.returncode == 0, out.stderr[-4000:]
+    (line,) = json_lines(out.stdout)
+    assert line["correct"] is False, line["checks"]

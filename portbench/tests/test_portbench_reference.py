@@ -16,7 +16,7 @@ def test_logits_match_the_program(name):
     from neuralbarkcalculator_tpu_torch.models.segmentation import \
         MODEL_FACTORIES
     torch.manual_seed(0)
-    state = weights.random_state_dict(M.param_shapes(name), 3,
+    state = weights.random_state_dict({"model": name}, 3,
                                       torch.device("cpu"))
     model = MODEL_FACTORIES[name]()
     load_state_dict_into(model, state)
