@@ -23,7 +23,9 @@ loop, counted in its SASS, from which an estimate of the integer pipe's
 time is printed beside the main shape's byte bound).
 upsample_argmax is also held at the EfficientNet path's stride-32 logits
 (8 images at heights 896/960/1024, F = 28/30/32, Wf = 32, and at width
-1000), and its 1024 x 1024 case timed. Each timing window's device events
+1000), and its 1024 x 1024 case timed; and at SegFormer's stride-4 logits
+(8 images at heights 896/960/1024, F = h / 4, Wf = 256), each case timed.
+Each timing window's device events
 are counted against what the function launches. fused_dropout_matmul is
 also held at the main shape at a data-parallel rank's element offset (2
 x 512 x 64 x 64): against the plain versions there, its mask equal to
@@ -418,6 +420,9 @@ LOSS_GRAD_TOL = {"lovasz": 2e-2, "lovasz_hist": 1e-3, "mixed": 5e-4,
 # the 1024 x 1024 case is timed.
 STRIDE32_CASES = ((896, 1024), (960, 1024), (1024, 1024), (960, 1000))
 STRIDE32_TIMED = (1024, 1024)
+# SegFormer's stride-4 logits at the folder's exact heights (F = 224 / 240 /
+# 256, Wf = 256), each of them timed
+STRIDE4_CASES = ((896, 1024), (960, 1024), (1024, 1024))
 # The serving phase: batch, the first request's wait, and the concurrent
 # traffic (tools/serving_bench.py's shape: clients x requests each).
 # The int8 phase: each model through the folder engine with lazy int8
@@ -4656,6 +4661,44 @@ def phase_serving(torch, main_root: str, ckpt: str, scan: str,
     return launches["upsample_argmax"]
 
 
+def exact_height_case(torch, rng, stride: int, h: int, w: int) -> tuple:
+    """A batch of BATCH random stride-``stride`` logits of h x w images and
+    the exact-height path's operators on the card: (feat, rows, colt,
+    col_win)."""
+    import numpy as np
+
+    from neuralbarkcalculator_tpu_torch.ops.resize import (
+        bicubic_resize_matrix, column_operator_t)
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        column_windows)
+
+    dev = torch.device("cuda")
+    f, wf = -(-h // stride), -(-w // stride)
+    feat = torch.from_numpy(rng.standard_normal(
+        (BATCH, f, wf, 3), dtype=np.float32)).to(dev)
+    rows = torch.from_numpy(bicubic_resize_matrix(f, h).astype(
+        np.float32)).to(dev).expand(BATCH, -1, -1).contiguous()
+    colt = torch.from_numpy(column_operator_t(wf, w)).to(dev)
+    return feat, rows, colt, column_windows(colt)
+
+
+def check_exact_height_case(torch, stride: int, case: tuple, h: int,
+                            w: int) -> int:
+    """The kernel against the plain version on one ``exact_height_case``
+    (check_map at FLIP_MARGIN); returns the differing pixels."""
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        upsample_argmax, upsample_argmax_plain)
+
+    feat, rows, colt, col_win = case
+    got = upsample_argmax(feat, rows, colt, col_win)
+    torch.cuda.synchronize()
+    n, _ = check_map(torch, f"stride {stride} [{BATCH}x{h}x{w}, "
+                     f"F={feat.shape[1]}, Wf={feat.shape[2]}] vs plain", got,
+                     upsample_argmax_plain(feat, rows, colt), feat, rows,
+                     colt, FLIP_MARGIN)
+    return n
+
+
 def phase_kernel_stride32(torch, seed: int) -> dict:
     """upsample_argmax on the EfficientNet path's shapes: stride-32 logits
     at exact heights (a batch of 8 at each STRIDE32_CASES height and
@@ -4668,39 +4711,18 @@ def phase_kernel_stride32(torch, seed: int) -> dict:
     import numpy as np
     import torch.nn.functional as F
 
-    from neuralbarkcalculator_tpu_torch.ops.resize import (
-        bicubic_resize_matrix, column_operator_t)
     from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
-        column_windows, upsample_argmax, upsample_argmax_plain)
+        upsample_argmax, upsample_argmax_plain)
 
-    dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 32)
-    flips = 0
-    for h, w in STRIDE32_CASES:
-        f, wf = -(-h // 32), -(-w // 32)
-        feat = torch.from_numpy(rng.standard_normal(
-            (BATCH, f, wf, 3), dtype=np.float32)).to(dev)
-        rows = torch.from_numpy(bicubic_resize_matrix(f, h).astype(
-            np.float32)).to(dev).expand(BATCH, -1, -1).contiguous()
-        colt = torch.from_numpy(column_operator_t(wf, w)).to(dev)
-        col_win = column_windows(colt)
-        got = upsample_argmax(feat, rows, colt, col_win)
-        torch.cuda.synchronize()
-        n, _ = check_map(torch, f"stride 32 [{BATCH}x{h}x{w}, F={f}, "
-                         f"Wf={wf}] vs plain", got,
-                         upsample_argmax_plain(feat, rows, colt), feat, rows,
-                         colt, FLIP_MARGIN)
-        flips += n
+    flips = sum(check_exact_height_case(
+        torch, 32, exact_height_case(torch, rng, 32, h, w), h, w)
+        for h, w in STRIDE32_CASES)
     # the last 1024 x 1024 case is timed: a uniform batch, so one
     # F.interpolate + argmax call computes the same function
     h, w = STRIDE32_TIMED
     f, wf = h // 32, w // 32
-    feat = torch.from_numpy(rng.standard_normal(
-        (BATCH, f, wf, 3), dtype=np.float32)).to(dev)
-    rows = torch.from_numpy(bicubic_resize_matrix(f, h).astype(
-        np.float32)).to(dev).expand(BATCH, -1, -1).contiguous()
-    colt = torch.from_numpy(column_operator_t(wf, w)).to(dev)
-    col_win = column_windows(colt)
+    feat, rows, colt, col_win = exact_height_case(torch, rng, 32, h, w)
     planes_nchw = feat.permute(0, 3, 1, 2)
 
     def interpolate():
@@ -4747,6 +4769,71 @@ def phase_kernel_stride32(torch, seed: int) -> dict:
             "stride32_interpolate_ms": interp_ms, "stride32_bound_ms": bound,
             "stride32_bound_by": "operations" if op_ms >= byte_ms
             else "bytes", "stride32_flips": flips}
+
+
+def phase_kernel_stride4(torch, seed: int) -> dict:
+    """upsample_argmax on SegFormer's path: stride-4 logits at exact
+    heights (a batch of 8 at each STRIDE4_CASES height, F = h / 4, Wf =
+    256) held against the plain version (equal but for float32 near-ties
+    within FLIP_MARGIN), the 1024^2 batch also against one F.interpolate +
+    argmax call; then each case timed by device time (the kernel, the plain
+    version) in FDM_TIMING_ROUNDS rounds beside its byte bound."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from neuralbarkcalculator_tpu_torch.ops.upsample_argmax import (
+        upsample_argmax, upsample_argmax_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 4)
+    flips, cases = 0, []
+    for h, w in STRIDE4_CASES:
+        case = exact_height_case(torch, rng, 4, h, w)
+        flips += check_exact_height_case(torch, 4, case, h, w)
+        cases.append((h, w, *case))
+    h, w, feat, rows, colt, col_win = cases[-1]
+    check_map(torch, f"stride 4 [{BATCH}x{h}x{w}] vs F.interpolate + argmax",
+              upsample_argmax(feat, rows, colt, col_win),
+              F.interpolate(feat.permute(0, 3, 1, 2), size=(h, w),
+                            mode="bicubic", align_corners=False).argmax(
+                                1).to(torch.uint8), feat, rows, colt,
+              INTERP_MARGIN)
+    fns = []
+    for _, _, feat, rows, colt, col_win in cases:
+        fns += [lambda a=(feat, rows, colt, col_win): upsample_argmax(*a),
+                lambda a=(feat, rows, colt): upsample_argmax_plain(*a)]
+    one = {"upsample_argmax_kernel": 1}
+    rounds, counts = [], []
+    for r in range(FDM_TIMING_ROUNDS):
+        times, n = device_times(torch, fns, [one, None] * len(cases))
+        rounds.append([sum(t.values()) for t in times])
+        counts.append(n)
+        log(f"upsample_argmax stride 4 timing round {r + 1} (device ms per "
+            f"call, kernel / plain by height): " + ", ".join(
+                f"{c[0]}: {rounds[-1][2 * i]:.4f} / "
+                f"{rounds[-1][2 * i + 1]:.4f}" for i, c in enumerate(cases))
+            + f"; clocks.sm, clocks.mem, power.draw after it: "
+            f"{card_clocks()}")
+    same_counts("upsample_argmax stride 4", counts)
+    medians = [statistics.median(col) for col in zip(*rounds)]
+    out = {"stride4_flips": flips}
+    for i, (h, w, feat, rows, colt, _) in enumerate(cases):
+        ms, plain_ms = medians[2 * i], medians[2 * i + 1]
+        ops = band_ops(torch, rows, colt)
+        nbytes = (4 * (feat.numel() + rows.numel() + colt.numel())
+                  + 4 * 2 * w + BATCH * h * w)
+        op_ms = ops / H100_F32_FLOPS * 1e3
+        byte_ms = nbytes / H100_HBM_BYTES * 1e3
+        bound = max(op_ms, byte_ms)
+        log(f"upsample_argmax stride 4 [{BATCH}x{h}x{w}, F={h // 4}, "
+            f"Wf={w // 4}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({ops / 1e9:.4f} GFLOP over the windows, "
+            f"{nbytes / 1e6:.3f} MB; {100 * bound / ms:.2f} % of it, bound "
+            f"by {'operations' if op_ms >= byte_ms else 'bytes'})")
+        out[f"stride4_{h}"] = {"ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound,
+                               "roofline_pct": 100 * bound / ms}
+    return out
 
 
 def random_checkpoint(torch, name: str, seed: int, root: str, path: str,
@@ -5901,6 +5988,8 @@ def main() -> int:
     card = timed("build", phase_build)
     kernel = timed("upsample_argmax", phase_kernel, torch, args.seed)
     kernel.update(timed("upsample_argmax stride 32", phase_kernel_stride32,
+                        torch, args.seed))
+    kernel.update(timed("upsample_argmax stride 4", phase_kernel_stride4,
                         torch, args.seed))
     fdm = timed("fused_dropout_matmul", phase_fdm_kernel, torch, args.seed)
     ccl_row = timed("ccl", phase_ccl, torch, args.seed, card)

@@ -63,6 +63,17 @@
 // - Operators whose windows do not fit these buffers (a dense operator,
 //   say) take a slower path in passes over chunks of both windows, with
 //   the same sums.
+// - The buffers are sized from the stride (struct Stride8, Stride4). At
+//   stride 8 (and EfficientNet's 32) a 32-row tile needs at most 8
+//   feature rows, a 128-column tile 20 intermediate columns and a
+//   1024-column span 132. SegFormer's logits are at stride 4: a tile's 32
+//   rows need 12 feature rows and its 128 columns 36, so the stride-4
+//   kernel (upsample_argmax_kernel_s4, chosen when OW <= 4 Wf) takes 12
+//   rows a pass, 36 columns a tile and spans of 2 tiles (68 intermediate
+//   columns), which keeps two blocks to an SM with F = 256 (a 1024-row
+//   image) in its row tile; its quads have 5-tap windows, the second
+//   starting 1 after the first, a case unrolled in full as the 4-tap one
+//   is at stride 8. Both kernels run the same code over their own sizes.
 // - Plain fp32 FMAs on CUDA cores, no tensor cores: the banded arithmetic
 //   is already below the byte bound, and TF32 would break the IEEE float32
 //   parity that Precision.HIGHEST sets in the JAX package.
@@ -78,24 +89,42 @@ constexpr int kQuad = 4;                   // columns that share one window
 constexpr int kGroup = 2 * kQuad;          // columns a warp sums at a time
 constexpr int kColsPerWarp = 2 * kGroup;
 constexpr int kTileW = kWarps * kColsPerWarp;  // columns per tile
-constexpr int kTiles = 8;                  // column tiles per block
-constexpr int kSpan = kTiles * kTileW;     // columns per block
-constexpr int kQuads = kSpan / kQuad;
-constexpr int kSpanK = 136;                // intermediate columns of a span
-constexpr int kKChunk = 22;                // intermediate columns of a tile
-constexpr int kFChunk = 10;                // feature rows per pass
 constexpr int kFeatRow = 12;               // floats per staged (column, class)
 constexpr int kFeatPitch = 3 * kFeatRow;   // floats per staged column: [c][f]
-constexpr int kColtBuf = kKChunk * kTileW;
 constexpr int kTmpPitch = kTileH + 1;      // floats per (class, column) row
-constexpr int kTmpClass = kSpanK * kTmpPitch;  // floats per class plane
 constexpr int kOutPitch = kTileW + 16;     // bytes per row of the map tile
-constexpr int kWins = 4 + 2 * kTiles;      // flo, fhi, span, tiles: [lo, hi]
-static_assert(kFChunk <= kFeatRow && kFeatRow % 4 == 0,
-              "a staged (column, class) row holds a pass as float4s");
 static_assert(kTileW == 4 * 32, "a warp stages a colT row as float4s");
 static_assert(kTileH * (kTileW / 16) == kThreads,
               "one 16-byte store per thread per tile");
+
+// The buffers of one stride (the header): column tiles per block,
+// intermediate columns of a span and of a tile, feature rows per pass, and
+// the taps of a quad's window in the unrolled group.
+struct Stride8 {
+  static constexpr int kTiles = 8;
+  static constexpr int kSpanK = 136;
+  static constexpr int kKChunk = 22;
+  static constexpr int kFChunk = 10;
+  static constexpr int kTaps = 4;
+};
+struct Stride4 {
+  static constexpr int kTiles = 2;
+  static constexpr int kSpanK = 72;
+  static constexpr int kKChunk = 36;
+  static constexpr int kFChunk = 12;
+  static constexpr int kTaps = 5;
+};
+
+template <class S>
+struct Sizes : S {
+  static constexpr int kSpan = S::kTiles * kTileW;  // columns per block
+  static constexpr int kQuads = kSpan / kQuad;
+  static constexpr int kColtBuf = S::kKChunk * kTileW;
+  static constexpr int kTmpClass = S::kSpanK * kTmpPitch;  // floats a class
+  static constexpr int kWins = 4 + 2 * S::kTiles;  // flo, fhi, span, tiles
+  static_assert(S::kFChunk <= kFeatRow && kFeatRow % 4 == 0,
+                "a staged (column, class) row holds a pass as float4s");
+};
 
 // launch flags: which accesses may be 16-byte vectors
 constexpr int kRowsVec = 1;  // F % 4 == 0 and row_ops 16-byte aligned
@@ -196,6 +225,7 @@ __device__ inline void stage_colt(float* dst, const float* __restrict__ colt,
 
 // This lane's row values rows[lane][f0 .. f0 + fn) from row_ops (`rows`
 // is the tile's first row), 0 past fn or past the operator's end.
+template <int kFChunk>
 __device__ inline void row_values(float (&rv)[kFChunk],
                                   const float* __restrict__ rows, int F,
                                   int rows_here, int f0, int fn) {
@@ -210,11 +240,11 @@ __device__ inline void row_values(float (&rv)[kFChunk],
 // Row side of one pass: tmp[c][k][r] (+)= sum_{i < fn} rv[i] *
 // feat_s[k][c][i] for k < kn, from 0 when `first`. Lane = row, holding its
 // fn <= N row values rv; warps take columns k in turn.
-template <int N>
+template <class Z, int N>
 __device__ inline void row_pass_n(float* tmp_s, const float* fv_s,
-                                  const float (&rv)[kFChunk], int fn,
+                                  const float (&rv)[Z::kFChunk], int fn,
                                   bool first, int kn) {
-  static_assert(N <= kFChunk && N <= kFeatRow, "a pass holds N rows");
+  static_assert(N <= Z::kFChunk && N <= kFeatRow, "a pass holds N rows");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int k = warp; k < kn; k += kWarps) {
 #pragma unroll
@@ -230,7 +260,7 @@ __device__ inline void row_pass_n(float* tmp_s, const float* fv_s,
         v[4 * q + 2] = x.z;
         v[4 * q + 3] = x.w;
       }
-      float* t = tmp_s + c * kTmpClass + k * kTmpPitch + lane;
+      float* t = tmp_s + c * Z::kTmpClass + k * kTmpPitch + lane;
       float a = first ? 0.f : *t;
 #pragma unroll
       for (int i = 0; i < N; ++i)
@@ -242,19 +272,20 @@ __device__ inline void row_pass_n(float* tmp_s, const float* fv_s,
 
 // The row side with the fewest idle FMA slots: bicubic row tiles of 32
 // rows at scale 8 have windows of at most 8 feature rows.
+template <class Z>
 __device__ inline void row_pass(float* tmp_s, const float* fv_s,
-                                const float (&rv)[kFChunk], int fn,
+                                const float (&rv)[Z::kFChunk], int fn,
                                 bool first, int kn) {
   if (fn <= 8)
-    row_pass_n<8>(tmp_s, fv_s, rv, fn, first, kn);
+    row_pass_n<Z, 8>(tmp_s, fv_s, rv, fn, first, kn);
   else
-    row_pass_n<kFChunk>(tmp_s, fv_s, rv, fn, first, kn);
+    row_pass_n<Z, Z::kFChunk>(tmp_s, fv_s, rv, fn, first, kn);
 }
 
 // Column side for one quad (columns col + J0 .. + 3 of the tile) over k
 // in [lo, hi): acc[c][J0 + j] += tmp[c][k - tk0][lane] *
 // colt[k - ck0][col + J0 + j], ascending.
-template <int J0>
+template <class Z, int J0>
 __device__ inline void quad_pass(float (&acc)[3][kGroup], const float* tmp_s,
                                  const float* cv_s, int tk0, int ck0, int col,
                                  int lo, int hi) {
@@ -262,7 +293,7 @@ __device__ inline void quad_pass(float (&acc)[3][kGroup], const float* tmp_s,
 #pragma unroll 4
   for (int k = lo; k < hi; ++k) {
     const float* t = tmp_s + (k - tk0) * kTmpPitch + lane;
-    const float t0 = t[0], t1 = t[kTmpClass], t2 = t[2 * kTmpClass];
+    const float t0 = t[0], t1 = t[Z::kTmpClass], t2 = t[2 * Z::kTmpClass];
     const float4 x = *reinterpret_cast<const float4*>(
         cv_s + (k - ck0) * kTileW + col + J0);
     const float cv[kQuad] = {x.x, x.y, x.z, x.w};
@@ -275,25 +306,26 @@ __device__ inline void quad_pass(float (&acc)[3][kGroup], const float* tmp_s,
   }
 }
 
-// One 8-column group whose quads both have 4-tap windows, the second
-// starting D = 1 after the first at k (the bicubic operators at scale 8):
-// the group's 4 + D intermediate values are loaded once and every tap is
-// unrolled.
+// One 8-column group whose quads both have T-tap windows, the second
+// starting D = 1 after the first at k (the bicubic operators at scale 8,
+// T = 4, and at scale 4, T = 5): the group's T + D intermediate values are
+// loaded once and every tap is unrolled.
+template <class Z>
 __device__ inline void group_taps(float (&acc)[3][kGroup], const float* tmp_s,
                                   const float* cv_s, int tk, int ck,
                                   int col) {
-  constexpr int D = 1;
+  constexpr int D = 1, T = Z::kTaps;
   const int lane = threadIdx.x & 31;
-  float t[3][kQuad + D];
+  float t[3][T + D];
 #pragma unroll
-  for (int u = 0; u < kQuad + D; ++u)
+  for (int u = 0; u < T + D; ++u)
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      t[c][u] = tmp_s[c * kTmpClass + (tk + u) * kTmpPitch + lane];
+      t[c][u] = tmp_s[c * Z::kTmpClass + (tk + u) * kTmpPitch + lane];
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
 #pragma unroll
-    for (int u = 0; u < kQuad; ++u) {
+    for (int u = 0; u < T; ++u) {
       const float4 x = *reinterpret_cast<const float4*>(
           cv_s + (ck + q * D + u) * kTileW + col + q * kQuad);
       const float cv[kQuad] = {x.x, x.y, x.z, x.w};
@@ -310,18 +342,20 @@ __device__ inline void group_taps(float (&acc)[3][kGroup], const float* tmp_s,
 // One 8-column group over the k in [k0, k1) that tmp (from tk0) and the
 // staged colT rows (from ck0) hold: its two quads, windows [lo_a, hi_a)
 // and [lo_b, hi_b).
+template <class Z>
 __device__ inline void column_pass(float (&acc)[3][kGroup],
                                    const float* tmp_s, const float* cv_s,
                                    int tk0, int ck0, int k0, int k1, int col,
                                    int lo_a, int hi_a, int lo_b, int hi_b) {
-  if (hi_a - lo_a == kQuad && lo_b == lo_a + 1 && hi_b == hi_a + 1 &&
+  if (hi_a - lo_a == Z::kTaps && lo_b == lo_a + 1 && hi_b == hi_a + 1 &&
       lo_a >= k0 && hi_b <= k1) {
-    group_taps(acc, tmp_s, cv_s, lo_a - tk0, lo_a - ck0, col);
+    group_taps<Z>(acc, tmp_s, cv_s, lo_a - tk0, lo_a - ck0, col);
     return;
   }
-  quad_pass<0>(acc, tmp_s, cv_s, tk0, ck0, col, max(lo_a, k0), min(hi_a, k1));
-  quad_pass<kQuad>(acc, tmp_s, cv_s, tk0, ck0, col, max(lo_b, k0),
-                   min(hi_b, k1));
+  quad_pass<Z, 0>(acc, tmp_s, cv_s, tk0, ck0, col, max(lo_a, k0),
+                  min(hi_a, k1));
+  quad_pass<Z, kQuad>(acc, tmp_s, cv_s, tk0, ck0, col, max(lo_b, k0),
+                      min(hi_b, k1));
 }
 
 __device__ inline void zero(float (&acc)[3][kGroup]) {
@@ -349,6 +383,7 @@ __device__ inline uint32_t class_bytes(const float (&acc)[3][kGroup], int j0) {
 // and summing the row side in kFChunk-row steps. Correct for any operator;
 // kept out of line so that the one-pass path keeps its registers. Returns
 // this lane's 16 class bytes.
+template <class Z>
 __device__ __noinline__ uint4 tile_in_passes(
     float* tmp_s, float* feat_s, float* ccur, const float* __restrict__ rows,
     int F, int rows_here, const float* __restrict__ fb,
@@ -360,20 +395,20 @@ __device__ __noinline__ uint4 tile_in_passes(
   for (int p = 0; p < 2; ++p) {
     float acc[3][kGroup];
     zero(acc);
-    for (int kc0 = wlo; kc0 < whi; kc0 += kKChunk) {
-      const int kn = min(kKChunk, whi - kc0);
+    for (int kc0 = wlo; kc0 < whi; kc0 += Z::kKChunk) {
+      const int kn = min(Z::kKChunk, whi - kc0);
       stage_colt(ccur, colt, OW, kc0, kn, tc0, colt_vec);
-      for (int f0 = flo; f0 < fhi; f0 += kFChunk) {
-        const int fn = min(kFChunk, fhi - f0);
+      for (int f0 = flo; f0 < fhi; f0 += Z::kFChunk) {
+        const int fn = min(Z::kFChunk, fhi - f0);
         stage_feat(feat_s, fb, Wf, f0, fn, kc0, kn);
-        float rv[kFChunk];
+        float rv[Z::kFChunk];
         row_values(rv, rows, F, rows_here, f0, fn);
         cp_async_wait_all();
         __syncthreads();
-        row_pass(tmp_s, feat_s, rv, fn, f0 == flo, kn);
+        row_pass<Z>(tmp_s, feat_s, rv, fn, f0 == flo, kn);
         __syncthreads();
       }
-      column_pass(acc, tmp_s, ccur, kc0, kc0, kc0, kc0 + kn,
+      column_pass<Z>(acc, tmp_s, ccur, kc0, kc0, kc0, kc0 + kn,
                   warp * kColsPerWarp + kGroup * p, qw[4 * p],
                   qw[4 * p + 1], qw[4 * p + 2], qw[4 * p + 3]);
       __syncthreads();  // the next pass overwrites its inputs
@@ -386,25 +421,29 @@ __device__ __noinline__ uint4 tile_in_passes(
 
 // Bytes of the first shared region: the row tile until it is scanned,
 // then the staged features.
+template <class Z>
 __host__ __device__ inline size_t region_bytes(int F) {
   const size_t rows = (size_t)kTileH * rows_pitch(F) * sizeof(float);
-  const size_t feat = (size_t)kSpanK * kFeatPitch * sizeof(float);
+  const size_t feat = (size_t)Z::kSpanK * kFeatPitch * sizeof(float);
   return rows > feat ? rows : feat;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-upsample_argmax_kernel(const float* __restrict__ feat,
-                       const float* __restrict__ row_ops,
-                       const float* __restrict__ colt,
-                       const int* __restrict__ col_win,
-                       uint8_t* __restrict__ out, int OH, int F, int Wf,
-                       int OW, int flags) {
+// The kernel's body at the sizes Z (Sizes<Stride8>, Sizes<Stride4>).
+template <class Z>
+__device__ __forceinline__ void upsample_argmax_body(
+    const float* __restrict__ feat, const float* __restrict__ row_ops,
+    const float* __restrict__ colt, const int* __restrict__ col_win,
+    uint8_t* __restrict__ out, int OH, int F, int Wf, int OW, int flags) {
+  constexpr int kTiles = Z::kTiles, kSpan = Z::kSpan, kSpanK = Z::kSpanK;
+  constexpr int kKChunk = Z::kKChunk, kFChunk = Z::kFChunk;
+  constexpr int kColtBuf = Z::kColtBuf, kTmpClass = Z::kTmpClass;
+  constexpr int kWins = Z::kWins;
   extern __shared__ float4 smem4[];
   // the row tile [kTileH][rows_pitch(F)] until it is scanned, then the
   // staged features [kSpanK][3][kFeatRow]
   float* rows_s = reinterpret_cast<float*>(smem4);
   float* feat_s = rows_s;
-  float* colt_s = rows_s + region_bytes(F) / sizeof(float);  // [2][kColtBuf]
+  float* colt_s = rows_s + region_bytes<Z>(F) / sizeof(float);  // [2][kColtBuf]
   float* tmp_s = colt_s + 2 * kColtBuf;              // [3][kSpanK][kTmpPitch]
   uint8_t* out_s = reinterpret_cast<uint8_t*>(tmp_s + 3 * kTmpClass);
   int* win_s = reinterpret_cast<int*>(out_s + kTileH * kOutPitch);
@@ -504,7 +543,7 @@ upsample_argmax_kernel(const float* __restrict__ feat,
     prefetch(0);
     cp_async_wait_all();
     __syncthreads();
-    row_pass(tmp_s, feat_s, rv, fhi - flo, true, shi - slo);
+    row_pass<Z>(tmp_s, feat_s, rv, fhi - flo, true, shi - slo);
   }
 
   for (int t = 0; t < ntiles; ++t) {
@@ -522,18 +561,19 @@ upsample_argmax_kernel(const float* __restrict__ feat,
     if (fast && wlo < whi) {
       float acc[3][kGroup];
       zero(acc);
-      column_pass(acc, tmp_s, ccur, slo, wlo, wlo, whi, warp * kColsPerWarp,
-                  qw[0], qw[1], qw[2], qw[3]);
+      column_pass<Z>(acc, tmp_s, ccur, slo, wlo, wlo, whi,
+                     warp * kColsPerWarp, qw[0], qw[1], qw[2], qw[3]);
       cls.x = class_bytes(acc, 0);
       cls.y = class_bytes(acc, kQuad);
       zero(acc);
-      column_pass(acc, tmp_s, ccur, slo, wlo, wlo, whi,
-                  warp * kColsPerWarp + kGroup, qw[4], qw[5], qw[6], qw[7]);
+      column_pass<Z>(acc, tmp_s, ccur, slo, wlo, wlo, whi,
+                     warp * kColsPerWarp + kGroup, qw[4], qw[5], qw[6], qw[7]);
       cls.z = class_bytes(acc, 0);
       cls.w = class_bytes(acc, kQuad);
     } else if (!fast && rows_live && wlo < whi) {
-      cls = tile_in_passes(tmp_s, feat_s, ccur, rows, F, rows_here, fb, colt,
-                           Wf, OW, flo, fhi, wlo, whi, tc0, colt_vec, qw);
+      cls = tile_in_passes<Z>(tmp_s, feat_s, ccur, rows, F, rows_here, fb,
+                              colt, Wf, OW, flo, fhi, wlo, whi, tc0,
+                              colt_vec, qw);
     }
     *reinterpret_cast<uint4*>(out_s + lane * kOutPitch + warp * kColsPerWarp) =
         cls;
@@ -554,11 +594,58 @@ upsample_argmax_kernel(const float* __restrict__ feat,
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 2)
+upsample_argmax_kernel(const float* __restrict__ feat,
+                       const float* __restrict__ row_ops,
+                       const float* __restrict__ colt,
+                       const int* __restrict__ col_win,
+                       uint8_t* __restrict__ out, int OH, int F, int Wf,
+                       int OW, int flags) {
+  upsample_argmax_body<Sizes<Stride8>>(feat, row_ops, colt, col_win, out, OH,
+                                       F, Wf, OW, flags);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+upsample_argmax_kernel_s4(const float* __restrict__ feat,
+                          const float* __restrict__ row_ops,
+                          const float* __restrict__ colt,
+                          const int* __restrict__ col_win,
+                          uint8_t* __restrict__ out, int OH, int F, int Wf,
+                          int OW, int flags) {
+  upsample_argmax_body<Sizes<Stride4>>(feat, row_ops, colt, col_win, out, OH,
+                                       F, Wf, OW, flags);
+}
+
+template <class Z>
 size_t smem_bytes(int F) {
-  return region_bytes(F) +
-         (size_t)(2 * kColtBuf + 3 * kTmpClass) * sizeof(float) +
+  return region_bytes<Z>(F) +
+         (size_t)(2 * Z::kColtBuf + 3 * Z::kTmpClass) * sizeof(float) +
          (size_t)kTileH * kOutPitch +
-         (size_t)(kWins + 2 * kQuads) * sizeof(int);
+         (size_t)(Z::kWins + 2 * Z::kQuads) * sizeof(int);
+}
+
+// The stride-4 sizes where the logits are at most 4 times narrower than
+// the map (SegFormer), else the stride-8 ones.
+bool stride4(int Wf, int OW) { return OW <= 4 * Wf; }
+
+template <class Z>
+int launch(void (*kernel)(const float*, const float*, const float*,
+                          const int*, uint8_t*, int, int, int, int, int),
+           const float* feat, const float* row_ops, const float* colt,
+           const int* col_win, uint8_t* out, int B, int OH, int F, int Wf,
+           int OW, cudaStream_t stream) {
+  const size_t smem = smem_bytes<Z>(F);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int flags = 0;
+  if (F % 4 == 0 && ((uintptr_t)row_ops & 15) == 0) flags |= kRowsVec;
+  if (OW % 4 == 0 && ((uintptr_t)colt & 15) == 0) flags |= kColtVec;
+  if (OW % 16 == 0 && ((uintptr_t)out & 15) == 0) flags |= kOutVec;
+  dim3 grid((OW + Z::kSpan - 1) / Z::kSpan, (OH + kTileH - 1) / kTileH, B);
+  kernel<<<grid, kThreads, smem, stream>>>(feat, row_ops, colt, col_win, out,
+                                          OH, F, Wf, OW, flags);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -567,9 +654,9 @@ extern "C" {
 
 // Shared memory one block needs for these sizes (the wrapper checks it
 // against the card's per-block limit before launching).
-size_t upsample_argmax_smem_bytes(int F, int Wf) {
-  (void)Wf;
-  return smem_bytes(F);
+size_t upsample_argmax_smem_bytes(int F, int Wf, int OW) {
+  return stride4(Wf, OW) ? smem_bytes<Sizes<Stride4>>(F)
+                         : smem_bytes<Sizes<Stride8>>(F);
 }
 
 // feat [B, F, Wf, 3] f32, row_ops [B, OH, F] f32, colt [Wf, OW] f32,
@@ -581,19 +668,13 @@ int upsample_argmax_launch(const float* feat, const float* row_ops,
                            const float* colt, const int* col_win,
                            uint8_t* out, int B, int OH, int F, int Wf, int OW,
                            void* stream) {
-  const size_t smem = smem_bytes(F);
-  cudaError_t err = cudaFuncSetAttribute(
-      upsample_argmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int flags = 0;
-  if (F % 4 == 0 && ((uintptr_t)row_ops & 15) == 0) flags |= kRowsVec;
-  if (OW % 4 == 0 && ((uintptr_t)colt & 15) == 0) flags |= kColtVec;
-  if (OW % 16 == 0 && ((uintptr_t)out & 15) == 0) flags |= kOutVec;
-  dim3 grid((OW + kSpan - 1) / kSpan, (OH + kTileH - 1) / kTileH, B);
-  upsample_argmax_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      feat, row_ops, colt, col_win, out, OH, F, Wf, OW, flags);
-  return (int)cudaGetLastError();
+  if (stride4(Wf, OW))
+    return launch<Sizes<Stride4>>(upsample_argmax_kernel_s4, feat, row_ops,
+                                  colt, col_win, out, B, OH, F, Wf, OW,
+                                  (cudaStream_t)stream);
+  return launch<Sizes<Stride8>>(upsample_argmax_kernel, feat, row_ops, colt,
+                                col_win, out, B, OH, F, Wf, OW,
+                                (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -51,7 +51,7 @@ import torch.nn as nn
 
 from ..io import flax_msgpack, orbax
 from .efficientnet import block_table
-from .segmentation import efficientnet_variant_of
+from .segmentation import PORT_ONLY, efficientnet_variant_of
 
 _FCN_HEAD = {"conv1": "0", "bn1": "1", "conv2": "4"}
 _DEEPLAB_HEAD = {"conv": "1", "bn": "2", "classifier": "4"}
@@ -333,7 +333,11 @@ def load_jax_checkpoint(path: str, model_name: str
     ``model_name``, on the CPU: an orbax directory (``best_model``, or a
     per-epoch checkpoint, of which ``params`` and ``batch_stats`` are
     taken), else a flax ``.msgpack`` file, which must hold exactly the two
-    collections (JAX ``from_bytes`` against the model's template)."""
+    collections (JAX ``from_bytes`` against the model's template).
+    Raises for a model the JAX package does not have (SegFormer)."""
+    if model_name in PORT_ONLY:
+        raise ValueError(f"{path}: the JAX package has no {model_name!r}, so "
+                         f"no JAX checkpoint holds it; give a .pt state dict")
     if os.path.isdir(path):
         tree = orbax.load(path)
     else:

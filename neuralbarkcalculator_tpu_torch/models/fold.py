@@ -22,7 +22,9 @@ Each BN's producer conv is found by its name (``_conv_of``):
   and ``_bn1`` -> ``_conv_head`` at the top level; inside a block
   (``_blocks.{j}``) ``_bn0`` / ``_bn1`` / ``_bn2`` -> ``_expand_conv`` /
   ``_depthwise_conv`` / ``_project_conv``. The two ``_bn1`` are told apart
-  by their scope.
+  by their scope;
+- SegFormer's decoder: ``batch_norm`` -> ``linear_fuse`` (its encoder's
+  LayerNorms stay).
 ``eps`` is per top-level scope: the backbone's ``bn_eps`` (1e-3 for
 EfficientNet) and 1e-5 for the heads.
 
@@ -51,6 +53,8 @@ def _conv_of(bn: str) -> str:
         return f"{parent}.{_EFF_BLOCK[leaf]}"
     if leaf in _EFF_TOP:
         return f"{parent}.{_EFF_TOP[leaf]}"
+    if leaf == "batch_norm":
+        return f"{parent}.linear_fuse"
     if leaf.startswith("bn"):
         return f"{parent}.conv{leaf[2:]}"
     if leaf.isdigit() and int(leaf) > 0:

@@ -62,7 +62,7 @@ JAX_QCKPT_MAGIC = JAX_QCKPT_TAG + b"\x01"
 
 def check_quantizable(model: SegmentationModel) -> None:
     """Raise ``ValueError`` for a backbone or head without an int8 mode
-    (EfficientNet)."""
+    (EfficientNet, SegFormer)."""
     for part, label in ((model.backbone, "backbone"),
                         (model.classifier, "head")):
         if not getattr(part, "supports_quantize", False):

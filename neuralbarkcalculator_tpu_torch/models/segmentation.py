@@ -11,7 +11,11 @@ the reference's zoo:
 - deeplabv3_resnet50 / deeplabv3_resnet101 (models.py:46-71);
 - fcn_efficientnet / deeplabv3_efficientnet (models.py:86-110), and the
   variant-bound names ``fcn_efficientnet_b0`` ...
-  ``deeplabv3_efficientnet_b7``.
+  ``deeplabv3_efficientnet_b7``;
+- ``segformer_b5`` (models/segformer.py), which the port alone holds
+  (``PORT_ONLY``): a MiT-B5 encoder whose four maps go to an all-MLP
+  decoder (``backbone(x)`` gives a tuple of maps, which the head takes
+  whole), logits at stride 4 (``logit_stride``).
 
 ``QuantizedSegmentationModel`` is the int8 model of the ResNet factories
 (models/quantize.py).
@@ -43,6 +47,7 @@ from ..parallel.spatial import gather_width, is_split
 from .efficientnet import SCALING, EfficientNetBackbone
 from .heads import DeepLabHead, FCNHead
 from .resnet import resnet101_dilated, resnet50_dilated
+from .segformer import MIT_B5, MixTransformer, SegformerDecodeHead
 
 
 class SegmentationModel(nn.Module):
@@ -61,6 +66,15 @@ class SegmentationModel(nn.Module):
         super().__init__()
         self.backbone = backbone
         self.classifier = classifier
+
+    @property
+    def logit_stride(self) -> int:
+        """The stride of ``head_logits``' rows and columns against the
+        input's: a head's own (SegFormer's decoder: 4) or else the
+        backbone's feature stride (8 for the dilated ResNets, 32 for
+        EfficientNet)."""
+        return (getattr(self.classifier, "logit_stride", None)
+                or self.backbone.feature_stride)
 
     def head_logits(self, x: torch.Tensor,
                     valid_h: torch.Tensor | None = None,
@@ -201,6 +215,13 @@ def deeplabv3_efficientnet(n: int, num_classes: int = NUM_CLASSES
         backbone, DeepLabHead(backbone.out_channels, num_classes))
 
 
+def segformer_b5(num_classes: int = NUM_CLASSES) -> SegmentationModel:
+    """SegFormer-B5 (models/segformer.py), the published widths."""
+    backbone = MixTransformer(MIT_B5)
+    return SegmentationModel(backbone, SegformerDecodeHead(
+        backbone.out_channels, MIT_B5.decoder_hidden, num_classes))
+
+
 MODEL_FACTORIES: dict[str, Callable[..., SegmentationModel]] = {
     "fcn_resnet50": fcn_resnet50,
     "fcn_resnet101": fcn_resnet101,
@@ -208,7 +229,10 @@ MODEL_FACTORIES: dict[str, Callable[..., SegmentationModel]] = {
     "deeplabv3_resnet101": deeplabv3_resnet101,
     "fcn_efficientnet": fcn_efficientnet,
     "deeplabv3_efficientnet": deeplabv3_efficientnet,
+    "segformer_b5": segformer_b5,
 }
+# the zoo's names that the JAX package does not have
+PORT_ONLY = frozenset({"segformer_b5"})
 # variant-bound names, so the CLIs and the engine select an EfficientNet
 # without a separate n (reference callers pass n positionally,
 # models.py:104)

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "upsample_argmax": {
         "upsample_argmax_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _P], _I),
-        "upsample_argmax_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "upsample_argmax_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     },
     "fused_dropout_matmul": {
         "fdm_forward_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

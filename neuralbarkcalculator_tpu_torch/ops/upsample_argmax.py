@@ -1,9 +1,10 @@
 """Fused bicubic upsample + class argmax: the CUDA kernel and its plain
 version.
 
-``upsample_argmax(feat, row_ops, colt)`` maps head logits at the feature
-stride (8 for the ResNets' ragged batches, 32 for EfficientNet's exact
-heights) ``feat [B, F, Wf, 3]`` (float32), per-image row operators
+``upsample_argmax(feat, row_ops, colt)`` maps head logits at the model's
+logit stride (8 for the ResNets' ragged batches, 32 for EfficientNet's
+exact heights, 4 for SegFormer's, whose kernel's buffers are sized for
+it) ``feat [B, F, Wf, 3]`` (float32), per-image row operators
 ``row_ops [B, OH, F]`` and the transposed width operator ``colt [Wf, OW]``
 to the uint8 class map ``[B, OH, OW]``, without writing the float
 upsampled logits anywhere. It replaces the Pallas TPU kernel
@@ -111,7 +112,7 @@ def upsample_argmax(feat: torch.Tensor, row_ops: torch.Tensor,
     b, f, wf, _ = feat.shape
     oh, ow = row_ops.shape[1], colt.shape[1]
     lib = kernel_lib("upsample_argmax")
-    smem = lib.upsample_argmax_smem_bytes(f, wf)
+    smem = lib.upsample_argmax_smem_bytes(f, wf, ow)
     if smem > _MAX_SMEM:
         raise ValueError(f"upsample_argmax: F={f}, Wf={wf} need {smem} B of "
                          f"shared memory per block, above {_MAX_SMEM}")

@@ -16,7 +16,8 @@ explicit through a ``World``:
   It is differentiable, and its backward hands each rank the gradient of
   its own rows, so every rank computes the same global loss and metrics;
 - ``all_reduce_sum``: a differentiable sum across ranks (the cross-rank
-  BatchNorm's per-channel sums, parallel/sync_bn.py);
+  BatchNorm's per-channel sums, parallel/sync_bn.py), forward and backward
+  inside the program span ``train/collective/bn``;
 - ``all_reduce_grads``: after ``backward()`` each rank's parameter
   gradients hold only its own rows' share of the global loss's gradient;
   their sum (GSPMD's psum) is the single-process gradient, the same on
@@ -48,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from ..utils.profiling import stage_timer
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -55,21 +57,29 @@ def pad_to_multiple(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
 
 
+# the program span of ``all_reduce_sum``'s all-reduces, forward and
+# backward: its one use is the cross-rank BatchNorm's
+SUM_SPAN = "train/collective/bn"
+
+
 class _AllReduceSum(torch.autograd.Function):
     """The sum of ``x`` across ranks; its gradient is the sum of the
-    ranks' gradients of the result, which each rank holds a share of."""
+    ranks' gradients of the result, which each rank holds a share of.
+    Both all-reduces run inside the program span ``SUM_SPAN``."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
+        with stage_timer(SUM_SPAN):
+            y = x.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
+        with stage_timer(SUM_SPAN):
+            g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, group=ctx.group)
         return g, None
 
 

@@ -48,7 +48,9 @@ edges (``stem_edge_pads``) are added after normalization.
 A strip's width must be a multiple of the backbone's ``strip_multiple``
 (8 for the dilated ResNets, the stride before layer3; 32 for
 EfficientNet, its feature stride), so that each strided op's strip
-starts on a multiple of its stride; it raises ``ValueError`` otherwise.
+starts on a multiple of its stride; it raises ``ValueError`` otherwise. A
+backbone without one (SegFormer, whose attention is global) is refused by
+``check_width_split``.
 
 The exchange is one ``all_gather`` over the model group of each rank's
 two edge strips, made contiguous first (a channels_last tensor's column
@@ -128,6 +130,16 @@ REDUCTIONS = ExchangeCounter()
 def is_split(model: World | None) -> bool:
     """Whether ``model`` splits the width (a group of more than one)."""
     return model is not None and model.size > 1
+
+
+def check_width_split(backbone) -> None:
+    """Raise for a backbone whose width cannot be split (``strip_multiple``
+    None: SegFormer, whose attention is global, so a strip's queries need
+    every column's keys)."""
+    if getattr(backbone, "strip_multiple", None) is None:
+        raise ValueError(
+            f"{type(backbone).__name__} cannot run on strips of the width "
+            f"(global attention over a strip is not the model)")
 
 
 def strip_range(width: int, model: World, multiple: int
@@ -296,6 +308,7 @@ def all_reduce_int32(x: torch.Tensor, model: World) -> torch.Tensor:
 
 
 __all__ = ["EXCHANGES", "REDUCTIONS", "STEM_HALO", "STRIP_MULTIPLE",
+           "check_width_split",
            "all_reduce_int32", "conv2d_rows", "conv2d_w", "exchange_halo",
            "exchange_halo_nhwc", "gather_width", "halo", "is_split",
            "max_pool2d_w", "same_halo", "stem_columns", "stem_edge_pads",

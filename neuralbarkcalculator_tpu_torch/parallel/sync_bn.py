@@ -11,7 +11,8 @@ reductions). ``CrossRankBatchNorm2d`` does the same across the ranks of a
   takes E[x^2] - E[x]^2), now over the global batch;
 - both all-reduces are differentiable, so the gradient flows back through
   the global statistics to every rank's inputs, as in the single-process
-  BatchNorm on the concatenated batch;
+  BatchNorm on the concatenated batch; forward and backward, they run
+  inside the program span ``train/collective/bn``;
 - the running statistics take torch's update with the global count: the
   mean, and the unbiased variance, n / (n - 1) times the batch's.
 

@@ -21,7 +21,10 @@ batched:
   with no row masks, and ``upsample_argmax`` takes the one (stride-32
   logits -> height) operator of the launch. The opt-in
   ``PredictConfig.effnet_bucket_heights`` pads them up to the height
-  bucket by replicating the last row (approximate, see config.py);
+  bucket by replicating the last row (approximate, see config.py).
+  SegFormer takes the same path (global attention: a padded row would be
+  a key of every query), its logits at stride 4. The stride of the logits
+  is the model's ``logit_stride`` everywhere the engine needs it;
 - ``PREFETCH`` chunks are in flight on a worker pool, each doing decode ->
   pad -> upload -> device step -> pull; the caller's thread runs the
   native union-find postprocess (remove_small_zones + exclude_nodes remap
@@ -99,7 +102,8 @@ from ..ops.resize import column_operator_t, embedded_bicubic_rows
 from ..ops.upsample_argmax import column_windows, upsample_argmax
 from ..parallel.distributed import (Mesh, make_mesh, pad_to_multiple,
                                     single_process)
-from ..parallel.spatial import is_split, stem_columns, stem_edge_pads
+from ..parallel.spatial import (check_width_split, is_split, stem_columns,
+                                stem_edge_pads)
 from ..utils.device import resolve_device, set_float32_exact
 from ..utils.profiling import chunk_scope, stage_timer
 from .preprocess import ProcessedImage
@@ -172,9 +176,12 @@ class NeuralBarkCalculator:
                    else torch.contiguous_format)
             self.model = model.to(device=self.device, dtype=self.dtype,
                                   memory_format=fmt).eval()
-        # exact-height backbones (EfficientNet): one launch height per
-        # distinct trimmed height, or per bucket with effnet_bucket_heights
+        # exact-height backbones (EfficientNet, SegFormer): one launch
+        # height per distinct trimmed height, or per bucket with
+        # effnet_bucket_heights
         backbone = self.model.backbone
+        if is_split(self.mesh.model):
+            check_width_split(backbone)
         self._exact_heights = not backbone.supports_ragged
         self._bucketed_exact = (self._exact_heights
                                 and self.config.effnet_bucket_heights)
@@ -764,10 +771,11 @@ class NeuralBarkCalculator:
         exact = self._exact_heights
         if exact and not self._bucketed_exact:
             assert all(it.image.shape[0] == pad_h for it in items)
-        if not exact and pad_h % 8:
+        stride = self.model.logit_stride
+        if not exact and pad_h % stride:
             raise ValueError(
-                f"height bucket {pad_h} must be a multiple of 8 (the "
-                f"model's output stride); set PredictConfig.height_bucket "
+                f"height bucket {pad_h} must be a multiple of {stride} (the "
+                f"model's logit stride); set PredictConfig.height_bucket "
                 f"accordingly")
         n = len(items)
         n_pad = self._padded_batch(n)
@@ -806,17 +814,18 @@ class NeuralBarkCalculator:
         """The embedded (feat_h -> h) bicubic row operator for one trimmed
         height, uploaded once and cached on the device. On the exact-height
         path (h == pad_h) it is the plain (ceil(pad_h / stride) -> pad_h)
-        operator: the model sees the launch height itself."""
+        operator: the model sees the launch height itself. ``stride`` is
+        the model's logit stride."""
         key = (h, pad_h)
         with self._cache_lock:
             op = self._rowop_cache.get(key)
             if op is None:
-                backbone = self.model.backbone
+                stride = self.model.logit_stride
                 if self._exact_heights:
-                    feat_h = pad_feat = -(-pad_h // backbone.feature_stride)
+                    feat_h = pad_feat = -(-pad_h // stride)
                 else:
-                    feat_h = backbone.valid_feature_height(h)
-                    pad_feat = pad_h // 8
+                    feat_h = self.model.backbone.valid_feature_height(h)
+                    pad_feat = pad_h // stride
                 op = torch.from_numpy(embedded_bicubic_rows(
                     feat_h, h, pad_feat, pad_h)).to(self.device)
                 if len(self._rowop_cache) >= 128:  # bound: 128 x 512 KB
@@ -850,9 +859,9 @@ class NeuralBarkCalculator:
         feat = self._logits(batch_u8, valid_h)
         w = batch_u8.shape[2]
         if is_split(self.mesh.model):
-            # the logits are the full width's; the split backbone's
-            # feature stride divides the image width
-            w = feat.shape[2] * self.model.backbone.feature_stride
+            # the logits are the full width's; the split model's logit
+            # stride divides the image width
+            w = feat.shape[2] * self.model.logit_stride
         preds = upsample_argmax(feat, row_ops,
                                 *self._colt_dev(feat.shape[2], w))
         return self.mesh.data.gather_rows(pack2bit(preds) if pack

@@ -110,6 +110,9 @@ def build_model(model_name: str, dropout: float, seed: int
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = factory(**kwargs)
+        if not getattr(model.backbone, "supports_training", True):
+            raise ValueError(f"model {model_name!r} predicts only: the port "
+                             f"does not train it")
         for m in model.backbone.modules():
             if isinstance(m, nn.Conv2d):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out",

@@ -104,7 +104,9 @@ def step_on_batch(model: torch.nn.Module, opt: torch.optim.Optimizer,
     the connected-component postprocess unless ``f1_postprocess`` (the
     JAX step's default for train batches). Stage timers: ``train/forward``
     (the model and the loss), ``train/backward`` (clearing the gradients,
-    the backward pass and, under ``world``, their all-reduce),
+    the backward pass and, under ``world``, their all-reduce, itself in
+    ``train/collective/grads``; the cross-rank BatchNorm's all-reduces are
+    in ``train/collective/bn``),
     ``train/optimizer`` (the Adam step), ``train/metrics``."""
     loss_fn = loss_fn or make_loss_fn("lovasz")
     model.train()
@@ -120,7 +122,8 @@ def step_on_batch(model: torch.nn.Module, opt: torch.optim.Optimizer,
         opt.zero_grad(set_to_none=True)
         loss.backward()
         if world is not None:
-            world.all_reduce_grads(model.parameters())
+            with stage_timer("train/collective/grads"):
+                world.all_reduce_grads(model.parameters())
     with stage_timer("train/optimizer"):
         opt.step()
     with stage_timer("train/metrics"), torch.no_grad():

@@ -10,7 +10,8 @@ of the profiler's (a host event on the thread that ran it, on the clock
 of the device events), so a trace shows which host stage was open at
 every device event and every idle gap; and the stage's interval is kept
 in a bounded log (``spans()``) on that clock (the wall clock, in ns), for
-tools that read a trace in memory. The range is a plain host event
+tools that read a trace in memory, with the thread that ran it
+(``thread_spans()``). The range is a plain host event
 (``_RecordFunctionFast``), not a ``record_function`` user annotation,
 whose device-side copy the profiler adds to the device's events. Spans of
 one chunk of the prediction pump carry the chunk's first manifest index:
@@ -33,7 +34,8 @@ from torch.autograd import profiler as _profiler
 _STAGES: dict[str, list] = {}
 _LOCK = threading.Lock()
 _ENABLED = True
-# (name, start ns, end ns, chunk) of the spans run while a profiler records
+# (name, start ns, end ns, chunk, native thread id) of the spans run while
+# a profiler records
 SPAN_LOG = 1 << 16
 _SPANS: deque = deque(maxlen=SPAN_LOG)
 # the chunk of the prediction pump a thread works on (``chunk_scope``)
@@ -73,7 +75,7 @@ def stage_timer(name: str, chunk: int | None = None):
         finally:
             w1 = time.time_ns()
             dt = time.perf_counter() - t0
-            _SPANS.append((name, w0, w1, chunk))
+            _SPANS.append((name, w0, w1, chunk, threading.get_native_id()))
             _add(name, dt)
 
 
@@ -116,6 +118,11 @@ def spans() -> list[tuple[str, int, int, int | None]]:
     """(name, start ns, end ns, chunk) of the latest ``SPAN_LOG`` stages
     run while a profiler recorded, on the wall clock the profiler's events
     use (``time.time_ns``)."""
+    return [row[:4] for row in list(_SPANS)]
+
+
+def thread_spans() -> list[tuple[str, int, int, int | None, int]]:
+    """``spans()`` with the native id of the thread that ran each."""
     return list(_SPANS)
 
 

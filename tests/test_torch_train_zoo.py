@@ -777,7 +777,8 @@ def test_every_zoo_model_trains_through_the_cli(name, data_root, tmp_path):
     """One tiny epoch (2 steps of 12 at crop 32) of each MODEL_FACTORIES
     name through cli/train.main on the CPU, with finite losses; the
     predict engine loads its best_model.pt and answers one image. The two
-    bare EfficientNet names need the variant, as in the JAX package."""
+    bare EfficientNet names need the variant, as in the JAX package;
+    segformer_b5 predicts only, and training it is refused."""
     from neuralbarkcalculator_tpu_torch.cli.train import build_parser, main
     from neuralbarkcalculator_tpu_torch.pipeline.predict import (
         NeuralBarkCalculator)
@@ -790,6 +791,10 @@ def test_every_zoo_model_trains_through_the_cli(name, data_root, tmp_path):
             "--model", name]
     if name in ("fcn_efficientnet", "deeplabv3_efficientnet"):
         with pytest.raises(ValueError, match="variant"):
+            main(build_parser().parse_args(argv))
+        return
+    if name == "segformer_b5":
+        with pytest.raises(ValueError, match="predicts only"):
             main(build_parser().parse_args(argv))
         return
     exp = main(build_parser().parse_args(argv))
