@@ -130,7 +130,16 @@ class AtrousConv2d(nn.Conv2d):
     at these rates in bf16 channels_last runs its direct kernel, with or
     without cudnn.benchmark: seconds for a batch of 8 at 2048 x 128 x 128
     on an H100, against milliseconds this way (chip_smoke.py's
-    atrous_times; the figures are in PERF.md)."""
+    atrous_times; the figures are in PERF.md).
+
+    A training step outside autocast (float32) runs it as the sum
+    of its nine taps, each a 1x1 conv over the rows and
+    columns where the tap reads the map and not its padding: the same
+    products less those with zeros. The phases of a 64 x 64 training map
+    are 4 x 4 to 8 x 8 images, thousands of them, whose float32 forward
+    and data gradient cuDNN runs as an FFT and its direct engine (230 ms
+    of a 529 ms step on an H100, PERF.md); a 1x1 conv is one GEMM,
+    and at rate 36 the taps skip 61 % of the products."""
 
     def __init__(self, cin: int, cout: int, rate: int, bias: bool):
         super().__init__(cin, cout, 3, padding=rate, dilation=rate,
@@ -154,6 +163,10 @@ class AtrousConv2d(nn.Conv2d):
         if not halo and self.centre_only(h, w):
             # a 1x1 conv of the centre tap, the same nonzero products
             return F.conv2d(x, self.weight[:, :, 1:2, 1:2], self.bias)
+        if (self.training and not halo
+                and not torch.is_autocast_enabled(x.device.type)):
+            # under bf16 autocast each tap would round to bf16 on its own
+            return self._taps(x)
         # pad by d (the width by 0 on a widened strip), then up to a
         # multiple of d: phase (r, s) takes the padded rows r, r + d, ...
         # and the columns s, s + d, ...
@@ -171,6 +184,28 @@ class AtrousConv2d(nn.Conv2d):
              .permute(0, 3, 1, 4, 2, 5).reshape(b, rh * d, rw * d, o)
              .permute(0, 3, 1, 2))
         return y[:, :, :h, :w + 2 * (wpad - d)]
+
+    def _taps(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv as the sum of its taps' 1x1 convs, each over the part
+        of the output whose tap reads inside the map, zero-padded to the
+        whole output."""
+        d = self.dilation[0]
+        h, w = x.shape[2:]
+        y = None
+        for i in range(3):
+            for j in range(3):
+                dy, dx = (i - 1) * d, (j - 1) * d
+                r0, r1 = max(0, -dy), min(h, h - dy)
+                c0, c1 = max(0, -dx), min(w, w - dx)
+                if r0 >= r1 or c0 >= c1:
+                    continue  # the tap reads only padding
+                t = F.conv2d(x[:, :, r0 + dy:r1 + dy, c0 + dx:c1 + dx],
+                             self.weight[:, :, i:i + 1, j:j + 1])
+                t = F.pad(t, (c0, w - c1, r0, h - r1))
+                y = t if y is None else y + t
+        if self.bias is not None:
+            y = y + self.bias.view(1, -1, 1, 1)
+        return y
 
 
 def _conv_bn_relu(conv: nn.Conv2d, folded: bool) -> nn.Sequential:

@@ -30,7 +30,8 @@ test compares in this process. The tiny model of tests/torch_port_common:
   BN sums and the gradient sum run in another order than on one process,
   a ReLU mask flips where the two forwards straddle 0, and Adam's first
   step turns a small gradient's sign into a whole step; the two ranks'
-  steps are equal bit for bit;
+  steps are equal bit for bit; the DeepLab case again at 104 x 320,
+  where the ASPP's convs run as their taps;
 - the random layers alone: a rank's ASPP dropout and stochastic depth
   are the rows of the global batch's, bit for bit; a world without a
   process group issues no collective, and a batch that does not divide
@@ -131,10 +132,11 @@ def _run_rank(case, rank, size, init, out_dir, kwargs) -> None:
 
 # ------------------------------------------------------------------ steps
 
-def _batch(seed: int = 0):
+def _batch(seed: int = 0, hw: tuple = (64, 64)):
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(GLOBAL_BATCH, 64, 64, 3)).astype(np.float32)
-    labels = np.kron(rng.integers(0, 3, (GLOBAL_BATCH, 8, 8)),
+    x = rng.normal(size=(GLOBAL_BATCH, *hw, 3)).astype(np.float32)
+    labels = np.kron(rng.integers(0, 3, (GLOBAL_BATCH, hw[0] // 8,
+                                         hw[1] // 8)),
                      np.ones((1, 8, 8), np.int64)).astype(np.int32)
     return x, labels
 
@@ -172,16 +174,18 @@ def _recording_masks(masks: list):
     return undo
 
 
-def _one_step(kind: str, dropout: float, state: dict, world=None) -> dict:
-    """One port train step from ``state``: single-process on the global
-    batch, or the rank's rows under ``world``."""
+def _one_step(kind: str, dropout: float, state: dict, world=None,
+              hw: tuple = (64, 64)) -> dict:
+    """One port train step from ``state`` on an ``hw`` batch:
+    single-process on the global batch, or the rank's rows under
+    ``world``."""
     from neuralbarkcalculator_tpu_torch.parallel.sync_bn import (
         convert_batchnorm)
     from neuralbarkcalculator_tpu_torch.train.optim import adam
     from neuralbarkcalculator_tpu_torch.train.step import step_on_batch
 
     model = _model(kind, dropout, state)
-    x, labels = _batch()
+    x, labels = _batch(hw=tuple(hw))
     rows = slice(None)
     if world is not None:
         convert_batchnorm(model, world)
@@ -201,9 +205,10 @@ def _one_step(kind: str, dropout: float, state: dict, world=None) -> dict:
             "masks": masks}
 
 
-def _case_step(world, out_dir, kind: str, dropout: float) -> dict:
+def _case_step(world, out_dir, kind: str, dropout: float,
+               hw: tuple = (64, 64)) -> dict:
     state = torch.load(os.path.join(out_dir, "weights.pt"))
-    return _one_step(kind, dropout, state, world)
+    return _one_step(kind, dropout, state, world, hw)
 
 
 def _weights(tmp_path, kind: str) -> dict:
@@ -286,9 +291,37 @@ def _same_direction(a, b, min_cos: float, max_rel: float, name: str):
 
 @pytest.mark.parametrize("kind,dropout", [("fcn", 0.5), ("deeplab", 0.0)])
 def test_two_rank_step_matches_one_rank(tmp_path, kind, dropout):
+    _ranks_match_one_process(tmp_path, kind, dropout, (64, 64))
+
+
+def test_two_rank_step_on_the_aspp_taps_matches_one_rank(tmp_path,
+                                                         monkeypatch):
+    """The DeepLab case on a 104 x 320 batch, whose 13 x 40 map puts every
+    ASPP rate on the sum of its taps (at 64 x 64 each reads its centre
+    tap alone). At this batch Adam's first update turns more near-zero
+    gradients' sign flips into whole steps: 18 of 148 tensors read under
+    cosine 0.998, the least 0.99256 and relative L2 0.122
+    (layer1.0.bn3.bias), with the taps and with the phase form alike. So
+    the update is held as the JAX comparison above holds it (cosine >=
+    0.99, relative L2 <= 0.15); every other check as in the 64 x 64
+    cases (the gradients read >= 0.999975 and <= 0.0071)."""
+    from neuralbarkcalculator_tpu_torch.models.heads import AtrousConv2d
+
+    taps = []
+    tap_sum = AtrousConv2d._taps
+    monkeypatch.setattr(AtrousConv2d, "_taps", lambda conv, x: (
+        taps.append(conv.dilation[0]) or tap_sum(conv, x)))
+    _ranks_match_one_process(tmp_path, "deeplab", 0.0, (104, 320),
+                             update=(0.99, 0.15))
+    assert taps == [12, 24, 36]
+
+
+def _ranks_match_one_process(tmp_path, kind: str, dropout: float,
+                             hw: tuple, update: tuple = (0.998, 0.1)
+                             ) -> None:
     state = _weights(tmp_path, kind)
-    ranks = _spawn("step", tmp_path, kind=kind, dropout=dropout)
-    want = _one_step(kind, dropout, state)
+    ranks = _spawn("step", tmp_path, kind=kind, dropout=dropout, hw=hw)
+    want = _one_step(kind, dropout, state, hw=hw)
     assert len(want["masks"]) == 1
     for rank, r in enumerate(ranks):
         assert len(r["masks"]) == len(want["masks"])
@@ -312,8 +345,8 @@ def test_two_rank_step_matches_one_rank(tmp_path, kind, dropout):
                 torch.testing.assert_close(got, v, rtol=1e-4, atol=1e-6,
                                            msg=name)
             else:
-                _same_direction(got - state[name], v - state[name], 0.998,
-                                0.1, name)
+                _same_direction(got - state[name], v - state[name],
+                                *update, name)
     # the ranks' steps are equal, bit for bit: the same global loss and
     # summed gradients go through the same Adam
     for name, v in ranks[0]["state"].items():

@@ -10,6 +10,9 @@ packages (the frameworks' convolutions sum in other orders), 1e-4 between
 a padded ragged batch and per-image runs (the JAX package's bound,
 tests/test_ragged.py; the pooled branch's masked mean sums in another
 order), and folded vs unfolded weights bitwise equal between packages.
+The ASPP's atrous conv, in its phase form and as a training step's sum of
+taps, against torch's dilated conv: forward to rounding, and the taps'
+gradients in float64.
 """
 import numpy as np
 import pytest
@@ -190,17 +193,19 @@ def test_ragged_deeplab_equals_per_image(tiny, rng, fold):
 
 
 @pytest.mark.parametrize("rate,h,w", [(12, 16, 16), (24, 13, 20),
-                                      (36, 16, 12), (2, 7, 9)])
+                                      (36, 16, 12), (2, 7, 9), (36, 64, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_atrous_conv_equals_dilated_conv(rate, h, w, dtype, rng):
-    """The space-to-batch ASPP conv computes torch's dilated conv: in
-    float32 to rounding (the same products, summed in another order), in
-    bf16 within a rounding of the output; channels_last or not."""
+@pytest.mark.parametrize("train", [False, True])
+def test_atrous_conv_equals_dilated_conv(rate, h, w, dtype, train, rng):
+    """The space-to-batch ASPP conv, and in train mode the sum of its taps'
+    1x1 convs, computes torch's dilated conv: in float32 to rounding (the
+    same products, summed in another order), in bf16 within a rounding of
+    the output; channels_last or not."""
     import torch.nn.functional as F
 
     from neuralbarkcalculator_tpu_torch.models.heads import AtrousConv2d
 
-    conv = AtrousConv2d(24, 8, rate, bias=True).to(dtype)
+    conv = AtrousConv2d(24, 8, rate, bias=True).to(dtype).train(train)
     x = torch.from_numpy(rng.normal(size=(2, 24, h, w)).astype(
         np.float32)).to(dtype)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
@@ -213,6 +218,40 @@ def test_atrous_conv_equals_dilated_conv(rate, h, w, dtype, rng):
         assert got.shape == want.shape and got.dtype == dtype
         torch.testing.assert_close(got.float(), want, rtol=0,
                                    atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("rate", [12, 24, 36])
+def test_atrous_taps_backward_equals_dilated_conv(rate, rng, monkeypatch):
+    """A training step's ASPP conv, the sum of its taps' 1x1 convs, has
+    torch's dilated conv's gradients of its input, weight and bias, in
+    float64 on a 64 x 64 map: each edge tap's slice and pad carry the
+    gradient to the rows and columns it reads and to none beyond. Under
+    bf16 autocast the step keeps the phase form."""
+    import torch.nn.functional as F
+
+    from neuralbarkcalculator_tpu_torch.models.heads import AtrousConv2d
+
+    conv = AtrousConv2d(16, 8, rate, bias=True).double().train()
+    taps = []
+    tap_sum = conv._taps
+    monkeypatch.setattr(conv, "_taps",
+                        lambda x: taps.append(x.shape) or tap_sum(x))
+    x = torch.from_numpy(rng.normal(size=(2, 16, 64, 64)))
+    dy = torch.from_numpy(rng.normal(size=(2, 8, 64, 64)))
+    leaves = (x.requires_grad_(), conv.weight, conv.bias)
+    got = torch.autograd.grad(conv(x), leaves, dy)
+    assert len(taps) == 1
+    want = torch.autograd.grad(
+        F.conv2d(x, conv.weight, conv.bias, padding=rate, dilation=rate),
+        leaves, dy)
+    for name, a, b in zip(("input", "weight", "bias"), got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-12 * float(b.abs().max()),
+                                   msg=name)
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        conv.float()(x.float())
+    assert len(taps) == 1
 
 
 def test_deeplab_has_torchvision_names():

@@ -15,7 +15,8 @@ models/convert.load_backbone_checkpoint / merge_backbone).
   (rtol 1e-4, atol 1e-4 of the largest entry), every other gradient by
   direction and norm (a ReLU mask that flips where the two forwards
   straddle 0 moves single elements; bounds and measurements in
-  ``EXACT``). The weights damp the residual branches (the BN that ends
+  ``EXACT``); the tiny DeepLab at 104 x 320, whose ASPP convs run as
+  their taps, at the same bounds. The weights damp the residual branches (the BN that ends
   each is drawn from [0.02, 0.06], near torchvision's
   zero_init_residual): at zoo_model's [0.1, 0.3] a train-mode ResNet-101
   moves by 3e-4 of its largest logit between float32 and float64, at this
@@ -141,13 +142,13 @@ def flax_exact_train_mode(monkeypatch):
     monkeypatch.setattr(fnn, "BatchNorm", ExactVarianceBatchNorm)
 
 
-def _float64_grads(state, name, x, labels) -> dict:
-    """The port's loss gradients with the model in float64 from ``state``
-    (the logits cast to float32 before the upsample, as in float32
-    training)."""
+def _float64_grads(state, model, x, labels) -> dict:
+    """The port's loss gradients with ``model`` (a fresh one of the
+    architecture) in float64 from ``state`` (the logits cast to float32
+    before the upsample, as in float32 training)."""
     from neuralbarkcalculator_tpu_torch.ops.losses import lovasz_softmax_loss
 
-    model = _random_layers_off(zoo_model(name, 0))
+    model = _random_layers_off(model)
     model.load_state_dict(state)
     model = model.double().train()
     lovasz_softmax_loss(model(torch.from_numpy(x).double(), dropout_seed=0),
@@ -157,6 +158,49 @@ def _float64_grads(state, name, x, labels) -> dict:
 
 @pytest.mark.parametrize("name", list(EXACT))
 def test_train_step_matches_jax(name, flax_exact_train_mode):
+    size = EXACT[name]
+    rng = np.random.default_rng(0)
+    x = normalized([blob_image(rng, size, size) for _ in range(2)])
+    labels = np.kron(rng.integers(0, 3, (2, size // 8, size // 8)),
+                     np.ones((1, 8, 8), np.int64)).astype(np.int32)
+    _step_matches_jax(_parity_model(name), _jax_model(name),
+                      lambda: zoo_model(name, 0),
+                      0 if "efficientnet" in name else None, x, labels)
+
+
+def test_deeplab_step_on_the_aspp_taps_matches_jax(flax_exact_train_mode,
+                                                   monkeypatch):
+    """The tiny DeepLab's step on a 104 x 320 batch, whose 13 x 40 map
+    puts every ASPP rate on the sum of its taps (rate 12 with rows and
+    columns, 24 and 36 with columns alone), against JAX at the bounds
+    above."""
+    from neuralbarkcalculator_tpu_torch.models.convert import (
+        load_state_dict_into, variables_to_state_dict)
+    from neuralbarkcalculator_tpu_torch.models.heads import AtrousConv2d
+    from torch_port_common import (tiny_deeplab_jax_model,
+                                   tiny_deeplab_torch_model, tiny_variables)
+
+    taps = []
+    tap_sum = AtrousConv2d._taps
+    monkeypatch.setattr(AtrousConv2d, "_taps", lambda conv, x: (
+        taps.append(conv.dilation[0]) or tap_sum(conv, x)))
+    model = tiny_deeplab_torch_model()
+    load_state_dict_into(model, variables_to_state_dict(
+        tiny_variables(seed=2, model=tiny_deeplab_jax_model())))
+    rng = np.random.default_rng(0)
+    x = normalized([blob_image(rng, 104, 320) for _ in range(2)])
+    labels = np.kron(rng.integers(0, 3, (2, 13, 40)),
+                     np.ones((1, 8, 8), np.int64)).astype(np.int32)
+    _step_matches_jax(_random_layers_off(model), tiny_deeplab_jax_model(),
+                      tiny_deeplab_torch_model, None, x, labels)
+    # the step's three ASPP convs, then its float64 double's
+    assert taps == [12, 24, 36] * 2
+
+
+def _step_matches_jax(model, jax_model, fresh, variant, x, labels):
+    """One ``step_on_batch`` of ``model`` (random layers off) against
+    ``jax_model`` applied in train mode from the same weights, and its
+    gradients against the float64 ones of ``fresh()`` from them."""
     import jax
     import jax.numpy as jnp
     from neuralbarkcalculator_tpu.models.convert import (
@@ -164,24 +208,16 @@ def test_train_step_matches_jax(name, flax_exact_train_mode):
     from neuralbarkcalculator_tpu.ops.losses import lovasz_softmax_loss
     from neuralbarkcalculator_tpu_torch.models.convert import (
         variables_to_state_dict)
+    from neuralbarkcalculator_tpu_torch.models.heads import FCNHead
     from neuralbarkcalculator_tpu_torch.train.optim import adam
     from neuralbarkcalculator_tpu_torch.train.step import step_on_batch
 
-    size = EXACT[name]
-    variant = 0 if "efficientnet" in name else None
-    model = _parity_model(name)
     # copies: JAX may alias numpy memory and runs asynchronously, while
     # the port's step below updates its weights and statistics in place
     variables = torch_state_dict_to_variables(
         {k: v.numpy().copy() for k, v in model.state_dict().items()},
-        head="deeplab" if name.startswith("deeplab") else "fcn",
+        head="fcn" if isinstance(model.classifier, FCNHead) else "deeplab",
         efficientnet_variant=variant)
-    rng = np.random.default_rng(0)
-    x = normalized([blob_image(rng, size, size) for _ in range(2)])
-    labels = np.kron(rng.integers(0, 3, (2, size // 8, size // 8)),
-                     np.ones((1, 8, 8), np.int64)).astype(np.int32)
-
-    jax_model = _jax_model(name)
 
     def loss_fn(params, batch_stats):
         logits, mutated = jax_model.apply(
@@ -217,7 +253,7 @@ def test_train_step_matches_jax(name, flax_exact_train_mode):
         {"params": jax.tree.map(np.asarray, want_grads)}, variant)
     params = dict(model.named_parameters())
     assert set(grads) == set(params)
-    exact = _float64_grads(copy.deepcopy(before), name, x, labels)
+    exact = _float64_grads(copy.deepcopy(before), fresh(), x, labels)
     largest = max(float(g.abs().max()) for g in exact.values())
     cosines, rel_norms = {}, {}
     for k, g in grads.items():
